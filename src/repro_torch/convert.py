@@ -1,9 +1,15 @@
-"""The JAX package's parameters and caches, as numpy, to the port's and back.
+"""The JAX package's parameters, caches and train states, as numpy, to the
+port's and back.
 
 Trees are nested dicts (and lists, for remainder layers) of arrays with the
 JAX package's keys, so a leaf keeps its ``jax.tree_util.keystr`` path.  Take
 a JAX tree to numpy with ``jax.tree.map(np.asarray, tree)`` first; this
 module imports neither JAX nor the JAX package.
+
+A train state goes as ``{"adam": {"step", "m", "v"}, "ef": tree or ()}``:
+the fields of the JAX ``TrainState`` and ``AdamWState``, with the error
+feedback of ``hier_int8`` as one ``[npods, ...]`` leaf per parameter (the
+JAX per-pod values stacked along the pod axis).
 """
 
 from __future__ import annotations
@@ -12,14 +18,9 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
+from .distributed.steps import TrainState
+from .optim.adamw import AdamWState
+from .tree import tree_map
 
 
 def _to_torch(a, device: torch.device) -> torch.Tensor:
@@ -29,10 +30,21 @@ def _to_torch(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """bf16 leaves come back as float32, which holds every bf16 value exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def params_from_numpy(tree, device: DeviceLike = "cuda"):
     """Nested dict of numpy arrays -> the same dict of tensors on ``device``."""
     device = resolve_device(device)
-    return _map(lambda a: _to_torch(a, device), tree)
+    return tree_map(lambda a: _to_torch(a, device), tree)
+
+
+def params_to_numpy(tree):
+    """The port's parameters (or any tree of tensors) back to numpy."""
+    return tree_map(_to_numpy, tree)
 
 
 def cache_from_numpy(tree, device: DeviceLike = "cuda"):
@@ -41,13 +53,27 @@ def cache_from_numpy(tree, device: DeviceLike = "cuda"):
 
 
 def cache_to_numpy(tree):
-    """A decode cache back to numpy on the host.
+    """A decode cache back to numpy on the host."""
+    return params_to_numpy(tree)
 
-    bf16 leaves come back as float32, which holds every bf16 value exactly.
-    """
 
-    def one(t: torch.Tensor):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+def train_state_from_numpy(tree, device: DeviceLike = "cuda") -> TrainState:
+    adam = tree["adam"]
+    ef = tree.get("ef", ())
+    return TrainState(
+        adam=AdamWState(
+            step=_to_torch(np.asarray(adam["step"], np.int32), resolve_device(device)),
+            m=params_from_numpy(adam["m"], device),
+            v=params_from_numpy(adam["v"], device),
+        ),
+        ef=params_from_numpy(ef, device) if len(ef) else (),
+        diloco=(),
+    )
 
-    return _map(one, tree)
+
+def train_state_to_numpy(state: TrainState):
+    adam = state.adam
+    return {
+        "adam": {"step": _to_numpy(adam.step), "m": params_to_numpy(adam.m), "v": params_to_numpy(adam.v)},
+        "ef": params_to_numpy(state.ef) if len(state.ef) else (),
+    }

@@ -27,6 +27,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 #: name -> source; every kernel the port builds.
 SOURCES: Dict[str, Path] = {
     "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
+    "flash_bwd": _PKG / "flash_attention" / "csrc" / "flash_bwd.cu",
+    "wan_quant": _PKG / "wan_quant" / "csrc" / "wan_quant.cu",
 }
 
 NVCC_FLAGS = (

@@ -9,6 +9,8 @@
 //   logits are -1e30 (NEG_INF), as in the TPU kernel
 //   online max / sum / accumulator in float32
 //   out = acc / max(l, 1e-30), cast to the input's type
+//   lse = m + log(max(l, 1e-30)) in float32, if asked for (the backward
+//   pass, csrc/flash_bwd.cu, recomputes p = exp(logit - lse) from it)
 // GQA: query head h reads kv head h / (H / KVH), the TPU kernel's index map.
 // Keys past Sk (the ragged edge of the last tile) get -inf and zero values,
 // so they never count; rows past Sq are not written.
@@ -60,6 +62,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] float32, or null: not written
   long long sq[3], sk[3], sv[3], so[3];  // element strides: batch, seq, head
   int H, KVH, Sq, Sk;
   int causal;
@@ -261,6 +264,11 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Args a) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
   }
+  if (a.lse != nullptr && t == 0) {
+    float* lp = a.lse + ((long long)b * a.H + h) * a.Sq;
+    if (row0 < a.Sq) lp[row0] = m[0] + logf(l[0]);
+    if (row1 < a.Sq) lp[row1] = m[1] + logf(l[1]);
+  }
 #pragma unroll
   for (int dn = 0; dn < DT; ++dn) {
     const int col = dn * 8 + 2 * t;
@@ -359,6 +367,7 @@ __global__ void __launch_bounds__(kBlockM) flash_fwd_f32(const Args a) {
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < HD; ++d) op[(long long)row * a.so[1] + d] = acc[d] / denom;
+    if (a.lse != nullptr) a.lse[((long long)b * a.H + h) * a.Sq + row] = m + logf(denom);
   }
 }
 
@@ -390,8 +399,9 @@ extern "C" {
 // strides {batch, seq, head} of q, k, v, o in that order.  head_dim is one of
 // 16, 64, 128; is_bf16 selects bf16 (else float32) for all four tensors.
 // sm_scale is head_dim**-0.5 rounded once to float32, as the TPU kernel has it.
+// lse is a contiguous float32 [B, H, Sq] output, or null (serving needs none).
 int repro_flash_fwd(int device, int is_bf16, int head_dim, const void* q, const void* k,
-                    const void* v, void* o, const long long* strides, const int* dims,
+                    const void* v, void* o, void* lse, const long long* strides, const int* dims,
                     int causal, int window, float softcap, float sm_scale, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -400,6 +410,7 @@ int repro_flash_fwd(int device, int is_bf16, int head_dim, const void* q, const 
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = static_cast<float*>(lse);
   for (int i = 0; i < 3; ++i) {
     a.sq[i] = strides[i];
     a.sk[i] = strides[3 + i];

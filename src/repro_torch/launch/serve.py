@@ -33,6 +33,7 @@ def main(argv=None) -> None:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.device import resolve_device
     from repro_torch.launch.batches import decode_step_input, synthetic_prompt_batch
+    from repro_torch.launch.profiling import profile_run
     from repro_torch.models import decode_step, init_params, prefill
 
     device = resolve_device(args.device)
@@ -74,31 +75,10 @@ def main(argv=None) -> None:
 
     if args.profile:
         # decode re-runs against the filled cache: the same work per step
-        _profile("prefill", lambda: prefill(params, batch, cfg, max_len=max_len), device)
-        _profile(f"decode x{args.gen}", lambda: [
+        profile_run("prefill", lambda: prefill(params, batch, cfg, max_len=max_len), device)
+        profile_run(f"decode x{args.gen}", lambda: [
             decode_step(params, tokens, cache, cfg, args.prompt_len + i) for i in range(args.gen)
         ], device)
-
-
-def _profile(label, fn, device, rows: int = 12) -> None:
-    """One run of ``fn`` under torch.profiler: busy share and top ops."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize(device)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    print(
-        f"profile {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} device events"
-    )
-    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=rows))
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
-"""Model stack of the port: the attention layer kinds, for serving."""
+"""Model stack of the port: the attention layer kinds, for serving and training."""
 
 from .config import ATTN, LOCAL, RECURRENT, RWKV, ModelConfig, MoEConfig
 from .lm import DecoderLM
 from .transformer import (
+    IGNORE_LABEL,
     decode_step,
     forward,
     init_decode_cache,
     init_params,
+    loss_fn,
     prefill,
 )
 
@@ -16,11 +18,13 @@ __all__ = [
     "RECURRENT",
     "RWKV",
     "DecoderLM",
+    "IGNORE_LABEL",
     "ModelConfig",
     "MoEConfig",
     "decode_step",
     "forward",
     "init_decode_cache",
     "init_params",
+    "loss_fn",
     "prefill",
 ]

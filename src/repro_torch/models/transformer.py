@@ -10,11 +10,19 @@ Entry points:
 
 * :func:`init_params`
 * :func:`forward`      -- full forward -> (logits, aux)
+* :func:`loss_fn`      -- next-token cross-entropy (+ z-loss, MoE aux) for training
 * :func:`prefill`      -- forward + per-layer KV caches
 * :func:`decode_step`  -- one token through the cache
 
-Recurrent (RG-LRU) and RWKV layers, and the training loss, are not ported
-yet (ROADMAP queue 1, items 12, 13 and 6).
+Training takes gradients through autograd; attention's comes from the
+flash backward kernel (:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`).
+``cfg.remat`` "full" recomputes each group in the backward pass
+(``torch.utils.checkpoint``, as ``jax.checkpoint``); "dots" is treated as
+"full": the JAX policy also saves the matmul outputs, so the two differ in
+memory only, never in values.
+
+Recurrent (RG-LRU) and RWKV layers are not ported yet (ROADMAP queue 1,
+items 12 and 13).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import attention_decode, attention_forward, init_attention, init_cache
@@ -30,6 +39,8 @@ from .ffn import dense_ffn, init_dense_ffn, init_moe, moe_ffn
 from .layers import apply_norm, dense_init, embed_init, init_norm, softcap
 
 Params = Dict[str, Any]
+
+IGNORE_LABEL = -100
 
 _NOT_PORTED = {
     RECURRENT: "RG-LRU recurrent layers are not ported yet (ROADMAP queue 1, item 12)",
@@ -180,13 +191,24 @@ def unembed(params: Params, x, cfg: ModelConfig):
 
 def _run_stack(params: Params, x, cfg: ModelConfig, positions, cache_len):
     """Every layer in order; the per-layer caches stacked like the JAX scan's."""
-    caches = []
-    for i in range(cfg.num_groups):
-        group = _index(params["groups"], i)
+
+    def group_body(x, group):
         slots = {}
         for s, kind in enumerate(cfg.pattern):
             x, slots[f"slot{s}"] = _block(group[f"slot{s}"], x, kind, cfg, positions, cache_len)
-        caches.append(slots)
+        return x, slots
+
+    remat = cfg.remat in ("full", "dots") and cache_len is None and torch.is_grad_enabled()
+    caches = []
+    for i in range(cfg.num_groups):
+        group = _index(params["groups"], i)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda x, g: group_body(x, g)[0], x, group, use_reentrant=False
+            )
+        else:
+            x, slots = group_body(x, group)
+            caches.append(slots)
     rem = []
     for i, kind in enumerate(cfg.remainder):
         x, c = _block(params["remainder"][i], x, kind, cfg, positions, cache_len)
@@ -206,6 +228,32 @@ def forward(params: Params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, torc
     x, _ = _run_stack(params, x, cfg, positions, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params, x, cfg), aux
+
+
+def loss_fn(params: Params, batch, cfg: ModelConfig):
+    """Next-token cross-entropy with label masking and aux losses.
+
+    Port of ``repro.models.transformer.loss_fn``: float32 log-softmax,
+    labels equal to ``IGNORE_LABEL`` masked out, ``cfg.z_loss`` times the
+    masked mean of logsumexp^2, and the MoE router's aux term.
+    Returns (total, {"ce", "aux", "tokens"}).
+    """
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"]
+    logits = logits[:, : labels.shape[1], :].float()  # logits[t] predicts labels[t]
+    mask = (labels != IGNORE_LABEL).float()
+    safe_labels = labels.clamp_min(0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    token_ll = logp.gather(-1, safe_labels[..., None])[..., 0]
+    denom = mask.sum().clamp_min(1.0)
+    ce = -(token_ll * mask).sum() / denom
+    total = ce
+    if cfg.z_loss:
+        logz = torch.logsumexp(logits, dim=-1)
+        total = total + cfg.z_loss * torch.mean(logz.square() * mask)
+    if cfg.moe is not None:
+        total = total + cfg.moe.router_aux_coef * aux
+    return total, {"ce": ce, "aux": aux, "tokens": denom}
 
 
 @torch.no_grad()

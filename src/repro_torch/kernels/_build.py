@@ -29,6 +29,7 @@ SOURCES: Dict[str, Path] = {
     "flash_fwd": _PKG / "flash_attention" / "csrc" / "flash_fwd.cu",
     "flash_bwd": _PKG / "flash_attention" / "csrc" / "flash_bwd.cu",
     "wan_quant": _PKG / "wan_quant" / "csrc" / "wan_quant.cu",
+    "wkv6": _PKG / "rwkv6_wkv" / "csrc" / "wkv6.cu",
 }
 
 NVCC_FLAGS = (

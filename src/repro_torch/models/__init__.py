@@ -1,4 +1,4 @@
-"""Model stack of the port: the attention layer kinds, for serving and training."""
+"""Model stack of the port: the attention and RWKV6 layer kinds, for serving and training (RWKV6 serves only)."""
 
 from .config import ATTN, LOCAL, RECURRENT, RWKV, ModelConfig, MoEConfig
 from .lm import DecoderLM

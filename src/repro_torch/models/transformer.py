@@ -1,4 +1,4 @@
-"""Decoder stack for the attention layer kinds (ATTN, LOCAL).
+"""Decoder stack for the attention (ATTN, LOCAL) and RWKV6 layer kinds.
 
 Port of ``repro.models.transformer``: plain functions over the JAX
 package's nested parameter dict, with the same keys and a leading stacked
@@ -21,8 +21,11 @@ flash backward kernel (:class:`~repro_torch.kernels.flash_attention.FlashAttenti
 "full": the JAX policy also saves the matmul outputs, so the two differ in
 memory only, never in values.
 
-Recurrent (RG-LRU) and RWKV layers are not ported yet (ROADMAP queue 1,
-items 12 and 13).
+RWKV6 layers (rwkv6-7b) serve: prefill and decode run the WKV recurrence
+in the hand-written kernel (:mod:`repro_torch.kernels.rwkv6_wkv`), and
+decode updates their state in place.  Their training waits for a WKV
+backward kernel (ROADMAP queue 1, item 13): a gradient through them raises.
+Recurrent (RG-LRU) layers are not ported yet (ROADMAP queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..tree import tree_map
 from .attention import attention_decode, attention_forward, init_attention, init_cache
 from .config import ATTN, LOCAL, RECURRENT, RWKV, ModelConfig
 from .ffn import dense_ffn, init_dense_ffn, init_moe, moe_ffn
 from .layers import apply_norm, dense_init, embed_init, init_norm, softcap
+from .rwkv6 import channel_mix, init_rwkv_block, init_rwkv_state, time_mix
 
 Params = Dict[str, Any]
 
@@ -44,14 +49,13 @@ IGNORE_LABEL = -100
 
 _NOT_PORTED = {
     RECURRENT: "RG-LRU recurrent layers are not ported yet (ROADMAP queue 1, item 12)",
-    RWKV: "RWKV6 layers are not ported yet (ROADMAP queue 1, item 13)",
 }
 
 
 def _check_kind(kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[kind])
-    if kind not in (ATTN, LOCAL):
+    if kind not in (ATTN, LOCAL, RWKV):
         raise ValueError(kind)
 
 
@@ -61,11 +65,11 @@ def _check_kind(kind: str) -> None:
 def _init_layer(kind: str, cfg: ModelConfig, generator, device) -> Params:
     _check_kind(kind)
     kw = dict(generator=generator, device=device)
-    params: Params = {
-        "norm1": init_norm(cfg, device=device),
-        "norm2": init_norm(cfg, device=device),
-        "attn": init_attention(cfg, **kw),
-    }
+    params: Params = {"norm1": init_norm(cfg, device=device), "norm2": init_norm(cfg, device=device)}
+    if kind == RWKV:
+        params["rwkv"] = init_rwkv_block(cfg, **kw)
+        return params
+    params["attn"] = init_attention(cfg, **kw)
     if cfg.moe is not None and kind == ATTN:
         params["ffn"] = init_moe(cfg, **kw)
     else:
@@ -77,6 +81,19 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _stack_layers(make, n: int):
+    """``n`` trees from ``make()``, stacked on a leading axis as they are
+    made: one unstacked tree is alive at a time, not ``n`` (rwkv6-7b's 32
+    layers would otherwise hold its 30 GB of parameters twice)."""
+    tree = make()
+    out = tree_map(lambda t: t.new_empty((n, *t.shape)), tree)
+    for i in range(n):
+        if i:
+            tree = make()
+        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+    return out
 
 
 def init_params(
@@ -102,7 +119,7 @@ def init_params(
         params["frontend_proj"] = dense_init((cfg.frontend_dim, cfg.d_model), **kw)
     if cfg.num_groups > 0:
         params["groups"] = {
-            f"slot{s}": _stack([_init_layer(kind, cfg, **kw) for _ in range(cfg.num_groups)])
+            f"slot{s}": _stack_layers(lambda kind=kind: _init_layer(kind, cfg, **kw), cfg.num_groups)
             for s, kind in enumerate(cfg.pattern)
         }
     if cfg.remainder:
@@ -127,9 +144,33 @@ def _ffn(params: Params, h, kind: str, cfg: ModelConfig):
     return dense_ffn(params["ffn"], h, cfg)
 
 
+def _rwkv_block(params: Params, x, cfg: ModelConfig, state: Params, *, in_place: bool):
+    """One RWKV6 layer from ``state`` -> (x, new state).  ``in_place``
+    writes the new state into ``state``'s tensors (decode's cache)."""
+    h = apply_norm(params["norm1"], x, cfg)
+    tm_out, shift_att, wkv = time_mix(
+        params["rwkv"], h, cfg, shift_state=state["shift_att"], wkv_state=state["wkv"],
+        wkv_out=state["wkv"] if in_place else None,
+    )
+    x = x + tm_out
+    h = apply_norm(params["norm2"], x, cfg)
+    cm_out, shift_ffn = channel_mix(params["rwkv"], h, cfg, shift_state=state["shift_ffn"])
+    if in_place:
+        state["shift_att"].copy_(shift_att)
+        state["shift_ffn"].copy_(shift_ffn)
+        return x + cm_out, state
+    # the shifts are views of [B, T, D] activations: copy them out
+    return x + cm_out, {"wkv": wkv, "shift_att": shift_att.clone(), "shift_ffn": shift_ffn.clone()}
+
+
 def _block(params: Params, x, kind: str, cfg: ModelConfig, positions, cache_len):
     """One layer (forward or prefill).  Returns (x, cache or None)."""
     _check_kind(kind)
+    if kind == RWKV:  # prefill starts from a zero state; max_len does not apply
+        x, state = _rwkv_block(
+            params, x, cfg, init_rwkv_state(cfg, x.shape[0], device=x.device), in_place=False
+        )
+        return x, state if cache_len is not None else None
     h = apply_norm(params["norm1"], x, cfg)
     attn_out, cache = attention_forward(
         params["attn"], h, cfg, window=_layer_window(kind, cfg), positions=positions,
@@ -143,6 +184,8 @@ def _block(params: Params, x, kind: str, cfg: ModelConfig, positions, cache_len)
 def _block_decode(params: Params, x_t, cache, kind: str, cfg: ModelConfig, position: int):
     """One layer, one token.  Returns (x_t, cache), the cache updated in place."""
     _check_kind(kind)
+    if kind == RWKV:
+        return _rwkv_block(params, x_t, cfg, cache, in_place=True)
     h = apply_norm(params["norm1"], x_t, cfg)
     attn_out, cache = attention_decode(
         params["attn"], h, cache, cfg, position, window=_layer_window(kind, cfg)
@@ -258,7 +301,10 @@ def loss_fn(params: Params, batch, cfg: ModelConfig):
 
 @torch.no_grad()
 def prefill(params: Params, batch, cfg: ModelConfig, *, max_len: Optional[int] = None):
-    """Forward + caches.  Returns (last-position logits [B, V], cache)."""
+    """Forward + caches.  Returns (last-position logits [B, V], cache).
+
+    ``max_len`` sizes the attention caches; RWKV6 states have no length.
+    """
     x, positions = embed_inputs(params, batch, cfg)
     x, cache = _run_stack(params, x, cfg, positions, max_len or x.shape[1])
     logits = unembed(params, x[:, -1:, :], cfg)[:, 0, :]
@@ -273,6 +319,8 @@ def init_decode_cache(
 
     def one(kind: str):
         _check_kind(kind)
+        if kind == RWKV:
+            return init_rwkv_state(cfg, batch, device=device)
         return init_cache(cfg, batch, max_len, window=_layer_window(kind, cfg), device=device)
 
     cache: Params = {}

@@ -22,6 +22,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_fwd,
     flash_attention_ref,
 )
+from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.optim import global_norm
@@ -199,6 +200,109 @@ def test_smoke_train_step_card_matches_cpu(cuda, strategy):
     leaves = len(list(tree_items(params)))
     assert launched.get("wan_quant", 0) == launched.get("wan_dequant", 0) == (leaves if strategy == "hier_int8" else 0)
     assert torch.isfinite(metrics["loss"])
+
+
+# (b, t, h, n, r/k/v dtype, w dtype); the first is rwkv6-7b's layout at a
+# shorter prompt, the second a ragged T
+WKV_CASES = [
+    (2, 256, 4, 64, "bfloat16", "float32"),
+    (1, 1000, 2, 64, "bfloat16", "float32"),
+    (2, 100, 3, 16, "float32", "float32"),
+    (2, 64, 2, 8, "bfloat16", "bfloat16"),
+    (1, 50, 2, 32, "float32", "bfloat16"),
+    (1, 64, 2, 128, "bfloat16", "float32"),
+]
+# TestWkv6's tolerances by the r/k/v dtype: both sides compute in float32
+# from the same values, summing in another order
+WKV_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def _wkv_inputs(seed, b, t, h, n, rkv_dtype, w_dtype, device):
+    rng = np.random.default_rng(seed)
+
+    def t_(a, dtype="float32"):
+        return torch.tensor(a.astype(np.float32)).to(device, getattr(torch, dtype))
+
+    r, k, v = (t_(rng.standard_normal((b, t, h, n)) * 0.5, rkv_dtype) for _ in range(3))
+    w = t_(1.0 / (1.0 + np.exp(-(rng.standard_normal((b, t, h, n)) + 2.0))), w_dtype)
+    return r, k, v, w, t_(rng.standard_normal((h, n)) * 0.1), t_(rng.standard_normal((b, h, n, n)) * 0.1)
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+def test_wkv6_kernel_matches_plain(cuda, case):
+    b, t, h, n, rkv_dtype, w_dtype = case
+    r, k, v, w, u, s0 = _wkv_inputs(t, *case, cuda)
+    before = LAUNCHES["wkv6_fwd"]
+    out, final = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wkv6_fwd"] == before + 1
+    assert out.shape == (b, t, h, n) and final.shape == (b, h, n, n)
+    assert out.dtype == final.dtype == torch.float32
+    plain_out, plain_final = wkv6_ref(r, k, v, w, u, s0)
+    tol = WKV_TOL[rkv_dtype]
+    torch.testing.assert_close(out, plain_out, rtol=tol, atol=tol)
+    torch.testing.assert_close(final, plain_final, rtol=tol, atol=tol)
+
+
+def test_wkv6_decode_steps_update_the_state_in_place(cuda):
+    """T = 1 steps with state_out = state0, as decode runs them, against one call."""
+    r, k, v, w, u, s0 = _wkv_inputs(7, 2, 12, 4, 64, "bfloat16", "float32", cuda)
+    whole, final = wkv6(r, k, v, w, u, s0)
+    state = s0.clone()
+    for i in range(12):
+        out, same = wkv6(r[:, i:i + 1], k[:, i:i + 1], v[:, i:i + 1], w[:, i:i + 1], u, state, state_out=state)
+        assert same is state
+        torch.testing.assert_close(out[:, 0], whole[:, i], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(state, final, rtol=1e-5, atol=1e-5)
+
+
+def test_wkv6_kernel_reads_strided_inputs(cuda):
+    """r, k, v as views of one [B, T, 3, H, N] projection: no copy."""
+    rkv = torch.randn((2, 40, 3, 4, 16), device=cuda).to(torch.bfloat16)
+    r, k, v = rkv.unbind(2)
+    assert not r.is_contiguous()
+    w = torch.sigmoid(torch.randn((2, 40, 4, 16), device=cuda) + 2)
+    u = torch.randn((4, 16), device=cuda) * 0.1
+    out, final = wkv6(r, k, v, w, u)
+    plain_out, plain_final = wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(out, plain_out, rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(final, plain_final, rtol=5e-2, atol=5e-2)
+
+
+def test_wkv6_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    r, k, v, w, u, s0 = _wkv_inputs(1, 1, 4, 2, 48, "float32", "float32", cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        wkv6(r, k, v, w, u, s0)
+    r, k, v, w, u, s0 = _wkv_inputs(1, 1, 4, 2, 16, "float32", "float32", cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        wkv6(r.to(torch.bfloat16), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        wkv6(r, k, v, w, u, s0.transpose(2, 3))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_smoke_prefill_and_decode_card_matches_cpu(cuda, dtype):
+    """rwkv6's serving path at the smoke config on the card and on the CPU:
+    one WKV launch per layer in prefill and in every decode step."""
+    cfg = dataclasses.replace(get_smoke_config("rwkv6-7b"), dtype=dtype)
+    params = init_params(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    cpu_params = _tree(params, lambda t: t.cpu())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    before = LAUNCHES["wkv6_fwd"]
+    g_logits, g_cache = prefill(params, {"tokens": tokens.to(cuda)}, cfg)
+    assert LAUNCHES["wkv6_fwd"] == before + cfg.num_layers
+    c_logits, c_cache = prefill(cpu_params, {"tokens": tokens}, cfg)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(g_logits.float().cpu(), c_logits.float(), rtol=tol, atol=tol)
+    for i in range(4):
+        nxt = g_logits.argmax(-1)
+        g_logits, g_cache = decode_step(params, nxt, g_cache, cfg, 40 + i)
+        c_logits, c_cache = decode_step(cpu_params, nxt.cpu(), c_cache, cfg, 40 + i)
+        torch.testing.assert_close(g_logits.float().cpu(), c_logits.float(), rtol=tol, atol=tol)
+        assert LAUNCHES["wkv6_fwd"] == before + cfg.num_layers * (2 + i)
+    torch.testing.assert_close(
+        g_cache["groups"]["slot0"]["wkv"].cpu(), c_cache["groups"]["slot0"]["wkv"], rtol=tol, atol=tol
+    )
 
 
 def _tree(tree, fn):

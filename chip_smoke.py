@@ -32,6 +32,11 @@ Phases, each printing one JSON line on stdout:
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` prints them, and, last, ``{"ok": true, "device": ...}``.
+A kernel's ``ms`` (and ``library_ms``) is its device time: ``GRAPH_CALLS``
+calls captured in one CUDA graph, the replay timed with one event pair and
+divided by the count, so the wrapper's host time is left out.  ``call_ms``
+(and ``library_call_ms``) is the median of event pairs around single
+Python calls, host included, as earlier runs reported ``ms``.
 Any failure raises: the script exits non-zero and prints no result.  It
 also fails without a card, and where the port's sources are absent.
 """
@@ -59,14 +64,15 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # kernel vs plain; rtol = atol
 SERVE_TOL = 5e-2  # bf16 logits, card vs CPU: rounding points differ
 TRAIN_TOL = 5e-2  # bf16 loss, grad norm, synced leaves (relative norm), card vs CPU
 
-# (label, B, S, H, KVH, hd, dtype, window, softcap); the first is the path's shape
+# (label, B, S, H, KVH, hd, dtype, window, softcap, forward route); the
+# first is the path's shape
 FLASH_CASES = [
-    ("path", 8, 1024, 12, 12, 64, "bfloat16", None, None),
-    ("ragged_s1000", 8, 1000, 12, 12, 64, "bfloat16", None, None),
-    ("gqa_h8_kvh2_hd128", 8, 1024, 8, 2, 128, "bfloat16", None, None),
-    ("window256", 8, 1024, 12, 12, 64, "bfloat16", 256, None),
-    ("softcap30", 8, 1024, 12, 12, 64, "bfloat16", None, 30.0),
-    ("f32", 8, 1024, 12, 12, 64, "float32", None, None),
+    ("path", 8, 1024, 12, 12, 64, "bfloat16", None, None, "wgmma"),
+    ("ragged_s1000", 8, 1000, 12, 12, 64, "bfloat16", None, None, "wgmma"),
+    ("gqa_h8_kvh2_hd128", 8, 1024, 8, 2, 128, "bfloat16", None, None, "wgmma"),
+    ("window256", 8, 1024, 12, 12, 64, "bfloat16", 256, None, "wgmma"),
+    ("softcap30", 8, 1024, 12, 12, 64, "bfloat16", None, 30.0, "wgmma"),
+    ("f32", 8, 1024, 12, 12, 64, "float32", None, None, "f32"),
 ]
 # (label, B, S, H, KVH, hd, dtype, window, softcap); the first is the train path's shape
 FLASH_BWD_CASES = [
@@ -103,8 +109,46 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
+MS_IS = "device time: calls captured in one CUDA graph, the replay timed with one event pair, / calls"
+
+
+def device_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph
+    (after warm-up calls on a side stream), the median replay of
+    ``replays``, each timed with one event pair, divided by ``calls``.
+    The host's time per call (checks, allocation, the launch) is left out.
+    A failed capture raises: there is no fallback to the per-call time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()  # warm
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
 def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
-    """Median of ``runs`` CUDA-event-timed calls after ``warmup`` calls."""
+    """Median of ``runs`` CUDA-event-timed calls after ``warmup`` calls:
+    each pair also holds the host's time for the call."""
     import torch
 
     for _ in range(warmup):
@@ -133,11 +177,14 @@ def bound(nbytes, flops, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_flops(b, s, h, hd, window):
+    return 4 * b * h * hd * attention_pairs(s, s, True, window)  # q.k and p.v
+
+
 def flash_bound(b, s, h, kvh, hd, dtype, window):
     itemsize = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * b * s * h * hd + 2 * b * s * kvh * hd) * itemsize  # q, o; k, v
-    flops = 4 * b * h * hd * attention_pairs(s, s, True, window)  # q.k and p.v
-    return bound(nbytes, flops, dtype)
+    return bound(nbytes, flash_flops(b, s, h, hd, window), dtype)
 
 
 def flash_bwd_bound(b, s, h, kvh, hd, dtype, window):
@@ -196,18 +243,22 @@ def phase_kernels(torch):
     """The flash forward's checks (the serving path's shape first)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES, flash_attention, flash_attention_ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
-    for label, b, s, h, kvh, hd, dtype, window, cap in FLASH_CASES:
+    for label, b, s, h, kvh, hd, dtype, window, cap, route in FLASH_CASES:
         dt = getattr(torch, dtype)
         q = torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(dt)
         kw = dict(causal=True, window=window, logit_softcap=cap)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        routes = dict(ROUTE_LAUNCHES)
         out = flash_attention(q, k, v, **kw)
+        took = {r: n - routes.get(r, 0) for r, n in ROUTE_LAUNCHES.items() if n != routes.get(r, 0)}
+        if took != {route: 1}:
+            raise AssertionError(f"flash_attention_fwd {label}: launched on routes {took}, expected {route}")
         plain = flash_attention_ref(qh, kh, vh, **kw)[0].transpose(1, 2)
         torch.cuda.synchronize()
         diff = (out.float() - plain.float()).abs()
@@ -215,19 +266,25 @@ def phase_kernels(torch):
         # assert_allclose's form with rtol = atol = tol, as the tests hold it
         if not bool((diff <= tol + tol * plain.float().abs()).all()):
             raise AssertionError(f"flash_attention_fwd {label}: max_abs_err {err}, rtol=atol={tol}")
-        library_ms = None
+        library_ms = library_call_ms = None
         if window is None and cap is None:  # the same function as one PyTorch call
             qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qc, kc, vc, is_causal=True, enable_gqa=h != kvh))
+
+            def library():
+                return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
+
+            library_ms, library_call_ms = device_ms(library), time_ms(library)
         bound_ms, bound_by = flash_bound(b, s, h, kvh, hd, dtype, window)
+        ms = device_ms(lambda: flash_attention(q, k, v, **kw))
         checks.append({
             "label": label, "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd},
-            "dtype": dtype, "window": window, "softcap": cap,
+            "dtype": dtype, "window": window, "softcap": cap, "fwd_route": route,
             "max_abs_err": err, "tol": tol,
-            "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+            "ms": ms, "call_ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+            "tflops": flash_flops(b, s, h, hd, window) / (ms * 1e-3) / 1e12,
             "plain_ms": time_ms(lambda: flash_attention_ref(qh, kh, vh, **kw)),
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_call_ms": library_call_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
         })
     emit({"phase": "kernels", "kernel": "flash_attention_fwd", "checks": checks})
     return checks
@@ -263,7 +320,7 @@ def phase_kernels_bwd(torch):
             errs[name] = diff.max().item()
             if not bool((diff <= tol + tol * want.abs()).all()):
                 raise AssertionError(f"flash_attention_bwd {label} {name}: max_abs_err {errs[name]}, rtol=atol={tol}")
-        library_ms = None
+        library_ms = library_call_ms = None
         if window is None and cap is None:  # sdpa's forward plus its backward: one pair
             qc, kc, vc = (t.detach().contiguous().requires_grad_(True) for t in heads[:3])
             doc = heads[4].contiguous()
@@ -272,15 +329,20 @@ def phase_kernels_bwd(torch):
                 o = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
                 torch.autograd.grad(o, (qc, kc, vc), doc)
 
-            library_ms = time_ms(library)
+            library_ms, library_call_ms = device_ms(library), time_ms(library)
         bound_ms, bound_by = flash_bwd_bound(b, s, h, kvh, hd, dtype, window)
+
+        def kernel():
+            return flash_attention_bwd(q, k, v, out, lse, do, **kw)
+
         checks.append({
             "label": label, "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd},
             "dtype": dtype, "window": window, "softcap": cap,
             "max_abs_err": max(errs.values()), "max_abs_err_dq_dk_dv": errs, "tol": tol,
-            "ms": time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw)),
+            "ms": device_ms(kernel), "call_ms": time_ms(kernel),
             "plain_ms": time_ms(lambda: flash_attention_bwd_ref(*heads[:4], lse, heads[4], **kw), runs=5),
-            "library_ms": library_ms, "library_is": "scaled_dot_product_attention forward + backward",
+            "library_ms": library_ms, "library_call_ms": library_call_ms,
+            "library_is": "scaled_dot_product_attention forward + backward",
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
         del q, k, v, do, out, lse, heads, grads, plain
@@ -320,8 +382,10 @@ def phase_kernels_wan(torch):
             "label": label, "rows": rows, "cols": cols, "int8_lanes_differing": differing,
             "int8_max_abs_diff": int(dq.max()), "scales_max_rel_err": ((s - sr).abs() / sr).max().item(),
             "dequant_max_abs_err": deq_err,
-            "quant_ms": time_ms(lambda: wan_quant(x)), "quant_plain_ms": time_ms(lambda: wan_quant_ref(x)),
-            "dequant_ms": time_ms(lambda: wan_dequant(q, s, cols)),
+            "quant_ms": device_ms(lambda: wan_quant(x)), "quant_call_ms": time_ms(lambda: wan_quant(x)),
+            "quant_plain_ms": time_ms(lambda: wan_quant_ref(x)),
+            "dequant_ms": device_ms(lambda: wan_dequant(q, s, cols)),
+            "dequant_call_ms": time_ms(lambda: wan_dequant(q, s, cols)),
             "dequant_plain_ms": time_ms(lambda: wan_dequant_ref(q, s, cols)),
             "bound_ms": bound(wan_bytes(rows, cols), 0, "float32")[0],
         })
@@ -334,11 +398,18 @@ def phase_kernels_wan(torch):
         mats.append(torch.randn((NPODS * (math.prod(shp) // cols), cols), generator=gen, device="cuda") * 1e-3)
     packed = [wan_quant(m) for m in mats]
     step_bytes = sum(wan_bytes(*m.shape) for m in mats)
+
+    def quant_step():
+        return [wan_quant(m) for m in mats]
+
+    def dequant_step():
+        return [wan_dequant(q, s, m.shape[1]) for m, (q, s) in zip(mats, packed)]
+
     step = {
         "leaves": len(mats), "values": sum(m.numel() for m in mats), "bytes": step_bytes,
-        "quant_ms": time_ms(lambda: [wan_quant(m) for m in mats], runs=10),
+        "quant_ms": device_ms(quant_step, calls=5), "quant_call_ms": time_ms(quant_step, runs=10),
         "quant_plain_ms": time_ms(lambda: [wan_quant_ref(m) for m in mats], runs=5),
-        "dequant_ms": time_ms(lambda: [wan_dequant(q, s, m.shape[1]) for m, (q, s) in zip(mats, packed)], runs=10),
+        "dequant_ms": device_ms(dequant_step, calls=5), "dequant_call_ms": time_ms(dequant_step, runs=10),
         "dequant_plain_ms": time_ms(
             lambda: [wan_dequant_ref(q, s, m.shape[1]) for m, (q, s) in zip(mats, packed)], runs=5),
         "bound_ms": bound(step_bytes, 0, "float32")[0], "bound_by": "bytes",
@@ -378,12 +449,16 @@ def phase_kernels_wkv(torch):
                 raise AssertionError(f"wkv6_fwd {label} {name}: max_abs_err {errs[name]}, rtol=atol={tol}")
         bound_ms, bound_by = wkv_bound(b, t, h, n, rkv_dtype, w_dtype)
         slow = t >= 1000  # the plain loop launches ~6 kernels a step
+
+        def kernel():
+            return wkv6(r, k, v, w, u, state, state_out=state if in_place else None)
+
         checks.append({
             "label": label, "shape": {"B": b, "T": t, "H": h, "N": n}, "rkv_dtype": rkv_dtype,
             "w_dtype": w_dtype, "state_in_place": in_place,
             "max_abs_err": max(errs.values()), "max_abs_err_out_state": errs, "tol": tol,
-            "ms": time_ms(lambda: wkv6(r, k, v, w, u, state, state_out=state if in_place else None),
-                          runs=10 if slow else 25),
+            "ms": device_ms(kernel, calls=5 if slow else GRAPH_CALLS),
+            "call_ms": time_ms(kernel, runs=10 if slow else 25),
             "plain_ms": time_ms(lambda: wkv6_ref(r, k, v, w, u, s0), runs=3 if slow else 25,
                                 warmup=1 if slow else 3),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -436,6 +511,7 @@ def serve_run(torch, params, batch, cfg, *, prompt, gen, max_len=None):
 def phase_serve(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
     from repro_torch.launch.batches import synthetic_prompt_batch
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.tree import tree_map
@@ -452,8 +528,12 @@ def phase_serve(torch):
     run()  # warm-up: cuBLAS handles, allocator pools, kernel library load
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
     res = run()
     launches = dict(LAUNCHES)
+    routes = dict(ROUTE_LAUNCHES)
+    if routes != {"wgmma": cfg.num_layers}:
+        raise AssertionError(f"serve: flash forward routes {routes}, expected {cfg.num_layers} on wgmma")
     peak = torch.cuda.max_memory_allocated()
     t_prefill, after_prefill, t_decode, step_ms, ok, tokens = (
         res[k] for k in ("t_prefill", "after_prefill", "t_decode", "step_ms", "ok", "tokens"))
@@ -492,7 +572,7 @@ def phase_serve(torch):
         "decode_tokens_per_s": B_SERVE * GEN / t_decode,
         "decode_s": t_decode,
         "peak_memory_bytes": peak,
-        "launches_main_path": launches,
+        "launches_main_path": launches, "fwd_routes_main_path": routes,
         "card_vs_cpu_max_abs_err": [d for d, _ in diffs],
         "card_vs_cpu_worst_share_of_tol": [share for _, share in diffs], "card_vs_cpu_tol": SERVE_TOL,
         "last_tokens": tokens.tolist(),
@@ -615,6 +695,7 @@ def phase_train(torch):
     from repro_torch.data import loader_for_model
     from repro_torch.distributed import pod_grads, sync_grads, wan_bytes_per_step
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, global_norm
     from repro_torch.runtime import GeoTrainer, TrainerConfig
@@ -629,8 +710,10 @@ def phase_train(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
     result = trainer.run()
     launches = dict(LAUNCHES)
+    routes = dict(ROUTE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     rows = result["metrics"]
     n_leaves = len(tree_leaves(trainer.params))
@@ -639,6 +722,8 @@ def phase_train(torch):
     expected = {k: STEPS * n for k, n in per_step.items()}
     if launches != expected:
         raise AssertionError(f"train: launches {launches} over {STEPS} steps, expected {expected}")
+    if routes != {"wgmma": expected["flash_attention_fwd"]}:
+        raise AssertionError(f"train: flash forward routes {routes}, expected all on wgmma")
     losses = [r["loss"] for r in rows]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss not finite or not falling: {losses}")
@@ -686,7 +771,7 @@ def phase_train(torch):
         "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
         "grad_norm_last": rows[-1]["grad_norm"], "peak_memory_bytes": peak,
         "wan_bytes_per_pod_step": wan, "wan_bytes_per_step_analytic": analytic,
-        "launches_main_path": launches, "launches_per_step": per_step,
+        "launches_main_path": launches, "launches_per_step": per_step, "fwd_routes_main_path": routes,
         "card_vs_cpu": {"batch": [NPODS, 128], "loss": [g_loss, c_loss], "grad_norm": [g_norm, c_norm],
                         "leaf_rel_err_max": max(leaf_err.values()), "tol": TRAIN_TOL},
     })
@@ -719,8 +804,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": train.get(name, 0), "launches_per_train_step": train.get(name, 0) // STEPS,
             "max_abs_err": check["max_abs_err"], "tol": check["tol"], "ms": check["ms"],
+            "call_ms": check["call_ms"], "ms_is": MS_IS,
             "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
-            "library_ms": check["library_ms"], **more,
+            "library_ms": check["library_ms"], "library_call_ms": check.get("library_call_ms"), **more,
         }
 
     wan_err = {
@@ -731,21 +817,22 @@ def main() -> int:
     emit({"kernels": [
         entry("flash_attention_fwd", "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
               "src/repro/kernels/flash_attention/kernel.py:110", fwd[0],
-              launches_serve_prefill=serve.get("flash_attention_fwd", 0), shapes=fwd),
+              launches_serve_prefill=serve.get("flash_attention_fwd", 0), fwd_route=fwd[0]["fwd_route"],
+              tflops=fwd[0]["tflops"], shapes=fwd),
         entry("flash_attention_bwd", "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
               "none: the JAX package trains through autodiff of dense attention (no Pallas backward)",
               bwd[0], library_is=bwd[0]["library_is"], shapes=bwd),
         entry("wan_quant", "src/repro_torch/kernels/wan_quant/csrc/wan_quant.cu",
               "src/repro/kernels/wan_quant/kernel.py:44",
-              dict(wan_err, ms=wan_step["quant_ms"], plain_ms=wan_step["quant_plain_ms"],
-                   bound_ms=wan_step["bound_ms"]),
+              dict(wan_err, ms=wan_step["quant_ms"], call_ms=wan_step["quant_call_ms"],
+                   plain_ms=wan_step["quant_plain_ms"], bound_ms=wan_step["bound_ms"]),
               ms_is="all 19 leaves of one train step (2 pods stacked)",
               library_why="no single PyTorch call computes per-block absmax int8", shapes=wan),
         entry("wan_dequant", "src/repro_torch/kernels/wan_quant/csrc/wan_quant.cu",
               "src/repro/kernels/wan_quant/kernel.py:73",
               dict(wan_err, max_abs_err=max(c["dequant_max_abs_err"] for c in wan), tol=0.0,
-                   ms=wan_step["dequant_ms"], plain_ms=wan_step["dequant_plain_ms"],
-                   bound_ms=wan_step["bound_ms"]),
+                   ms=wan_step["dequant_ms"], call_ms=wan_step["dequant_call_ms"],
+                   plain_ms=wan_step["dequant_plain_ms"], bound_ms=wan_step["bound_ms"]),
               ms_is="all 19 leaves of one train step (2 pods stacked)",
               library_why="no single PyTorch call computes q * scale per 256-lane block"),
         dict(entry("wkv6_fwd", "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6.cu",

@@ -2,8 +2,9 @@
 
 Each kernel source (``<package>/csrc/<name>.cu``) becomes a shared library
 with a plain C interface, loaded with ``ctypes``.  The library's file name
-carries a hash of its source and of the compiler flags, so an edit rebuilds
-it and an unchanged checkout reuses it.  Libraries go to
+carries a hash of its source, of the headers (``*.cuh``) beside it, and of
+the compiler flags, so an edit rebuilds it and an unchanged checkout reuses
+it.  Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``).  Nothing is built when a module is imported: the CPU tests
 import every module on a machine with no ``nvcc``.
@@ -52,7 +53,11 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

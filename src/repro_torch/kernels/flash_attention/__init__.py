@@ -1,11 +1,20 @@
-from .ops import FlashAttentionFn, flash_attention, flash_attention_bwd, flash_attention_fwd
+from .ops import (
+    ROUTE_LAUNCHES,
+    FlashAttentionFn,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
+    fwd_route,
+)
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = [
+    "ROUTE_LAUNCHES",
     "FlashAttentionFn",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_ref",
     "flash_attention_fwd",
     "flash_attention_ref",
+    "fwd_route",
 ]

@@ -13,41 +13,80 @@
 //   pass, csrc/flash_bwd.cu, recomputes p = exp(logit - lse) from it)
 // GQA: query head h reads kv head h / (H / KVH), the TPU kernel's index map.
 // Keys past Sk (the ragged edge of the last tile) get -inf and zero values,
-// so they never count; rows past Sq are not written.
+// so they never count; rows past Sq are not written.  A masked logit stays
+// the finite -1e30 (not -inf), so a row whose first tile is all masked
+// holds m = -1e30 until a visible key resets it, exactly as on the TPU.
 //
-// Design.  One thread block per (64-row query tile, head, batch); a loop
-// inside the block walks 64-key tiles, which takes the place of the TPU
-// grid's sequential ("arbitrary") key dimension.  The loop bounds come from
-// the causal and window masks: the counterpart of the TPU kernel's
-// `pl.when(in_range)` block skip.  The q, k and v tiles sit in shared
-// memory (v transposed, so P.V reads it as the column-major B operand);
-// rows are padded by 8 elements so the fragment loads hit 32 distinct banks.
-//   * bf16: four warps, 16 query rows each.  Both products run on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, float32 accumulate).
-//     The probabilities p are rounded to bf16 for the P.V product, where
-//     the TPU kernel keeps them in float32; that stays inside the bf16
-//     tolerance (2e-2) and is what every bf16 flash kernel does.
-//   * float32: one thread per query row, scalar FMA in float32 (no TF32),
-//     softmax updated every 16 keys to bound the registers.
-// The kernel takes element strides for batch, sequence and head (head_dim
-// contiguous), so the model's [B, S, H, hd] tensors go in with no copy.
+// Three kernels; the caller names one by its route (ops.py::fwd_route),
+// and a route that does not fit the dtype and head_dim is refused:
+//   * "wgmma" (bf16, head_dim 64 and 128): flash_fwd_wgmma below, the
+//     Hopper design.  It serves every full-width path.
+//   * "mma_sync" (bf16, head_dim 16): flash_fwd_bf16, the first port's
+//     Ampere-style kernel, kept for the smoke configs' 16-wide heads.
+//   * "f32" (float32, head_dim 16, 64, 128): flash_fwd_f32, scalar FMA.
 //
 // What bounds it on the H100.  At the serving path's shape (B=8, H=12,
 // S=1024, hd=64, bf16, causal) it must move ~50 MB (q, k, v, o once each:
 // ~15 us at 3.35 TB/s) and do ~12.9 GFLOP (~13 us at 989 TFLOP/s dense
-// bf16), so the floor is memory at ~15 us.  This first kernel does not
-// reach it: mma.sync runs at a fraction of the tensor-core rate that only
-// wgmma reaches, every tile load is synchronous (no copy/compute overlap),
-// and each block re-reads its k/v tiles from L2.  What it leaves for the
-// redesign: wgmma on shared-memory operands, TMA loads into a ring of tiles
-// with mbarriers, warp specialisation (a producer warp feeding consumer
-// warpgroups), and a persistent grid ordered so causal tiles balance.  Its
-// measured times stand beside the bound in PERF.md.
+// bf16), so the floor is memory at ~15 us.  Per 128 x 128 tile the two
+// products take ~1024 tensor-core cycles of an SM at hd 64, and the 16384
+// exponentials as many cycles of its 16 MUFU lanes: the kernel has to keep
+// both units fed at once.  Clock counters in the consumers on the card put
+// most of each one's time in the softmax and in issuing wgmma, little in
+// waiting for data, with the two consumers in phase: that, not memory, is
+// what holds it back (PERF.md, Findings).
+//
+// Design of flash_fwd_wgmma.  A persistent grid, one CTA per SM, of 384
+// threads in three warpgroups.  A work item is one 128-row query tile of
+// one (batch, head); items are numbered heaviest first (the last query
+// tiles, with the longest causal rows, of every head) and dealt to the CTAs
+// in rounds that alternate direction, so the load evens out.
+//   * Producer (warpgroup 0, registers lowered to 24 with setmaxnreg): one
+//     thread issues TMA loads of each item's query tile into one of two
+//     buffers, and of its 128-key K and V tiles into a ring in shared
+//     memory (4 stages at hd 64, 2 at hd 128), which runs on from one item
+//     to the next.  Each ring stage has a full barrier per tensor
+//     (transaction bytes) and an empty barrier per tensor (one arrival per
+//     consumer warp); each query buffer has a full and an empty barrier.
+//     So the next item's query and first tiles load while this item
+//     finishes.  The tensor maps are 4-D over (hd, H, S, B) with the
+//     tensors' own byte strides, so strided q, k, v load with no copy, and
+//     rows past Sq or Sk arrive as zeros without reading into the next batch.
+//   * Two consumers (warpgroups 1 and 2, registers raised to 240), 64
+//     query rows of each item: S = Q K^T with wgmma from shared memory (both
+//     K-major, 128-byte swizzle), the online softmax in the exp2 domain in
+//     registers, then O += P V with P from registers (the S accumulators
+//     rounded to bf16 are the A fragments) and V from shared memory through
+//     the descriptor's transpose bit, so V is never transposed by hand.
+//     Q K^T of tile kt is issued beside P V of tile kt - 1, and the softmax
+//     of tile kt runs while that product is in flight.  The probabilities
+//     p are rounded to bf16 for P.V, where the TPU kernel keeps them in
+//     float32; that stays inside the bf16 tolerance (2e-2).
+//   * Only the tiles that need it pay for the index compare: the tiles
+//     holding the causal diagonal, the window's leading edge or the ragged
+//     end of Sk.  The loop bounds skip fully masked tiles (key_tiles).
+//   * Epilogue: O / l is written as bf16 into the consumer's own rows of the
+//     item's query buffer in the swizzled layout and stored with one TMA
+//     store per 64 columns, which drops rows past Sq; lse goes out with
+//     plain stores in natural log (m * ln 2 + log l).
+// The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so the library links against the
+// runtime alone (no -lcuda).  A failed encode, attribute or launch returns an
+// error code, and the wrapper raises on it.  Tried on the card and dropped
+// (PERF.md, Findings): ping-pong turns between the consumers, deeper rings, a
+// 192-row CTA of three consumers at hd 64, the next tile's Q K^T issued
+// ahead into a second S accumulator, and the next item's first Q K^T
+// issued under this item's epilogue (the last two make ptxas serialise the
+// wgmma pipeline).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -118,6 +157,10 @@ constexpr size_t bf16_smem_bytes() {
   return (size_t(2) * kBlockM * (HD + 8) + size_t(HD) * (kBlockN + 8)) * sizeof(__nv_bfloat16);
 }
 
+// The "mma_sync" route (bf16, head_dim 16).  One block per (64-row query
+// tile, head, batch), four warps of 16 rows, a loop over 64-key tiles; q, k
+// and v (transposed) in padded shared memory, loaded synchronously; both
+// products with mma.sync m16n8k16 (bf16 in, float32 accumulate).
 template <int HD>
 __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Args a) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
@@ -286,8 +329,10 @@ constexpr size_t f32_smem_bytes() {
   return (size_t(kBlockM) * (HD + 1) + size_t(2) * kBlockN * HD) * sizeof(float);
 }
 
-// One thread per query row; q rows padded by one float so the threads of a
-// warp read 32 distinct banks, k and v rows read as broadcasts.
+// The "f32" route.  One thread per query row, scalar FMA in float32 (no
+// TF32), softmax updated every 16 keys to bound the registers; q rows
+// padded by one float so the threads of a warp read 32 distinct banks, k
+// and v rows read as broadcasts.
 template <int HD>
 __global__ void __launch_bounds__(kBlockM) flash_fwd_f32(const Args a) {
   constexpr int LDQ = HD + 1;
@@ -371,6 +416,496 @@ __global__ void __launch_bounds__(kBlockM) flash_fwd_f32(const Args a) {
   }
 }
 
+// ---- The Hopper kernel: TMA ring, wgmma, warp specialisation ------------
+
+namespace wg {
+
+constexpr int kN = 128;          // keys per tile
+constexpr int kAtom = kN * 128;  // bytes of one 64-column swizzle atom of a K or V tile
+
+// 128 query rows per work item: two consumer warpgroups of 64, with 240
+// registers each (the O accumulator at head_dim 128 needs them).
+constexpr int kM = 128;
+constexpr int kThreads = 384;     // producer + two consumer warpgroups
+constexpr int kQAtom = kM * 128;  // bytes of one 64-column atom of a query tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;  // the masked logit, in base-2 units
+
+struct Params {
+  CUtensorMap tq, tk, tv, to;  // 4-D (hd, H, S, B) maps; q, k, v boxes 64 x 128 rows, o 64 x 64
+  float* lse;                  // [B, H, Sq] float32, or null
+  int B, H, KVH, Sq, Sk;
+  int causal, window;
+  float softcap, softcap_inv, sm_scale;
+  int n_qtiles;
+};
+
+// Shared memory: two query-tile buffers and as deep a K/V ring as then fits.
+template <int HD>
+struct Smem {
+  static constexpr int kQTile = (HD / 64) * kQAtom;  // bytes of one query tile
+  static constexpr int kTile = (HD / 64) * kAtom;    // bytes of one K or V tile
+  static constexpr int kStages = HD == 64 ? 4 : 2;   // K/V ring depth
+  static constexpr int kQ = 0;                            // + buffer * kQTile, 2 buffers
+  static constexpr int kK = 2 * kQTile;                   // + stage * kTile
+  static constexpr int kV = kK + kTile * kStages;         // + stage * kTile
+  static constexpr int kBar = kV + kTile * kStages;
+  // barriers: full Q [2], empty Q [2], then full K, full V, empty K, empty V [kStages] each
+  static constexpr int kBytes = kBar + 8 * (4 + 4 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024
+};
+
+// First and one-past-last 128-key tile the query tile [q0, q0 + kM) can see.
+__device__ __forceinline__ void key_tiles(const Params& p, int q0, int* beg, int* end) {
+  const int q_last = min(q0 + kM, p.Sq) - 1;
+  int e = p.Sk;
+  if (p.causal) e = min(e, q_last + 1);
+  int b = 0;
+  if (p.window > 0) b = max(0, q0 - p.window + 1);
+  *beg = b / kN;
+  *end = (e + kN - 1) / kN;
+}
+
+// A work item: one 128-row query tile of one (batch, head).  Items are
+// numbered heaviest first: the last query tiles (the longest causal rows)
+// of every head come first.
+struct Item {
+  int b, h, kvh, q0, kt_beg, kt_end;
+};
+
+// The CTA's i-th item: rounds of gridDim.x items, taken in order in even
+// rounds and in reverse in odd ones, so each CTA's heavy and light ends of
+// the rounds even out.
+__device__ __forceinline__ int item_index(int i) {
+  const int lane = i % 2 == 0 ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+  return i * gridDim.x + lane;
+}
+
+__device__ __forceinline__ Item work_item(const Params& p, int w) {
+  Item it;
+  const int per_tile = p.B * p.H;
+  const int z = w / per_tile, rest = w % per_tile;
+  it.b = rest / p.H;
+  it.h = rest % p.H;
+  it.kvh = it.h / (p.H / p.KVH);
+  it.q0 = (p.n_qtiles - 1 - z) * kM;
+  key_tiles(p, it.q0, &it.kt_beg, &it.kt_end);
+  return it;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(x) = 1 - 2 / (1 + e^2x), branch-free (tanhf's branches would make
+// ptxas serialise the wgmma pipeline); absolute error ~2.4e-7, the exponent
+// clamped where tanh is 1 in float32.
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - 2.f * rcp(1.f + ex2(fminf(2.f * kLog2e * x, 64.f)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One consumer's online-softmax step on its S tile (64 rows x 128 keys):
+// softcap and (kMask) mask, update the running max m and sum l, leave
+// p = 2^(x - m) in s and the factor O must be scaled by in alpha.  m is in
+// base-2 units.  In a tile with no softcap and no mask s stays the raw q.k
+// and the scale rides in the exponent's FFMA (the max commutes with a
+// positive scale).  A masked tile is scaled first, so that a masked entry
+// is exactly -1e30 (in base-2 units) and x - m is exact: an FFMA's unrounded
+// product would leave a residual of ~1e23 beside m = -1e30.  Rows: r0 holds
+// d[4j], r0 + 8 holds d[4j + 2].
+template <bool kSoftcap, bool kMask>
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[64], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2], int r0, int k0,
+                                             int t) {
+  constexpr bool kScaled = kSoftcap || kMask;  // s is rewritten in base-2 units
+  const float scale2 = p.sm_scale * kLog2e;
+  const float unit = kScaled ? 1.f : scale2;  // base-2 units per unit of s
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e];
+      if (kSoftcap) {
+        x = p.softcap * tanh_fast(x * p.sm_scale * p.softcap_inv) * kLog2e;
+      } else if (kMask) {
+        x *= scale2;
+      }
+      if (kMask) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        const int row = r0 + (e >> 1) * 8;
+        bool keep = true;
+        if (p.causal) keep = keep && key <= row;
+        if (p.window > 0) keep = keep && key > row - p.window;
+        x = key >= p.Sk ? -INFINITY : (keep ? x : kNegInf2);
+      }
+      if (kScaled) s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * unit);
+    alpha[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], unit, -m[e >> 1]));
+      rs[e >> 1] += s[4 * j + e];
+    }
+  }
+  l[0] = alpha[0] * l[0] + rs[0];
+  l[1] = alpha[1] * l[1] + rs[1];
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (HD == 64) {
+    hopper::wgmma_rs_m64n64(o, a, b, 1);
+  } else {
+    hopper::wgmma_rs_m64n128(o, a, b, 1);
+  }
+}
+
+template <int HD, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ Params p) {
+  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  using L = Smem<HD>;
+  constexpr int kStages = L::kStages;
+  constexpr int kConsumerWarps = 8;
+  constexpr int NO = HD / 2;  // O accumulator floats per thread
+  constexpr int kAtoms = HD / 64;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;                    // + 8 * buffer
+  const uint32_t bar_empty_q = bar_q + 16;                  // + 8 * buffer
+  const uint32_t bar_k = bar_empty_q + 16;                  // + 8 * stage
+  const uint32_t bar_v = bar_k + 8 * kStages;               // + 8 * stage
+  const uint32_t bar_empty_k = bar_v + 8 * kStages;         // + 8 * stage
+  const uint32_t bar_empty_v = bar_empty_k + 8 * kStages;   // + 8 * stage
+  const int n_items = p.n_qtiles * p.B * p.H;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(bar_q + 8 * i, 1);
+      hopper::mbar_init(bar_empty_q + 8 * i, 2);  // one thread of each consumer, after its store
+    }
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bar_k + 8 * s, 1);
+      hopper::mbar_init(bar_v + 8 * s, 1);
+      hopper::mbar_init(bar_empty_k + 8 * s, kConsumerWarps);
+      hopper::mbar_init(bar_empty_v + 8 * s, kConsumerWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // The i-th item of this CTA uses query buffer i % 2; its K/V tiles continue
+  // the ring where the previous item's stopped (`tiles` counts them).
+  if (threadIdx.x / 128 == 0) {
+    // ---- producer ----
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      int tiles = 0;
+      for (int i = 0; item_index(i) < n_items; ++i) {
+        const Item it = work_item(p, item_index(i));
+        const int qb = i % 2;
+        const uint32_t sQ = base + L::kQ + qb * L::kQTile;
+        hopper::mbar_wait(bar_empty_q + 8 * qb, ((i / 2) % 2) ^ 1);
+        hopper::mbar_arrive_expect_tx(bar_q + 8 * qb, L::kQTile);
+        for (int a = 0; a < kAtoms; ++a)
+          hopper::tma_load_4d(sQ + a * kQAtom, &p.tq, bar_q + 8 * qb, a * 64, it.h, it.q0, it.b);
+        for (int kt = it.kt_beg; kt < it.kt_end; ++kt, ++tiles) {
+          const int stage = tiles % kStages;
+          const uint32_t phase = (tiles / kStages) % 2;
+          const uint32_t sK = base + L::kK + stage * L::kTile;
+          const uint32_t sV = base + L::kV + stage * L::kTile;
+          hopper::mbar_wait(bar_empty_k + 8 * stage, phase ^ 1);
+          hopper::mbar_arrive_expect_tx(bar_k + 8 * stage, L::kTile);
+          for (int a = 0; a < kAtoms; ++a)
+            hopper::tma_load_4d(sK + a * kAtom, &p.tk, bar_k + 8 * stage, a * 64, it.kvh, kt * kN,
+                                it.b);
+          hopper::mbar_wait(bar_empty_v + 8 * stage, phase ^ 1);
+          hopper::mbar_arrive_expect_tx(bar_v + 8 * stage, L::kTile);
+          for (int a = 0; a < kAtoms; ++a)
+            hopper::tma_load_4d(sV + a * kAtom, &p.tv, bar_v + 8 * stage, a * 64, it.kvh, kt * kN,
+                                it.b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows of each item ----
+    hopper::setmaxnreg_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int g = lane / 4, t = lane % 4;
+    float o[NO], m[2], l[2], alpha[2];
+    float s[64];
+    uint32_t pa[8][4];
+    int tiles = 0;
+    for (int i = 0; item_index(i) < n_items; ++i) {
+      const Item it = work_item(p, item_index(i));
+      const int qb = i % 2;
+      const int wg_row0 = it.q0 + 64 * c;         // first row of this warpgroup
+      const int r0 = wg_row0 + 16 * warp + g;     // this thread's rows: r0, r0 + 8
+      const uint32_t sQc = base + L::kQ + qb * L::kQTile + c * 64 * 128;  // its rows of each atom
+#pragma unroll
+      for (int j = 0; j < NO; ++j) o[j] = 0.f;
+      m[0] = m[1] = kNegInf2;
+      l[0] = l[1] = 0.f;  // per-thread partial sums; reduced over the quad at the end
+
+      auto issue_qk = [&](uint32_t sK) {
+        // S = Q K^T: HD / 16 steps of 16 along head_dim, 32 bytes apart in an atom.
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32;
+          hopper::wgmma_ss_m64n128(s, hopper::smem_desc(sQc + (kk / 4) * kQAtom + col, 16, 1024),
+                                   hopper::smem_desc(sK + (kk / 4) * kAtom + col, 16, 1024), kk > 0);
+        }
+        hopper::wgmma_commit();
+      };
+      auto issue_pv = [&](uint32_t sV) {  // O += P V: 8 steps of 16 keys, 2048 bytes apart
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_pv<HD>(o, pa[kk], hopper::smem_desc(sV + kk * 16 * 128, kAtom, 1024));
+        hopper::wgmma_commit();
+      };
+      auto softmax = [&](int kt) {
+        // Only a tile where some row of this warpgroup could see a masked key pays for the mask.
+        const int k0 = kt * kN;
+        const bool need_mask = k0 + kN > p.Sk || (p.causal && k0 + kN - 1 > wg_row0) ||
+                               (p.window > 0 && k0 <= wg_row0 + 63 - p.window);
+        if (need_mask) {
+          softmax_tile<kSoftcap, true>(p, s, m, l, alpha, r0, k0, t);
+        } else {
+          softmax_tile<kSoftcap, false>(p, s, m, l, alpha, r0, k0, t);
+        }
+      };
+      // O *= alpha, then P as bf16 A fragments: only once the previous P V
+      // has landed, since it reads o and pa.
+      auto rescale_pack = [&]() {
+#pragma unroll
+        for (int j = 0; j < NO / 4; ++j) {
+          o[4 * j + 0] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          pa[kk][0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
+          pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+          pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+          pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+      };
+      auto release = [&](uint32_t bar) {
+        if (lane == 0) hopper::mbar_arrive(bar);
+      };
+      // Ring slot of the item's tile kt.
+      auto stage_of = [&](int kt) { return (tiles + kt - it.kt_beg) % kStages; };
+      auto phase_of = [&](int kt) {
+        return static_cast<uint32_t>((tiles + kt - it.kt_beg) / kStages % 2);
+      };
+      auto wait_k = [&](int kt) {
+        hopper::mbar_wait(bar_k + 8 * stage_of(kt), phase_of(kt));
+        return base + L::kK + stage_of(kt) * L::kTile;
+      };
+      auto wait_v = [&](int kt) {
+        hopper::mbar_wait(bar_v + 8 * stage_of(kt), phase_of(kt));
+        return base + L::kV + stage_of(kt) * L::kTile;
+      };
+
+      // The pipeline, per tile kt: Q K^T(kt) -> softmax(kt) -> P V(kt).  Q
+      // K^T of tile kt is issued before P V of tile kt - 1, and the softmax
+      // of tile kt runs while that product is in flight; O is rescaled and P
+      // packed once it has landed.
+      hopper::mbar_wait(bar_q + 8 * qb, (i / 2) % 2);
+      hopper::fence_regs(s);
+      hopper::fence_regs(o);
+      hopper::wgmma_fence();
+      issue_qk(wait_k(it.kt_beg));
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      release(bar_empty_k + 8 * stage_of(it.kt_beg));
+      softmax(it.kt_beg);
+      rescale_pack();
+      for (int kt = it.kt_beg + 1; kt < it.kt_end; ++kt) {
+        const uint32_t sK = wait_k(kt);
+        const uint32_t sV = wait_v(kt - 1);
+        hopper::fence_regs(s);
+        hopper::fence_regs(o);
+        hopper::wgmma_fence();
+        issue_qk(sK);
+        issue_pv(sV);
+        hopper::wgmma_wait<1>();  // Q K^T(kt) has landed; P V(kt - 1) may still run
+        hopper::fence_regs(s);
+        release(bar_empty_k + 8 * stage_of(kt));
+        softmax(kt);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        release(bar_empty_v + 8 * stage_of(kt - 1));
+        rescale_pack();
+      }
+      // The last tile's P V.
+      const uint32_t sV = wait_v(it.kt_end - 1);
+      hopper::fence_regs(o);
+      hopper::wgmma_fence();
+      issue_pv(sV);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      release(bar_empty_v + 8 * stage_of(it.kt_end - 1));
+      tiles += it.kt_end - it.kt_beg;
+
+      // Epilogue: l over the quad, lse, O / l through this warpgroup's rows
+      // of the query buffer to a TMA store; then the buffer is free.
+      float inv[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+        l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+        l[j] = fmaxf(l[j], 1e-30f);
+        inv[j] = 1.f / l[j];
+      }
+      if (p.lse != nullptr && t == 0) {
+        float* lp = p.lse + (static_cast<long long>(it.b) * p.H + it.h) * p.Sq;
+        if (r0 < p.Sq) lp[r0] = m[0] * kLn2 + logf(l[0]);
+        if (r0 + 8 < p.Sq) lp[r0 + 8] = m[1] * kLn2 + logf(l[1]);
+      }
+      const int lr = 16 * warp + g;  // local row in this warpgroup's 64; lr % 8 == g
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j) {
+        const uint32_t atom = sQc + (j / 8) * kQAtom;
+        const uint32_t chunk = ((j % 8) ^ g) * 16 + 4 * t;
+        const uint32_t v0 = pack_bf16x2(o[4 * j + 0] * inv[0], o[4 * j + 1] * inv[0]);
+        const uint32_t v1 = pack_bf16x2(o[4 * j + 2] * inv[1], o[4 * j + 3] * inv[1]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(atom + lr * 128 + chunk), "r"(v0) : "memory");
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(atom + (lr + 8) * 128 + chunk), "r"(v1)
+                     : "memory");
+      }
+      hopper::fence_proxy_async();
+      hopper::named_barrier_sync(1 + c, 128);
+      if (threadIdx.x % 128 == 0) {
+        if (wg_row0 < p.Sq) {
+          for (int a = 0; a < kAtoms; ++a)
+            hopper::tma_store_4d(&p.to, sQc + a * kQAtom, a * 64, it.h, wg_row0, it.b);
+          hopper::tma_store_wait_read();
+        }
+        hopper::mbar_arrive(bar_empty_q + 8 * qb);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+cudaError_t encode_fn(EncodeTiled* out) {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || ptr == nullptr) return cudaErrorSymbolNotFound;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  *out = fn;
+  return cudaSuccess;
+}
+
+// Error codes above this are a CUresult of cuTensorMapEncodeTiled plus it.
+constexpr int kEncodeError = 100000;
+
+// A 4-D (hd, heads, seq, batch) bf16 map with boxes of 64 columns x `rows`,
+// 128-byte swizzle; `st` are element strides {batch, seq, head}.
+int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
+           int batch, const long long* st, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const long long el[3] = {st[2], st[1], st[0]};  // head, seq, batch
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)  // a dimension of size 1 is never stepped: any valid stride
+    strides[i] = dims[i + 1] == 1 ? static_cast<cuuint64_t>(hd) * 2 : static_cast<cuuint64_t>(el[i]) * 2;
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+template <int HD>
+int launch(const Args& a, int batch, cudaStream_t stream) {
+  EncodeTiled fn;
+  cudaError_t e = encode_fn(&fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Params p;
+  int err = encode(fn, &p.tq, a.q, HD, a.H, a.Sq, batch, a.sq, kM);
+  if (!err) err = encode(fn, &p.tk, a.k, HD, a.KVH, a.Sk, batch, a.sk, kN);
+  if (!err) err = encode(fn, &p.tv, a.v, HD, a.KVH, a.Sk, batch, a.sv, kN);
+  if (!err) err = encode(fn, &p.to, a.o, HD, a.H, a.Sq, batch, a.so, 64);
+  if (err) return err;
+  p.lse = a.lse;
+  p.B = batch;
+  p.H = a.H;
+  p.KVH = a.KVH;
+  p.Sq = a.Sq;
+  p.Sk = a.Sk;
+  p.causal = a.causal;
+  p.window = a.window;
+  p.softcap = a.softcap;
+  p.softcap_inv = a.softcap > 0.f ? 1.f / a.softcap : 0.f;
+  p.sm_scale = a.sm_scale;
+  p.n_qtiles = (a.Sq + kM - 1) / kM;
+  const long long n_items = static_cast<long long>(p.n_qtiles) * batch * a.H;
+  if (n_items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = a.softcap > 0.f ? &flash_fwd_wgmma<HD, true> : &flash_fwd_wgmma<HD, false>;
+  constexpr int smem = Smem<HD>::kAlloc;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int device, sms;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = static_cast<int>(n_items < sms ? n_items : sms);  // one CTA per SM, persistent
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, const Args& a, int batch, int threads, size_t smem,
                    cudaStream_t stream) {
@@ -384,23 +919,39 @@ cudaError_t launch(Kernel kernel, const Args& a, int batch, int threads, size_t 
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t dispatch(int is_bf16, const Args& a, int batch, cudaStream_t stream) {
-  if (is_bf16) return launch(flash_fwd_bf16<HD>, a, batch, kWarps * 32, bf16_smem_bytes<HD>(), stream);
-  return launch(flash_fwd_f32<HD>, a, batch, kBlockM, f32_smem_bytes<HD>(), stream);
+// Routes, as ops.py::fwd_route names them.
+constexpr int kRouteF32 = 0;
+constexpr int kRouteMmaSync = 1;
+constexpr int kRouteWgmma = 2;
+
+int dispatch(int route, int head_dim, const Args& a, int batch, cudaStream_t s) {
+  if (route == kRouteWgmma && head_dim == 64) return wg::launch<64>(a, batch, s);
+  if (route == kRouteWgmma && head_dim == 128) return wg::launch<128>(a, batch, s);
+  if (route == kRouteMmaSync && head_dim == 16)
+    return static_cast<int>(launch(flash_fwd_bf16<16>, a, batch, kWarps * 32, bf16_smem_bytes<16>(), s));
+  if (route == kRouteF32 && head_dim == 16)
+    return static_cast<int>(launch(flash_fwd_f32<16>, a, batch, kBlockM, f32_smem_bytes<16>(), s));
+  if (route == kRouteF32 && head_dim == 64)
+    return static_cast<int>(launch(flash_fwd_f32<64>, a, batch, kBlockM, f32_smem_bytes<64>(), s));
+  if (route == kRouteF32 && head_dim == 128)
+    return static_cast<int>(launch(flash_fwd_f32<128>, a, batch, kBlockM, f32_smem_bytes<128>(), s));
+  return static_cast<int>(cudaErrorInvalidValue);  // a route that does not fit the head_dim
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the forward pass on `stream` and returns cudaGetLastError() of
-// the launch (0 on success).  dims = {B, H, KVH, Sq, Sk}; strides = element
-// strides {batch, seq, head} of q, k, v, o in that order.  head_dim is one of
-// 16, 64, 128; is_bf16 selects bf16 (else float32) for all four tensors.
-// sm_scale is head_dim**-0.5 rounded once to float32, as the TPU kernel has it.
-// lse is a contiguous float32 [B, H, Sq] output, or null (serving needs none).
-int repro_flash_fwd(int device, int is_bf16, int head_dim, const void* q, const void* k,
+// Launches the forward pass on `stream` and returns 0 on success, else a
+// cudaError_t of the attribute call or the launch, or kEncodeError plus the
+// CUresult of a failed tensor-map encode (see repro_cuda_error_string).
+// route: 0 "f32" (float32, head_dim 16/64/128), 1 "mma_sync" (bf16, 16),
+// 2 "wgmma" (bf16, 64/128); any other pairing is refused.  dims = {B, H,
+// KVH, Sq, Sk}; strides = element strides {batch, seq, head} of q, k, v, o
+// in that order.  sm_scale is head_dim**-0.5 rounded once to float32, as the
+// TPU kernel has it.  lse is a contiguous float32 [B, H, Sq] output, or null
+// (serving needs none).
+int repro_flash_fwd(int device, int route, int head_dim, const void* q, const void* k,
                     const void* v, void* o, void* lse, const long long* strides, const int* dims,
                     int causal, int window, float softcap, float sm_scale, void* stream) {
   cudaError_t e = cudaSetDevice(device);
@@ -425,16 +976,15 @@ int repro_flash_fwd(int device, int is_bf16, int head_dim, const void* q, const 
   a.window = window;
   a.softcap = softcap;
   a.sm_scale = sm_scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return static_cast<int>(dispatch<16>(is_bf16, a, dims[0], s));
-    case 64: return static_cast<int>(dispatch<64>(is_bf16, a, dims[0], s));
-    case 128: return static_cast<int>(dispatch<128>(is_bf16, a, dims[0], s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(route, head_dim, a, dims[0], static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) {
+  if (err >= wg::kEncodeError) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d", err - wg::kEncodeError);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -2,7 +2,8 @@
 
 On a CUDA tensor the forward launches the hand-written kernel
 ``csrc/flash_fwd.cu`` (the port of the Pallas TPU kernel
-``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``) and the
+``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``), on the
+route :func:`fwd_route` picks from the dtype and head_dim, and the
 backward ``csrc/flash_bwd.cu`` (the JAX package has no backward kernel), or
 they raise if the inputs are ones they cannot take.  On a CPU tensor they
 compute the plain versions (:mod:`.ref`).  There is no other fallback: the
@@ -18,6 +19,7 @@ launches the forward alone.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -29,6 +31,27 @@ KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
 HEAD_DIMS = (16, 64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
+#: route -> the code ``repro_flash_fwd`` takes for it
+ROUTES = {"f32": 0, "mma_sync": 1, "wgmma": 2}
+#: forward launches by route, counted beside ``LAUNCHES``
+ROUTE_LAUNCHES: Counter = Counter()
+
+
+def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which forward kernel serves (dtype, head_dim); raises for any other.
+
+    ``"wgmma"``: bf16 at head_dim 64 and 128, the Hopper kernel (TMA ring,
+    wgmma, warp specialisation) that every full-width path runs.
+    ``"mma_sync"``: bf16 at head_dim 16 (the smoke configs).  ``"f32"``:
+    float32 at 16, 64 and 128.
+    """
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
+        return "wgmma"
+    if dtype == torch.bfloat16 and head_dim == 16:
+        return "mma_sync"
+    if dtype == torch.float32 and head_dim in HEAD_DIMS:
+        return "f32"
+    raise ValueError(f"no forward kernel for dtype {dtype} with head_dim {head_dim}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, logit_softcap) -> None:
@@ -100,8 +123,9 @@ def _launch_fwd(q, k, v, out, lse, *, causal, window, logit_softcap) -> None:
     fn.restype = ctypes.c_int
     strides, dims = _strides(q, k, v, out), _dims(q, k)
     hd = q.shape[3]
+    route = fwd_route(q.dtype, hd)
     err = fn(
-        q.device.index, int(q.dtype == torch.bfloat16), hd,
+        q.device.index, ROUTES[route], hd,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         ctypes.addressof(strides), ctypes.addressof(dims),
@@ -110,6 +134,7 @@ def _launch_fwd(q, k, v, out, lse, *, causal, window, logit_softcap) -> None:
     )
     _build.check(lib, err, KERNEL)
     LAUNCHES[KERNEL] += 1
+    ROUTE_LAUNCHES[route] += 1
 
 
 def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, causal, window, logit_softcap) -> None:

@@ -21,7 +21,9 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_ref,
     flash_attention_fwd,
     flash_attention_ref,
+    fwd_route,
 )
+from repro_torch.kernels.flash_attention.ops import ROUTE_LAUNCHES
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
 from repro_torch.models import decode_step, init_params, prefill
@@ -45,6 +47,12 @@ CASES = [
     (1, 37, 100, 2, 2, 64, False, None, 30.0),
     (1, 128, 384, 2, 2, 64, False, None, None),
     (2, 256, 256, 4, 2, 64, True, 64, 30.0),
+    # edges of the wgmma kernel's 128-row items and 128-key ring:
+    (1, 700, 700, 4, 2, 128, True, None, None),  # 6 key tiles: the ring wraps
+    (1, 1, 1, 1, 1, 64, True, None, None),  # Sq = Sk = 1
+    (1, 1000, 1000, 2, 1, 64, True, 200, None),  # window skips leading tiles, starts mid-tile
+    (1, 300, 100, 2, 2, 64, False, None, None),  # Sq > 128 with Sk < 128
+    (3, 333, 333, 5, 5, 64, True, None, None),  # items that divide evenly into no grid
 ]
 
 
@@ -70,9 +78,12 @@ def test_kernel_matches_plain(cuda, dtype, case):
     q, k, v = _qkv(0, b, sq, sk, h, kvh, hd, dtype, cuda)
     kw = dict(causal=causal, window=window, logit_softcap=cap)
     before = LAUNCHES["flash_attention_fwd"]
+    route = fwd_route(q.dtype, hd)
+    before_route = ROUTE_LAUNCHES[route]
     out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention_fwd"] == before + 1
+    assert ROUTE_LAUNCHES[route] == before_route + 1
     assert out.shape == q.shape and out.dtype == q.dtype
     plain, _ = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
     torch.testing.assert_close(
@@ -141,6 +152,27 @@ def test_backward_kernel_matches_plain(cuda, dtype, case):
         assert got.shape == like.shape and got.dtype == like.dtype
         torch.testing.assert_close(
             got.float(), want.transpose(1, 2).float(), rtol=TOL[dtype], atol=TOL[dtype],
+            msg=lambda m, name=name: f"d{name}: {m}",
+        )
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_wgmma_forward_lse_feeds_backward_to_plain_gradient(cuda, hd):
+    """The wgmma forward's output and natural-log lse, through the backward
+    kernel, against the plain forward and backward end to end (bf16, 2e-2)."""
+    q, k, v = _qkv(5, 2, 384, 384, 4, 2, hd, "bfloat16", cuda)
+    do = _qkv(6, 2, 384, 384, 4, 4, hd, "bfloat16", cuda)[0]
+    before = ROUTE_LAUNCHES["wgmma"]
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    assert ROUTE_LAUNCHES["wgmma"] == before + 1
+    grads = flash_attention_bwd(q, k, v, out, lse, do)
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    plain_out, plain_lse = flash_attention_ref(*heads)
+    plain = flash_attention_bwd_ref(*heads, plain_out, plain_lse, do.transpose(1, 2))
+    torch.testing.assert_close(lse, plain_lse, rtol=1e-4, atol=1e-4)
+    for name, got, want in zip("qkv", grads, plain):
+        torch.testing.assert_close(
+            got.float(), want.transpose(1, 2).float(), rtol=2e-2, atol=2e-2,
             msg=lambda m, name=name: f"d{name}: {m}",
         )
 

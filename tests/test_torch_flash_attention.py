@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_bwd_ref,
     flash_attention_ref,
+    fwd_route,
 )
 
 # The JAX suite's own tolerances (tests/test_kernels.py::TOL).
@@ -191,3 +192,26 @@ def test_wrapper_rejects_bad_shapes():
         flash_attention(q, k, v)
     with pytest.raises(ValueError, match="differ"):
         flash_attention(q, k, v[:, :4])
+
+
+# Which forward kernel each (dtype, head_dim) pair reaches on the card; None:
+# refused.  bf16 at 64 and 128 (every full-width path) must stay on wgmma.
+ROUTES = {
+    (torch.bfloat16, 16): "mma_sync",
+    (torch.bfloat16, 64): "wgmma",
+    (torch.bfloat16, 128): "wgmma",
+    (torch.float32, 16): "f32",
+    (torch.float32, 64): "f32",
+    (torch.float32, 128): "f32",
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16], ids=str)
+@pytest.mark.parametrize("head_dim", [8, 16, 32, 64, 96, 128, 256])
+def test_forward_route(dtype, head_dim):
+    want = ROUTES.get((dtype, head_dim))
+    if want is None:
+        with pytest.raises(ValueError, match="no forward kernel"):
+            fwd_route(dtype, head_dim)
+    else:
+        assert fwd_route(dtype, head_dim) == want

@@ -36,7 +36,12 @@ A kernel's ``ms`` (and ``library_ms``) is its device time: ``GRAPH_CALLS``
 calls captured in one CUDA graph, the replay timed with one event pair and
 divided by the count, so the wrapper's host time is left out.  ``call_ms``
 (and ``library_call_ms``) is the median of event pairs around single
-Python calls, host included, as earlier runs reported ``ms``.
+Python calls, host included, as earlier runs reported ``ms``.  The flash
+backward's ``library_ms`` is ``scaled_dot_product_attention``'s forward and
+backward together, ``library_bwd_ms`` its backward alone (one forward
+outside the graph, the backward captured on the forward's stream).  Each
+flash check, and every flash launch of the serve and train phases, is held
+to the route ``fwd_route`` / ``bwd_route`` names.
 Any failure raises: the script exits non-zero and prints no result.  It
 also fails without a card, and where the port's sources are absent.
 """
@@ -74,13 +79,14 @@ FLASH_CASES = [
     ("softcap30", 8, 1024, 12, 12, 64, "bfloat16", None, 30.0, "wgmma"),
     ("f32", 8, 1024, 12, 12, 64, "float32", None, None, "f32"),
 ]
-# (label, B, S, H, KVH, hd, dtype, window, softcap); the first is the train path's shape
+# (label, B, S, H, KVH, hd, dtype, window, softcap, backward route); the
+# first is the train path's shape
 FLASH_BWD_CASES = [
-    ("path", 8, 1024, 12, 12, 64, "bfloat16", None, None),
-    ("window256", 8, 1024, 12, 12, 64, "bfloat16", 256, None),
-    ("softcap30", 8, 1024, 12, 12, 64, "bfloat16", None, 30.0),
-    ("gqa_h8_kvh2_hd128", 8, 1024, 8, 2, 128, "bfloat16", None, None),
-    ("f32", 8, 1024, 12, 12, 64, "float32", None, None),
+    ("path", 8, 1024, 12, 12, 64, "bfloat16", None, None, "wgmma"),
+    ("window256", 8, 1024, 12, 12, 64, "bfloat16", 256, None, "wgmma"),
+    ("softcap30", 8, 1024, 12, 12, 64, "bfloat16", None, 30.0, "wgmma"),
+    ("gqa_h8_kvh2_hd128", 8, 1024, 8, 2, 128, "bfloat16", None, None, "wgmma"),
+    ("f32", 8, 1024, 12, 12, 64, "float32", None, None, "f32"),
 ]
 # (label, rows, cols): the stacked 2-pod largest leaves and a ragged one
 WAN_CASES = [
@@ -113,15 +119,17 @@ GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
 MS_IS = "device time: calls captured in one CUDA graph, the replay timed with one event pair, / calls"
 
 
-def device_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
+def device_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5, stream=None) -> float:
     """Device time of one call: ``calls`` calls captured in one CUDA graph
     (after warm-up calls on a side stream), the median replay of
     ``replays``, each timed with one event pair, divided by ``calls``.
     The host's time per call (checks, allocation, the launch) is left out.
+    ``stream``, if given, is the side stream and the capture's: an autograd
+    backward must be captured on the stream its forward ran on.
     A failed capture raises: there is no fallback to the per-call time."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
@@ -129,7 +137,7 @@ def device_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     graph.replay()  # warm
@@ -224,18 +232,25 @@ def phase_env(torch):
     return smi
 
 
+# ptxas lines the build phase keeps: registers, spills, and the warnings
+# that it serialised a wgmma pipeline (C7513, C7515, C7520)
+PTXAS_KEEP = ("registers", "spill", "C7513", "C7515", "C7520", "Compiling entry")
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     report = _build.build()
     ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        name: [ln.strip() for ln in log.splitlines() if any(k in ln for k in PTXAS_KEEP)]
         for name, (_, log) in report.items()
     }
+    serialised = [ln for lines in ptxas.values() for ln in lines if any(k in ln for k in PTXAS_KEEP[2:5])]
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
         "compiled": {n: sec for n, (sec, _) in report.items()}, "ptxas": ptxas,
+        "wgmma_serialised": serialised,
     })
 
 
@@ -296,6 +311,7 @@ def phase_kernels_bwd(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
+        BWD_ROUTE_LAUNCHES,
         flash_attention_bwd,
         flash_attention_bwd_ref,
         flash_attention_fwd,
@@ -303,14 +319,18 @@ def phase_kernels_bwd(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     checks = []
-    for label, b, s, h, kvh, hd, dtype, window, cap in FLASH_BWD_CASES:
+    for label, b, s, h, kvh, hd, dtype, window, cap, route in FLASH_BWD_CASES:
         dt = getattr(torch, dtype)
         q, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt) for _ in range(2))
         k, v = (torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(dt) for _ in range(2))
         kw = dict(causal=True, window=window, logit_softcap=cap)
         out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
         heads = [t.transpose(1, 2) for t in (q, k, v, out, do)]
+        routes = dict(BWD_ROUTE_LAUNCHES)
         grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        took = {r: n - routes.get(r, 0) for r, n in BWD_ROUTE_LAUNCHES.items() if n != routes.get(r, 0)}
+        if took != {route: 1}:
+            raise AssertionError(f"flash_attention_bwd {label}: launched on routes {took}, expected {route}")
         plain = flash_attention_bwd_ref(*heads[:4], lse, heads[4], **kw)
         torch.cuda.synchronize()
         tol, errs = TOL[dtype], {}
@@ -320,29 +340,44 @@ def phase_kernels_bwd(torch):
             errs[name] = diff.max().item()
             if not bool((diff <= tol + tol * want.abs()).all()):
                 raise AssertionError(f"flash_attention_bwd {label} {name}: max_abs_err {errs[name]}, rtol=atol={tol}")
-        library_ms = library_call_ms = None
+        library_ms = library_call_ms = library_bwd_ms = None
         if window is None and cap is None:  # sdpa's forward plus its backward: one pair
             qc, kc, vc = (t.detach().contiguous().requires_grad_(True) for t in heads[:3])
             doc = heads[4].contiguous()
 
+            def sdpa():
+                return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
+
             def library():
-                o = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
-                torch.autograd.grad(o, (qc, kc, vc), doc)
+                torch.autograd.grad(sdpa(), (qc, kc, vc), doc)
 
             library_ms, library_call_ms = device_ms(library), time_ms(library)
+            # sdpa's backward alone: its forward once, outside the graph, on
+            # the stream the backward is then captured on
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                o = sdpa()
+            library_bwd_ms = device_ms(
+                lambda: torch.autograd.grad(o, (qc, kc, vc), doc, retain_graph=True), stream=side)
+            del o
         bound_ms, bound_by = flash_bwd_bound(b, s, h, kvh, hd, dtype, window)
 
         def kernel():
             return flash_attention_bwd(q, k, v, out, lse, do, **kw)
 
+        ms = device_ms(kernel)
         checks.append({
             "label": label, "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd},
-            "dtype": dtype, "window": window, "softcap": cap,
+            "dtype": dtype, "window": window, "softcap": cap, "bwd_route": route,
             "max_abs_err": max(errs.values()), "max_abs_err_dq_dk_dv": errs, "tol": tol,
-            "ms": device_ms(kernel), "call_ms": time_ms(kernel),
+            "ms": ms, "call_ms": time_ms(kernel),
+            "tflops": 10 * b * h * hd * attention_pairs(s, s, True, window) / (ms * 1e-3) / 1e12,
             "plain_ms": time_ms(lambda: flash_attention_bwd_ref(*heads[:4], lse, heads[4], **kw), runs=5),
             "library_ms": library_ms, "library_call_ms": library_call_ms,
             "library_is": "scaled_dot_product_attention forward + backward",
+            "library_bwd_ms": library_bwd_ms,
+            "library_bwd_is": "scaled_dot_product_attention backward alone (device time)",
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
         del q, k, v, do, out, lse, heads, grads, plain
@@ -695,7 +730,7 @@ def phase_train(torch):
     from repro_torch.data import loader_for_model
     from repro_torch.distributed import pod_grads, sync_grads, wan_bytes_per_step
     from repro_torch.kernels import LAUNCHES
-    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, global_norm
     from repro_torch.runtime import GeoTrainer, TrainerConfig
@@ -711,9 +746,11 @@ def phase_train(torch):
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     ROUTE_LAUNCHES.clear()
+    BWD_ROUTE_LAUNCHES.clear()
     result = trainer.run()
     launches = dict(LAUNCHES)
     routes = dict(ROUTE_LAUNCHES)
+    bwd_routes = dict(BWD_ROUTE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     rows = result["metrics"]
     n_leaves = len(tree_leaves(trainer.params))
@@ -724,6 +761,8 @@ def phase_train(torch):
         raise AssertionError(f"train: launches {launches} over {STEPS} steps, expected {expected}")
     if routes != {"wgmma": expected["flash_attention_fwd"]}:
         raise AssertionError(f"train: flash forward routes {routes}, expected all on wgmma")
+    if bwd_routes != {"wgmma": expected["flash_attention_bwd"]}:
+        raise AssertionError(f"train: flash backward routes {bwd_routes}, expected all on wgmma")
     losses = [r["loss"] for r in rows]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss not finite or not falling: {losses}")
@@ -772,6 +811,7 @@ def phase_train(torch):
         "grad_norm_last": rows[-1]["grad_norm"], "peak_memory_bytes": peak,
         "wan_bytes_per_pod_step": wan, "wan_bytes_per_step_analytic": analytic,
         "launches_main_path": launches, "launches_per_step": per_step, "fwd_routes_main_path": routes,
+        "bwd_routes_main_path": bwd_routes,
         "card_vs_cpu": {"batch": [NPODS, 128], "loss": [g_loss, c_loss], "grad_norm": [g_norm, c_norm],
                         "leaf_rel_err_max": max(leaf_err.values()), "tol": TRAIN_TOL},
     })
@@ -821,7 +861,8 @@ def main() -> int:
               tflops=fwd[0]["tflops"], shapes=fwd),
         entry("flash_attention_bwd", "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
               "none: the JAX package trains through autodiff of dense attention (no Pallas backward)",
-              bwd[0], library_is=bwd[0]["library_is"], shapes=bwd),
+              bwd[0], library_is=bwd[0]["library_is"], library_bwd_ms=bwd[0]["library_bwd_ms"],
+              bwd_route=bwd[0]["bwd_route"], shapes=bwd),
         entry("wan_quant", "src/repro_torch/kernels/wan_quant/csrc/wan_quant.cu",
               "src/repro/kernels/wan_quant/kernel.py:44",
               dict(wan_err, ms=wan_step["quant_ms"], call_ms=wan_step["quant_call_ms"],

@@ -16,44 +16,84 @@
 // GQA: kv head j serves query heads j*G .. j*G+G-1, G = H / KVH, as in the
 // forward's index map; dK and dV sum over them.
 //
-// Design.  Two kernels that each own their output, so no atomics and the
-// result is the same on every run:
-//   * flash_bwd_dkdv: one block per (64-key tile, kv head, batch).  A loop
-//     inside the block walks the G query heads and, for each, the 64-row
-//     query tiles the causal and window masks let see its keys; dK and dV
-//     accumulate in registers.
-//   * flash_bwd_dq: one block per (64-row query tile, head, batch), walking
-//     the key tiles the masks allow, as the forward does; dQ accumulates in
-//     registers.
-// Both recompute P from q, k and lse; neither stores it.
-//   * bf16: four warps, 16 rows (keys, or queries) each; every product runs
-//     on the tensor cores with mma.sync m16n8k16 (bf16 in, float32
-//     accumulate), with the fragment layouts of the forward.  dK/dV
-//     computes S^T = K Q^T and dP^T = V dO^T so that P^T and dS^T land in
-//     registers as exactly the A fragments of dV = P^T dO and dK = dS^T Q;
-//     Q and dO are stored transposed as well, as their B operands.  dQ
-//     stores K transposed for dQ = dS K.  P and dS are rounded to bf16 as
-//     operands (the plain version keeps them in float32: inside the bf16
-//     tolerance).  At head_dim 128 the query tile is taken in halves to
-//     bound the registers.
-//   * float32: one thread per key row (dK/dV) or query row (dQ), scalar FMA
-//     in float32 (no TF32).
+// Every route runs D first, then two kernels that each own their output, so
+// there are no atomics and the result is the same bit for bit on every run:
+// one writes dK and dV, walking the queries that see a key tile; the other
+// writes dQ, walking the keys a query tile sees, as the forward does.  Both
+// recompute P from q, k and lse; neither stores it.  The caller names the
+// route (ops.py::bwd_route), and a route that does not fit the dtype and
+// head_dim is refused:
+//   * "wgmma" (bf16, head_dim 64 and 128): flash_bwd_dkdv_wgmma and
+//     flash_bwd_dq_wgmma below, the Hopper design.  Every full-width
+//     training path runs it.
+//   * "mma_sync" (bf16, head_dim 16): flash_bwd_dkdv_bf16 and
+//     flash_bwd_dq_bf16, the first port's kernels (a block per 64-row tile,
+//     four warps, mma.sync m16n8k16, synchronous loads with transposed
+//     shared-memory copies), kept for the smoke configs' 16-wide heads.
+//   * "f32" (float32, head_dim 16, 64, 128): one thread per key row (dK/dV)
+//     or query row (dQ), scalar FMA in float32 (no TF32).
 // All tensors go in through element strides (batch, seq, head; head_dim
-// contiguous), as in the forward.
+// contiguous), as in the forward.  P and dS are rounded to bf16 as operands
+// of the bf16 products (the plain version keeps them in float32: inside the
+// bf16 tolerance).
 //
 // What bounds it on the H100.  At the training path's shape (B=8, H=12,
 // S=1024, hd=64, bf16, causal) the work is ~32 GFLOP (five products of
 // 2 * hd flops per query-key pair the mask keeps: ~0.033 ms at 989 TFLOP/s
 // dense bf16) and ~101 MB (q, k, v, o, dO, lse read once, dQ, dK, dV
-// written once: ~0.030 ms at 3.35 TB/s): bound by operations, barely.
-// This first kernel does not reach it: mma.sync instead of wgmma,
-// synchronous tile loads with transposed shared-memory stores, and no
-// overlap of copy and compute.  Its measured time stands beside the bound in PERF.md.
+// written once: ~0.030 ms at 3.35 TB/s): bound by operations, barely.  The
+// two-kernel split recomputes S and dP in the dQ kernel: seven products, 40%
+// more tensor work than the bound counts, the price of no atomics.
+//
+// Design of the wgmma route.  Both kernels are persistent (one CTA per SM)
+// with 384 threads in three warpgroups: a producer (registers lowered to 24
+// with setmaxnreg) and two consumers (raised to 240).  Work items are
+// numbered heaviest first and dealt in rounds of alternating direction, as
+// in the forward.  Tiles arrive by TMA through 4-D tensor maps (hd, heads,
+// seq, batch) in the 128-byte swizzle, and every product is a wgmma: K-major
+// operands read as they land, MN-major ones through the descriptor's
+// transpose bit, so nothing is transposed by hand.
+//   * flash_bwd_dkdv_wgmma.  An item is one 128-key tile of one (kv head,
+//     batch); under the causal mask the first key tiles are the heaviest.
+//     Its K and V stay in shared memory (two item buffers at hd 64, so the
+//     next item's load hides under this one).  The producer streams 64-row
+//     Q and dO tiles through a ring that runs across the G query heads and
+//     on into the next item; one producer warp also copies each tile's lse
+//     (times log2 e, +inf past Sq, so those rows get P = 0 with no compare)
+//     and D rows into the stage.  Each consumer owns 64 keys: per query tile
+//     (in two passes of 32 queries at hd 128, to stay in 240 registers with
+//     no spill) S^T = K Q^T and dP^T = V dO^T from shared memory, P^T and
+//     dS^T in registers in the exp2 domain (the scale and log2 e in one FFMA
+//     with lse * log2 e subtracted), then dV += P^T dO and dK += dS^T Q with
+//     the rounded accumulators as A fragments from registers and dO, Q
+//     MN-major.  The next pass's S^T and dP^T are issued while those run.
+//     A consumer skips a tile its keys cannot see, and only tiles on the
+//     causal diagonal or the window's edge pay for the index compare.  A key
+//     tile no query sees still writes zeros.  Epilogue: dK * scale and dV in
+//     bf16 over the consumer's own K and V rows, in the swizzled layout, out
+//     by TMA store (rows past Sk dropped).
+//   * D: delta_kernel_vec, one 16-byte vector of O and of dO a thread.
+//   * flash_bwd_dq_wgmma.  The forward's skeleton: an item is a 128-row
+//     query tile of one (batch, head), the last tiles first; Q and dO in two
+//     buffers; K and V through a ring of 64-key tiles (S, dP and dQ stay
+//     in 240 registers at hd 128).  Per tile S = Q K^T and
+//     dP = dO V^T from shared memory, dS in registers (keys past Sk masked:
+//     their zero K rows would not cancel an overflowing P), then dQ += dS K
+//     with K MN-major, in flight while the next tile's S and dP are issued.
+//     Epilogue: dQ * scale in bf16 by TMA store.
+// Masked pairs get P = 0 directly: exp(-1e30 - lse) is 0 in float32 for
+// every lse a row that sees a key can have (the wrappers refuse rows that
+// see none).  The tensor maps are encoded on the host (hopper.cuh, no
+// -lcuda); a failed encode, attribute or launch returns an error code and
+// the wrapper raises on it.  There is no fallback to another route.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -220,13 +260,39 @@ __global__ void delta_kernel(const Args a) {
   if (lane == 0) a.delta[row] = acc;
 }
 
-constexpr int kLDT = kBlockM + 8;  // padded row of a transposed [HD][64] tile
-
-// Query (dK/dV) or key (dQ) columns per pass: halves at head_dim 128.
+// The same for bf16 rows of HD on the wgmma route: HD / 8 threads a row,
+// each one 16-byte vector of O and of dO (the wrapper checks the
+// alignment), summed over the row's threads by shuffles.
 template <int HD>
-struct SubTile {
-  static constexpr int value = HD >= 128 ? 32 : 64;
-};
+__global__ void delta_kernel_vec(const Args a) {
+  constexpr int kPerRow = HD / 8;
+  const long long rows = (long long)a.B * a.H * a.Sq;
+  const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / kPerRow;
+  const int part = threadIdx.x % kPerRow;
+  float acc = 0.f;
+  if (row < rows) {
+    const int qi = static_cast<int>(row % a.Sq);
+    const int h = static_cast<int>((row / a.Sq) % a.H);
+    const int b = static_cast<int>(row / ((long long)a.Sq * a.H));
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        static_cast<const bf16*>(a.o) + b * a.so[0] + (long long)qi * a.so[1] + h * a.so[2] + 8 * part);
+    const uint4 dv = *reinterpret_cast<const uint4*>(
+        static_cast<const bf16*>(a.dout) + b * a.sdo[0] + (long long)qi * a.sdo[1] + h * a.sdo[2] + 8 * part);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]), df = __bfloat1622float2(d2[i]);
+      acc = fmaf(of.x, df.x, acc);
+      acc = fmaf(of.y, df.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = kPerRow / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && part == 0) a.delta[row] = acc;
+}
+
+constexpr int kLDT = kBlockM + 8;  // padded row of a transposed [HD][64] tile
 
 template <int HD>
 constexpr size_t dkdv_bf16_smem() {
@@ -238,7 +304,7 @@ template <int HD>
 __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkdv_bf16(const Args a) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int LD = HD + 8;
-  constexpr int SUB = SubTile<HD>::value;
+  constexpr int SUB = 64;  // query (dK/dV) or key (dQ) columns per pass
   constexpr int NT = SUB / 8;   // 8-query column tiles of S^T per pass
   constexpr int DT = HD / 8;    // 8-wide column tiles of dK, dV
   constexpr int KC = HD / 16;   // 16-deep steps over head_dim
@@ -370,7 +436,7 @@ template <int HD>
 __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_bf16(const Args a) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int LD = HD + 8;
-  constexpr int SUB = SubTile<HD>::value;
+  constexpr int SUB = 64;  // query (dK/dV) or key (dQ) columns per pass
   constexpr int NT = SUB / 8;   // 8-key column tiles of S per pass
   constexpr int DT = HD / 8;    // 8-wide column tiles of dQ
   constexpr int KC = HD / 16;
@@ -619,6 +685,660 @@ __global__ void __launch_bounds__(kBlockM) flash_bwd_dq_f32(const Args a) {
   }
 }
 
+// ---- The Hopper kernels: TMA rings, wgmma, warp specialisation ------------
+
+namespace wg {
+
+constexpr int kThreads = 384;   // producer + two consumer warpgroups
+constexpr int kRowBytes = 128;  // one row of a 64-column swizzle atom
+using hopper::kLog2e;
+
+struct Params {
+  // 4-D (hd, heads, seq, batch) maps; the number is the box's rows
+  CUtensorMap tq64, tdo64, tk128, tv128;  // dK/dV kernel: query tiles, the item's keys
+  CUtensorMap tq128, tdo128, tk_dq, tv_dq;  // dQ kernel: the item's queries, key tiles
+  CUtensorMap tdq, tdk, tdv;               // stores, 64 rows
+  const float* lse;                        // [B, H, Sq], natural log
+  const float* delta;                      // [B, H, Sq]
+  int B, H, KVH, Sq, Sk;
+  int causal, window;
+  float softcap, softcap_inv, sm_scale;
+  int n_ktiles, n_qtiles;  // 128-key items (dK/dV), 128-row items (dQ)
+};
+
+// dK/dV kernel: an item is 128 keys (64 per consumer) of one (kv head,
+// batch); 64-row query tiles stream through a ring of kStages.
+template <int HD>
+struct KvShape {
+  static constexpr int kAtoms = HD / 64;
+  static constexpr int kKVAtom = 128 * kRowBytes;    // a 64-column atom of the item's K or V
+  static constexpr int kKVTile = kAtoms * kKVAtom;
+  static constexpr int kQAtom = 64 * kRowBytes;      // a 64-column atom of a query tile
+  static constexpr int kQTile = kAtoms * kQAtom;
+  static constexpr int kBufs = HD == 64 ? 2 : 1;     // K/V item buffers
+  static constexpr int kStages = 4;
+  static constexpr int kK = 0;                       // + buffer * kKVTile
+  static constexpr int kV = kK + kBufs * kKVTile;
+  static constexpr int kQ = kV + kBufs * kKVTile;    // + stage * kQTile
+  static constexpr int kdO = kQ + kStages * kQTile;
+  static constexpr int kL = kdO + kStages * kQTile;  // float [stage][64]: lse * log2 e, +inf past Sq
+  static constexpr int kD = kL + kStages * 64 * 4;   // float [stage][64]: D, 0 past Sq
+  static constexpr int kBar = kD + kStages * 64 * 4;
+  // barriers: full, empty [kStages]; K/V full, K/V empty [kBufs]
+  static constexpr int kAlloc = kBar + 8 * (2 * kStages + 2 * kBufs) + 1024;  // + room to align
+};
+
+// dQ kernel: an item is 128 query rows (64 per consumer) of one (batch,
+// head); kN-key K and V tiles stream through a ring of kStages.  64-key
+// tiles keep S, dP and dQ in the consumers' 240 registers at hd 128 and
+// measured faster than 128-key ones at hd 64 (PERF.md).
+template <int HD>
+struct DqShape {
+  static constexpr int kN = 64;
+  static constexpr int kAtoms = HD / 64;
+  static constexpr int kQAtom = 128 * kRowBytes;
+  static constexpr int kQTile = kAtoms * kQAtom;
+  static constexpr int kKAtom = kN * kRowBytes;
+  static constexpr int kKTile = kAtoms * kKAtom;
+  static constexpr int kBufs = 2;  // query buffers, Q and dO each
+  static constexpr int kStages = HD == 64 ? 6 : 3;
+  static constexpr int kQ = 0;     // + buffer * kQTile
+  static constexpr int kdO = kQ + kBufs * kQTile;
+  static constexpr int kK = kdO + kBufs * kQTile;  // + stage * kKTile
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kBar = kV + kStages * kKTile;
+  // barriers: Q full, Q empty [kBufs]; full, empty [kStages]
+  static constexpr int kAlloc = kBar + 8 * (2 * kBufs + 2 * kStages) + 1024;
+};
+
+// The CTA's i-th item: rounds of gridDim.x items, taken in order in even
+// rounds and in reverse in odd ones, as in the forward.
+__device__ __forceinline__ int item_index(int i) {
+  const int lane = i % 2 == 0 ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+  return i * gridDim.x + lane;
+}
+
+// A dK/dV item and the 64-row query tiles [qt_beg, qt_end) that see its
+// keys (empty when no query does: its dK and dV are then zeros).  Items
+// are numbered by key tile first: under the causal mask the first key
+// tiles, which every later query sees, are the heaviest.
+struct KvItem {
+  int b, kvh, k0, qt_beg, qt_end;
+};
+
+__device__ __forceinline__ KvItem kv_item(const Params& p, int w) {
+  KvItem it;
+  const int per_tile = p.B * p.KVH;
+  const int rest = w % per_tile;
+  it.b = rest / p.KVH;
+  it.kvh = rest % p.KVH;
+  it.k0 = (w / per_tile) * 128;
+  const int k_last = min(it.k0 + 127, p.Sk - 1);
+  const int q_beg = p.causal ? it.k0 : 0;                        // k <= q
+  const int q_end = p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;  // q < k + window
+  it.qt_beg = q_beg / 64;
+  it.qt_end = q_beg < q_end ? (q_end + 63) / 64 : it.qt_beg;
+  return it;
+}
+
+// A dQ item and the kN-key tiles [kt_beg, kt_end) its rows see; the last
+// query tiles (the longest causal rows) come first.
+struct QItem {
+  int b, h, kvh, q0, kt_beg, kt_end;
+};
+
+template <int kN>
+__device__ __forceinline__ QItem q_item(const Params& p, int w) {
+  QItem it;
+  const int per_tile = p.B * p.H;
+  const int rest = w % per_tile;
+  it.b = rest / p.H;
+  it.h = rest % p.H;
+  it.kvh = it.h / (p.H / p.KVH);
+  it.q0 = (p.n_qtiles - 1 - w / per_tile) * 128;
+  const int q_last = min(it.q0 + 128, p.Sq) - 1;
+  const int e = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  const int b = p.window > 0 ? max(0, it.q0 - p.window + 1) : 0;
+  it.kt_beg = b / kN;
+  it.kt_end = (e + kN - 1) / kN;
+  return it;
+}
+
+// P (in place of x) and dS (in place of dP) for one (query, key) pair from
+// the raw q.k `x`; lse2 = lse * log2 e.  Masked pairs take P = dS = 0.
+template <bool kSoftcap>
+__device__ __forceinline__ void p_ds(const Params& p, float& x, float& dp, float lse2, float d,
+                                     bool keep) {
+  float pr, f = 1.f;
+  if (kSoftcap) {
+    const float th = hopper::tanh_fast(x * p.sm_scale * p.softcap_inv);
+    pr = hopper::ex2(fmaf(p.softcap * kLog2e, th, -lse2));
+    f = 1.f - th * th;
+  } else {
+    pr = hopper::ex2(fmaf(x, p.sm_scale * kLog2e, -lse2));
+  }
+  pr = keep ? pr : 0.f;
+  x = pr;
+  dp = kSoftcap ? pr * (dp - d) * f : pr * (dp - d);
+}
+
+__device__ __forceinline__ bool visible(const Params& p, int q, int key) {
+  return (!p.causal || key <= q) && (p.window <= 0 || key > q - p.window);
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// A 64 x HD float32 accumulator (the wgmma layout), times `scale`, as bf16
+// into rows [0, 64) of a swizzled tile whose 64-column atoms are `atom`
+// bytes apart.
+template <int HD>
+__device__ __forceinline__ void store_acc(uint32_t dst, int atom, const float (&acc)[HD / 2],
+                                          float scale, int warp, int g, int t) {
+  const int lr = 16 * warp + g;  // lr % 8 == g: the swizzle's row phase
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const uint32_t a = dst + (j / 8) * atom + lr * kRowBytes + ((j % 8) ^ g) * 16 + 4 * t;
+    st_shared(a, hopper::pack_bf16x2(acc[4 * j + 0] * scale, acc[4 * j + 1] * scale));
+    st_shared(a + 8 * kRowBytes, hopper::pack_bf16x2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale));
+  }
+}
+
+// Rounds an accumulator of n columns to bf16 A fragments of n / 16 steps.
+template <int KS>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[KS][4], const float (&x)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = hopper::pack_bf16x2(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = hopper::pack_bf16x2(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = hopper::pack_bf16x2(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = hopper::pack_bf16x2(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr) { return hopper::smem_desc(addr, 16, 1024); }
+
+// P^T and dS^T over one consumer's 64 keys x W queries, rounded to the A
+// fragments pa and da 16 queries at a time (so st and dpt die as they are
+// packed): rows are keys (key0, key0 + 8 for this thread), columns
+// queries from q0; sL, sD the lse * log2 e and D of those queries.
+template <int W, bool kSoftcap, bool kMask>
+__device__ __forceinline__ void ds_t_tile(const Params& p, float (&st)[W / 2], float (&dpt)[W / 2],
+                                          uint32_t (&pa)[W / 16][4], uint32_t (&da)[W / 16][4],
+                                          const float* sL, const float* sD, int key0, int q0,
+                                          int t) {
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * j + 2 * t);
+    const float2 dd = *reinterpret_cast<const float2*>(sD + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = q0 + 8 * j + 2 * t + (e & 1);
+      const bool keep = !kMask || visible(p, q, key0 + (e >> 1) * 8);
+      p_ds<kSoftcap>(p, st[4 * j + e], dpt[4 * j + e], (e & 1) ? l2.y : l2.x, (e & 1) ? dd.y : dd.x,
+                     keep);
+    }
+    const int kk = j / 2, h = (j % 2) * 2;  // A fragment: 8-column blocks 2kk, 2kk + 1
+    pa[kk][h] = hopper::pack_bf16x2(st[4 * j + 0], st[4 * j + 1]);
+    pa[kk][h + 1] = hopper::pack_bf16x2(st[4 * j + 2], st[4 * j + 3]);
+    da[kk][h] = hopper::pack_bf16x2(dpt[4 * j + 0], dpt[4 * j + 1]);
+    da[kk][h + 1] = hopper::pack_bf16x2(dpt[4 * j + 2], dpt[4 * j + 3]);
+  }
+}
+
+// dS over one consumer's 64 queries x N keys: rows are queries (r0, r0 + 8
+// for this thread), columns keys from k0.
+template <int N, bool kSoftcap, bool kMask>
+__device__ __forceinline__ void ds_tile(const Params& p, float (&s)[N / 2], float (&dp)[N / 2],
+                                        const float (&lse2)[2], const float (&d)[2], int r0, int k0,
+                                        int t) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * t + (e & 1);
+      const int row = r0 + (e >> 1) * 8;
+      const bool keep = !kMask || (key < p.Sk && visible(p, row, key));
+      p_ds<kSoftcap>(p, s[4 * j + e], dp[4 * j + e], lse2[e >> 1], d[e >> 1], keep);
+    }
+  }
+}
+
+template <int HD, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ Params p) {
+  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  using L = KvShape<HD>;
+  constexpr int kStages = L::kStages, kBufs = L::kBufs;
+  constexpr int NO = HD / 2;  // dK, dV accumulator floats per thread
+  // Queries per pass of a 64-row tile: at hd 128 two passes of 32, so that
+  // dK, dV, S^T, dP^T and the A fragments fit the consumers' 240 registers
+  // while the next pass's S^T and dP^T are issued beside this pass's dV and
+  // dK (one 64-query pass there spilled, and waiting for dV and dK first
+  // measured slower at the GQA shape).
+  constexpr int kW = HD == 64 ? 64 : 32;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // the same bytes, generic
+  const uint32_t bar_full = base + L::kBar;        // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_kv = bar_empty + 8 * kStages;  // + 8 * buffer
+  const uint32_t bar_kv_empty = bar_kv + 8 * kBufs;
+  const int n_items = p.n_ktiles * p.B * p.KVH;
+  const int groups = p.H / p.KVH;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bar_full + 8 * s, 33);  // the TMA's bytes + 32 producer lanes' lse and D
+      hopper::mbar_init(bar_empty + 8 * s, 8);  // one lane of each consumer warp
+    }
+    for (int b = 0; b < kBufs; ++b) {
+      hopper::mbar_init(bar_kv + 8 * b, 1);
+      hopper::mbar_init(bar_kv_empty + 8 * b, 2);  // one thread of each consumer, after its store
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / 128 == 0) {
+    // ---- producer: warp 0; lane 0 issues the TMA loads ----
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) {
+      int tiles = 0;
+      for (int i = 0; item_index(i) < n_items; ++i) {
+        const KvItem it = kv_item(p, item_index(i));
+        const int kb = i % kBufs;
+        hopper::mbar_wait(bar_kv_empty + 8 * kb, ((i / kBufs) % 2) ^ 1);
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(bar_kv + 8 * kb, 2 * L::kKVTile);
+          for (int a = 0; a < L::kAtoms; ++a) {
+            const uint32_t off = kb * L::kKVTile + a * L::kKVAtom;
+            hopper::tma_load_4d(base + L::kK + off, &p.tk128, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
+            hopper::tma_load_4d(base + L::kV + off, &p.tv128, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
+          }
+        }
+        for (int hh = 0; hh < groups; ++hh) {
+          const int h = it.kvh * groups + hh;
+          const long long row = (static_cast<long long>(it.b) * p.H + h) * p.Sq;
+          for (int qt = it.qt_beg; qt < it.qt_end; ++qt, ++tiles) {
+            const int stage = tiles % kStages;
+            hopper::mbar_wait(bar_empty + 8 * stage, ((tiles / kStages) % 2) ^ 1);
+            if (lane == 0) {
+              hopper::mbar_arrive_expect_tx(bar_full + 8 * stage, 2 * L::kQTile);
+              for (int a = 0; a < L::kAtoms; ++a) {
+                const uint32_t off = stage * L::kQTile + a * L::kQAtom;
+                hopper::tma_load_4d(base + L::kQ + off, &p.tq64, bar_full + 8 * stage, a * 64, h, qt * 64, it.b);
+                hopper::tma_load_4d(base + L::kdO + off, &p.tdo64, bar_full + 8 * stage, a * 64, h, qt * 64, it.b);
+              }
+            }
+            float* sL = reinterpret_cast<float*>(gbase + L::kL) + stage * 64;
+            float* sD = reinterpret_cast<float*>(gbase + L::kD) + stage * 64;
+            for (int r = lane; r < 64; r += 32) {
+              const int q = qt * 64 + r;
+              const bool in = q < p.Sq;
+              sL[r] = in ? p.lse[row + q] * kLog2e : INFINITY;
+              sD[r] = in ? p.delta[row + q] : 0.f;
+            }
+            hopper::mbar_arrive(bar_full + 8 * stage);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys of each item ----
+    hopper::setmaxnreg_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x % 128) / 32, g = lane / 4, t = lane % 4;
+    float dk[NO], dv[NO], st[kW / 2], dpt[kW / 2];
+    uint32_t pa[kW / 16][4], da[kW / 16][4];
+    int tiles = 0;
+    auto release = [&](int stage) {
+      if (lane == 0) hopper::mbar_arrive(bar_empty + 8 * stage);
+    };
+    for (int i = 0; item_index(i) < n_items; ++i) {
+      const KvItem it = kv_item(p, item_index(i));
+      const int kb = i % kBufs;
+      const int kc0 = it.k0 + 64 * c;      // this consumer's first key
+      const int key0 = kc0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+      // this consumer's rows of each atom of the item's K and V
+      const uint32_t sK = base + L::kK + kb * L::kKVTile + c * 64 * kRowBytes;
+      const uint32_t sV = base + L::kV + kb * L::kKVTile + c * 64 * kRowBytes;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) dk[j] = dv[j] = 0.f;
+      hopper::mbar_wait(bar_kv + 8 * kb, (i / kBufs) % 2);
+      int pending = -1;  // the stage the products in flight read
+      for (int hh = 0; hh < groups; ++hh) {
+        for (int qt = it.qt_beg; qt < it.qt_end; ++qt, ++tiles) {
+          const int stage = tiles % kStages;
+          const int q0 = qt * 64;
+          hopper::mbar_wait(bar_full + 8 * stage, (tiles / kStages) % 2);
+          if (kc0 >= p.Sk || (p.causal && kc0 > q0 + 63) ||
+              (p.window > 0 && kc0 + 63 <= q0 - p.window)) {
+            // no key of this consumer is seen by a query of the tile: free it,
+            // and the one the products in flight read (the ring must not stall)
+            release(stage);
+            if (pending >= 0) {
+              hopper::wgmma_wait<0>();
+              hopper::fence_regs(dk);
+              hopper::fence_regs(dv);
+              release(pending);
+              pending = -1;
+            }
+            continue;
+          }
+          const uint32_t sQ = base + L::kQ + stage * L::kQTile;
+          const uint32_t sdO = base + L::kdO + stage * L::kQTile;
+#pragma unroll 1
+          for (int sub = 0; sub < 64 / kW; ++sub) {
+            const int qs = q0 + sub * kW;  // this pass's first query
+            const uint32_t row = sub * kW * kRowBytes;
+            // S^T = K Q^T and dP^T = V dO^T (64 keys x kW queries), both
+            // K-major; the previous pass's dV and dK products may still run.
+            hopper::fence_regs(st);
+            hopper::fence_regs(dpt);
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+              const uint32_t col = (kk % 4) * 32;
+              hopper::wgmma_ss<kW>(st, kmajor(sK + (kk / 4) * L::kKVAtom + col),
+                                   kmajor(sQ + (kk / 4) * L::kQAtom + row + col), kk > 0);
+              hopper::wgmma_ss<kW>(dpt, kmajor(sV + (kk / 4) * L::kKVAtom + col),
+                                   kmajor(sdO + (kk / 4) * L::kQAtom + row + col), kk > 0);
+            }
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(st);
+            hopper::fence_regs(dpt);
+            hopper::fence_regs(dk);
+            hopper::fence_regs(dv);
+            hopper::fence_regs(pa);
+            hopper::fence_regs(da);
+            if (pending >= 0 && pending != stage) release(pending);  // the last pass's stage
+            const float* sL = reinterpret_cast<const float*>(gbase + L::kL) + stage * 64 + sub * kW;
+            const float* sD = reinterpret_cast<const float*>(gbase + L::kD) + stage * 64 + sub * kW;
+            if ((p.causal && kc0 + 63 > qs) || (p.window > 0 && kc0 <= qs + kW - 1 - p.window)) {
+              ds_t_tile<kW, kSoftcap, true>(p, st, dpt, pa, da, sL, sD, key0, qs, t);
+            } else {
+              ds_t_tile<kW, kSoftcap, false>(p, st, dpt, pa, da, sL, sD, key0, qs, t);
+            }
+            // dV += P^T dO and dK += dS^T Q: kW / 16 steps of 16 queries, dO
+            // and Q MN-major.
+            hopper::fence_regs(dk);
+            hopper::fence_regs(dv);
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < kW / 16; ++kk) {
+              const uint32_t at = row + kk * 16 * kRowBytes;
+              hopper::wgmma_rs<HD>(dv, pa[kk], hopper::smem_desc(sdO + at, L::kQAtom, 1024), 1);
+              hopper::wgmma_rs<HD>(dk, da[kk], hopper::smem_desc(sQ + at, L::kQAtom, 1024), 1);
+            }
+            hopper::wgmma_commit();
+            pending = stage;
+          }
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk);
+      hopper::fence_regs(dv);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(da);
+      if (pending >= 0) release(pending);
+
+      // Epilogue: dK * scale and dV as bf16 over this consumer's own K and V
+      // rows, then TMA stores (rows past Sk dropped); then the buffer is free.
+      store_acc<HD>(sK, L::kKVAtom, dk, p.sm_scale, warp, g, t);
+      store_acc<HD>(sV, L::kKVAtom, dv, 1.f, warp, g, t);
+      hopper::fence_proxy_async();
+      hopper::named_barrier_sync(1 + c, 128);
+      if (threadIdx.x % 128 == 0) {
+        if (kc0 < p.Sk) {
+          for (int a = 0; a < L::kAtoms; ++a) {
+            hopper::tma_store_4d(&p.tdk, sK + a * L::kKVAtom, a * 64, it.kvh, kc0, it.b);
+            hopper::tma_store_4d(&p.tdv, sV + a * L::kKVAtom, a * 64, it.kvh, kc0, it.b);
+          }
+          hopper::tma_store_wait_read();
+        }
+        hopper::mbar_arrive(bar_kv_empty + 8 * kb);
+      }
+    }
+  }
+}
+
+template <int HD, bool kSoftcap>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ Params p) {
+  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  using L = DqShape<HD>;
+  constexpr int kStages = L::kStages, kBufs = L::kBufs, kN = L::kN;
+  constexpr int NO = HD / 2;  // dQ accumulator floats per thread
+  constexpr int NS = kN / 2;  // S, dP accumulator floats per thread
+  constexpr int KS = kN / 16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;  // + 8 * buffer
+  const uint32_t bar_q_empty = bar_q + 8 * kBufs;
+  const uint32_t bar_full = bar_q_empty + 8 * kBufs;  // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const int n_items = p.n_qtiles * p.B * p.H;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < kBufs; ++b) {
+      hopper::mbar_init(bar_q + 8 * b, 1);
+      hopper::mbar_init(bar_q_empty + 8 * b, 2);  // one thread of each consumer, after its store
+    }
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bar_full + 8 * s, 1);
+      hopper::mbar_init(bar_empty + 8 * s, 8);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x / 128 == 0) {
+    // ---- producer ----
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      int tiles = 0;
+      for (int i = 0; item_index(i) < n_items; ++i) {
+        const QItem it = q_item<kN>(p, item_index(i));
+        const int qb = i % kBufs;
+        hopper::mbar_wait(bar_q_empty + 8 * qb, ((i / kBufs) % 2) ^ 1);
+        hopper::mbar_arrive_expect_tx(bar_q + 8 * qb, 2 * L::kQTile);
+        for (int a = 0; a < L::kAtoms; ++a) {
+          const uint32_t off = qb * L::kQTile + a * L::kQAtom;
+          hopper::tma_load_4d(base + L::kQ + off, &p.tq128, bar_q + 8 * qb, a * 64, it.h, it.q0, it.b);
+          hopper::tma_load_4d(base + L::kdO + off, &p.tdo128, bar_q + 8 * qb, a * 64, it.h, it.q0, it.b);
+        }
+        for (int kt = it.kt_beg; kt < it.kt_end; ++kt, ++tiles) {
+          const int stage = tiles % kStages;
+          hopper::mbar_wait(bar_empty + 8 * stage, ((tiles / kStages) % 2) ^ 1);
+          hopper::mbar_arrive_expect_tx(bar_full + 8 * stage, 2 * L::kKTile);
+          for (int a = 0; a < L::kAtoms; ++a) {
+            const uint32_t off = stage * L::kKTile + a * L::kKAtom;
+            hopper::tma_load_4d(base + L::kK + off, &p.tk_dq, bar_full + 8 * stage, a * 64, it.kvh, kt * kN, it.b);
+            hopper::tma_load_4d(base + L::kV + off, &p.tv_dq, bar_full + 8 * stage, a * 64, it.kvh, kt * kN, it.b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows of each item ----
+    hopper::setmaxnreg_inc<240>();
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x % 128) / 32, g = lane / 4, t = lane % 4;
+    float dq[NO], s[NS], dp[NS];
+    uint32_t da[KS][4];
+    int tiles = 0;
+    auto release = [&](int stage) {
+      if (lane == 0) hopper::mbar_arrive(bar_empty + 8 * stage);
+    };
+    for (int i = 0; item_index(i) < n_items; ++i) {
+      const QItem it = q_item<kN>(p, item_index(i));
+      const int qb = i % kBufs;
+      const int wg_row0 = it.q0 + 64 * c;      // first row of this warpgroup
+      const int r0 = wg_row0 + 16 * warp + g;  // this thread's rows: r0, r0 + 8
+      const uint32_t sQ = base + L::kQ + qb * L::kQTile + c * 64 * kRowBytes;  // its rows of each atom
+      const uint32_t sdO = base + L::kdO + qb * L::kQTile + c * 64 * kRowBytes;
+      float lse2[2], d[2];
+      const long long row = (static_cast<long long>(it.b) * p.H + it.h) * p.Sq;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = r0 + 8 * e;
+        lse2[e] = r < p.Sq ? p.lse[row + r] * kLog2e : INFINITY;
+        d[e] = r < p.Sq ? p.delta[row + r] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) dq[j] = 0.f;
+      hopper::mbar_wait(bar_q + 8 * qb, (i / kBufs) % 2);
+      int pending = -1;
+      for (int kt = it.kt_beg; kt < it.kt_end; ++kt, ++tiles) {
+        const int stage = tiles % kStages;
+        const int k0 = kt * kN;
+        hopper::mbar_wait(bar_full + 8 * stage, (tiles / kStages) % 2);
+        if (wg_row0 >= p.Sq || (p.causal && k0 > wg_row0 + 63) ||
+            (p.window > 0 && k0 + kN - 1 <= wg_row0 - p.window)) {
+          // no row of this consumer sees a key of the tile: free it, and the
+          // one the product in flight reads (the ring must not stall)
+          release(stage);
+          if (pending >= 0) {
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(dq);
+            release(pending);
+            pending = -1;
+          }
+          continue;
+        }
+        const uint32_t sK = base + L::kK + stage * L::kKTile;
+        const uint32_t sV = base + L::kV + stage * L::kKTile;
+        // S = Q K^T and dP = dO V^T (64 rows x kN keys), both K-major; the
+        // previous tile's dQ product may still run.
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32;
+          hopper::wgmma_ss_m64n64(s, kmajor(sQ + (kk / 4) * L::kQAtom + col), kmajor(sK + (kk / 4) * L::kKAtom + col), kk > 0);
+          hopper::wgmma_ss_m64n64(dp, kmajor(sdO + (kk / 4) * L::kQAtom + col), kmajor(sV + (kk / 4) * L::kKAtom + col), kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(dp);
+        hopper::fence_regs(dq);
+        hopper::fence_regs(da);
+        if (pending >= 0) release(pending);
+        if (k0 + kN > p.Sk || (p.causal && k0 + kN - 1 > wg_row0) ||
+            (p.window > 0 && k0 <= wg_row0 + 63 - p.window)) {
+          ds_tile<kN, kSoftcap, true>(p, s, dp, lse2, d, r0, k0, t);
+        } else {
+          ds_tile<kN, kSoftcap, false>(p, s, dp, lse2, d, r0, k0, t);
+        }
+        pack_a(da, dp);
+        // dQ += dS K: kN / 16 steps of 16 keys, K MN-major.
+        hopper::fence_regs(dq);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          hopper::wgmma_rs<HD>(dq, da[kk], hopper::smem_desc(sK + kk * 16 * kRowBytes, L::kKAtom, 1024), 1);
+        hopper::wgmma_commit();
+        pending = stage;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dq);
+      hopper::fence_regs(da);
+      if (pending >= 0) release(pending);
+
+      // Epilogue: dQ * scale as bf16 over this warpgroup's rows of the Q
+      // buffer, one TMA store (rows past Sq dropped); then the buffer is free.
+      store_acc<HD>(sQ, L::kQAtom, dq, p.sm_scale, warp, g, t);
+      hopper::fence_proxy_async();
+      hopper::named_barrier_sync(1 + c, 128);
+      if (threadIdx.x % 128 == 0) {
+        if (wg_row0 < p.Sq) {
+          for (int a = 0; a < L::kAtoms; ++a)
+            hopper::tma_store_4d(&p.tdq, sQ + a * L::kQAtom, a * 64, it.h, wg_row0, it.b);
+          hopper::tma_store_wait_read();
+        }
+        hopper::mbar_arrive(bar_q_empty + 8 * qb);
+      }
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch_persistent(Kernel kernel, const Params& p, long long n_items, int smem,
+                              cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int device, sms;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  const int grid = static_cast<int>(n_items < sms ? n_items : sms);  // one CTA per SM
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// dK/dV, then dQ (D must be written already).
+template <int HD>
+int launch(const Args& a, cudaStream_t stream) {
+  hopper::EncodeTiled fn;
+  cudaError_t e = hopper::encode_fn(&fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Params p;
+  constexpr int kN = DqShape<HD>::kN;
+  const struct {
+    CUtensorMap* map;
+    const void* ptr;
+    int heads, seq;
+    const long long* st;
+    int rows;
+  } maps[] = {
+      {&p.tq64, a.q, a.H, a.Sq, a.sq, 64},      {&p.tdo64, a.dout, a.H, a.Sq, a.sdo, 64},
+      {&p.tk128, a.k, a.KVH, a.Sk, a.sk, 128},  {&p.tv128, a.v, a.KVH, a.Sk, a.sv, 128},
+      {&p.tq128, a.q, a.H, a.Sq, a.sq, 128},    {&p.tdo128, a.dout, a.H, a.Sq, a.sdo, 128},
+      {&p.tk_dq, a.k, a.KVH, a.Sk, a.sk, kN},   {&p.tv_dq, a.v, a.KVH, a.Sk, a.sv, kN},
+      {&p.tdq, a.dq, a.H, a.Sq, a.sdq, 64},     {&p.tdk, a.dk, a.KVH, a.Sk, a.sdk, 64},
+      {&p.tdv, a.dv, a.KVH, a.Sk, a.sdv, 64},
+  };
+  for (const auto& m : maps) {
+    const int err = hopper::encode(fn, m.map, m.ptr, HD, m.heads, m.seq, a.B, m.st, m.rows);
+    if (err) return err;
+  }
+  p.lse = a.lse;
+  p.delta = a.delta;
+  p.B = a.B;
+  p.H = a.H;
+  p.KVH = a.KVH;
+  p.Sq = a.Sq;
+  p.Sk = a.Sk;
+  p.causal = a.causal;
+  p.window = a.window;
+  p.softcap = a.softcap;
+  p.softcap_inv = a.softcap > 0.f ? 1.f / a.softcap : 0.f;
+  p.sm_scale = a.sm_scale;
+  p.n_ktiles = (a.Sk + 127) / 128;
+  p.n_qtiles = (a.Sq + 127) / 128;
+  const long long kv_items = static_cast<long long>(p.n_ktiles) * a.B * a.KVH;
+  const long long q_items = static_cast<long long>(p.n_qtiles) * a.B * a.H;
+  if (kv_items > 0x7fffffffLL || q_items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const bool cap = a.softcap > 0.f;
+  e = launch_persistent(cap ? &flash_bwd_dkdv_wgmma<HD, true> : &flash_bwd_dkdv_wgmma<HD, false>, p,
+                        kv_items, KvShape<HD>::kAlloc, stream);
+  if (e == cudaSuccess)
+    e = launch_persistent(cap ? &flash_bwd_dq_wgmma<HD, true> : &flash_bwd_dq_wgmma<HD, false>, p,
+                          q_items, DqShape<HD>::kAlloc, stream);
+  return static_cast<int>(e);
+}
+
+}  // namespace wg
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, const Args& a, dim3 grid, int threads, size_t smem,
                    cudaStream_t stream) {
@@ -631,39 +1351,65 @@ cudaError_t launch(Kernel kernel, const Args& a, dim3 grid, int threads, size_t 
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t dispatch(int is_bf16, const Args& a, cudaStream_t stream) {
+// Routes, as ops.py::bwd_route names them.
+constexpr int kRouteF32 = 0;
+constexpr int kRouteMmaSync = 1;
+constexpr int kRouteWgmma = 2;
+
+int dispatch(int route, const Args& a, cudaStream_t stream) {
   const long long rows = (long long)a.B * a.H * a.Sq;
   const dim3 grid_delta(static_cast<unsigned>((rows + 7) / 8));
   const dim3 grid_kv((a.Sk + kBlockN - 1) / kBlockN, a.KVH, a.B);
   const dim3 grid_q((a.Sq + kBlockM - 1) / kBlockM, a.H, a.B);
   cudaError_t e;
-  if (is_bf16) {
+  if (route == kRouteWgmma && (a.hd == 64 || a.hd == 128)) {
+    const dim3 grid_vec(static_cast<unsigned>((rows * (a.hd / 8) + 255) / 256));
+    e = launch(a.hd == 64 ? delta_kernel_vec<64> : delta_kernel_vec<128>, a, grid_vec, 256, 0, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return a.hd == 64 ? wg::launch<64>(a, stream) : wg::launch<128>(a, stream);
+  }
+  if (route == kRouteMmaSync && a.hd == 16) {
     e = launch(delta_kernel<bf16>, a, grid_delta, 256, 0, stream);
     if (e == cudaSuccess)
-      e = launch(flash_bwd_dkdv_bf16<HD>, a, grid_kv, kWarps * 32, dkdv_bf16_smem<HD>(), stream);
+      e = launch(flash_bwd_dkdv_bf16<16>, a, grid_kv, kWarps * 32, dkdv_bf16_smem<16>(), stream);
     if (e == cudaSuccess)
-      e = launch(flash_bwd_dq_bf16<HD>, a, grid_q, kWarps * 32, dq_bf16_smem<HD>(), stream);
-    return e;
+      e = launch(flash_bwd_dq_bf16<16>, a, grid_q, kWarps * 32, dq_bf16_smem<16>(), stream);
+    return static_cast<int>(e);
   }
-  e = launch(delta_kernel<float>, a, grid_delta, 256, 0, stream);
-  if (e == cudaSuccess) e = launch(flash_bwd_dkdv_f32<HD>, a, grid_kv, kBlockN, f32_smem<HD>(), stream);
-  if (e == cudaSuccess) e = launch(flash_bwd_dq_f32<HD>, a, grid_q, kBlockM, f32_smem<HD>(), stream);
-  return e;
+  if (route == kRouteF32 && (a.hd == 16 || a.hd == 64 || a.hd == 128)) {
+    e = launch(delta_kernel<float>, a, grid_delta, 256, 0, stream);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    switch (a.hd) {
+      case 16:
+        e = launch(flash_bwd_dkdv_f32<16>, a, grid_kv, kBlockN, f32_smem<16>(), stream);
+        if (e == cudaSuccess) e = launch(flash_bwd_dq_f32<16>, a, grid_q, kBlockM, f32_smem<16>(), stream);
+        break;
+      case 64:
+        e = launch(flash_bwd_dkdv_f32<64>, a, grid_kv, kBlockN, f32_smem<64>(), stream);
+        if (e == cudaSuccess) e = launch(flash_bwd_dq_f32<64>, a, grid_q, kBlockM, f32_smem<64>(), stream);
+        break;
+      default:
+        e = launch(flash_bwd_dkdv_f32<128>, a, grid_kv, kBlockN, f32_smem<128>(), stream);
+        if (e == cudaSuccess) e = launch(flash_bwd_dq_f32<128>, a, grid_q, kBlockM, f32_smem<128>(), stream);
+    }
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);  // a route that does not fit the dtype or head_dim
 }
 
 }  // namespace
-
 extern "C" {
 
-// Launches the backward pass on `stream` (three kernels: D, then dK/dV,
-// then dQ) and returns the first launch error (0 on success).
+// Launches the backward pass on `stream` (D, then dK/dV, then dQ) and
+// returns 0 on success, else the first cudaError_t of an attribute call or
+// a launch, or hopper::kEncodeError plus the CUresult of a failed
+// tensor-map encode (see repro_cuda_error_string).
+// route: 0 "f32" (float32, head_dim 16/64/128), 1 "mma_sync" (bf16, 16),
+// 2 "wgmma" (bf16, 64/128); any other pairing is refused.
 // dims = {B, H, KVH, Sq, Sk}; strides = element strides {batch, seq, head}
 // of q, k, v, o, dO, dQ, dK, dV in that order.  lse (the forward's) and
 // delta (scratch the wrapper allocates) are contiguous float32 [B, H, Sq].
-// head_dim is one of 16, 64, 128; is_bf16 selects bf16 (else float32) for
-// every tensor but lse and delta.
-int repro_flash_bwd(int device, int is_bf16, int head_dim, const void* q, const void* k,
+int repro_flash_bwd(int device, int route, int head_dim, const void* q, const void* k,
                     const void* v, const void* o, const void* dout, const void* lse, void* delta,
                     void* dq, void* dk, void* dv, const long long* strides, const int* dims,
                     int causal, int window, float softcap, float sm_scale, void* stream) {
@@ -693,17 +1439,9 @@ int repro_flash_bwd(int device, int is_bf16, int head_dim, const void* q, const 
   a.window = window;
   a.softcap = softcap;
   a.sm_scale = sm_scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return static_cast<int>(dispatch<16>(is_bf16, a, s));
-    case 64: return static_cast<int>(dispatch<64>(is_bf16, a, s));
-    case 128: return static_cast<int>(dispatch<128>(is_bf16, a, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(route, a, static_cast<cudaStream_t>(stream));
 }
 
-const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* repro_cuda_error_string(int err) { return hopper::error_string(err); }
 
 }  // extern "C"

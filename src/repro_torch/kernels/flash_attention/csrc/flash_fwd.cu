@@ -428,7 +428,7 @@ constexpr int kAtom = kN * 128;  // bytes of one 64-column swizzle atom of a K o
 constexpr int kM = 128;
 constexpr int kThreads = 384;     // producer + two consumer warpgroups
 constexpr int kQAtom = kM * 128;  // bytes of one 64-column atom of a query tile
-constexpr float kLog2e = 1.4426950408889634f;
+using hopper::kLog2e;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = kNegInf * kLog2e;  // the masked logit, in base-2 units
 
@@ -494,29 +494,10 @@ __device__ __forceinline__ Item work_item(const Params& p, int w) {
   return it;
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float rcp(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// tanh(x) = 1 - 2 / (1 + e^2x), branch-free (tanhf's branches would make
-// ptxas serialise the wgmma pipeline); absolute error ~2.4e-7, the exponent
-// clamped where tanh is 1 in float32.
-__device__ __forceinline__ float tanh_fast(float x) {
-  return 1.f - 2.f * rcp(1.f + ex2(fminf(2.f * kLog2e * x, 64.f)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::ex2;
+using hopper::pack_bf16x2;
+using hopper::rcp;
+using hopper::tanh_fast;
 
 // One consumer's online-softmax step on its S tile (64 rows x 128 keys):
 // softcap and (kMask) mask, update the running max m and sum l, leave
@@ -819,63 +800,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
-cudaError_t encode_fn(EncodeTiled* out) {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || ptr == nullptr) return cudaErrorSymbolNotFound;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  *out = fn;
-  return cudaSuccess;
-}
-
-// Error codes above this are a CUresult of cuTensorMapEncodeTiled plus it.
-constexpr int kEncodeError = 100000;
-
-// A 4-D (hd, heads, seq, batch) bf16 map with boxes of 64 columns x `rows`,
-// 128-byte swizzle; `st` are element strides {batch, seq, head}.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
-           int batch, const long long* st, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
-  const long long el[3] = {st[2], st[1], st[0]};  // head, seq, batch
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i)  // a dimension of size 1 is never stepped: any valid stride
-    strides[i] = dims[i + 1] == 1 ? static_cast<cuuint64_t>(hd) * 2 : static_cast<cuuint64_t>(el[i]) * 2;
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
-}
-
 template <int HD>
 int launch(const Args& a, int batch, cudaStream_t stream) {
-  EncodeTiled fn;
-  cudaError_t e = encode_fn(&fn);
+  hopper::EncodeTiled fn;
+  cudaError_t e = hopper::encode_fn(&fn);
   if (e != cudaSuccess) return static_cast<int>(e);
   Params p;
-  int err = encode(fn, &p.tq, a.q, HD, a.H, a.Sq, batch, a.sq, kM);
-  if (!err) err = encode(fn, &p.tk, a.k, HD, a.KVH, a.Sk, batch, a.sk, kN);
-  if (!err) err = encode(fn, &p.tv, a.v, HD, a.KVH, a.Sk, batch, a.sv, kN);
-  if (!err) err = encode(fn, &p.to, a.o, HD, a.H, a.Sq, batch, a.so, 64);
+  int err = hopper::encode(fn, &p.tq, a.q, HD, a.H, a.Sq, batch, a.sq, kM);
+  if (!err) err = hopper::encode(fn, &p.tk, a.k, HD, a.KVH, a.Sk, batch, a.sk, kN);
+  if (!err) err = hopper::encode(fn, &p.tv, a.v, HD, a.KVH, a.Sk, batch, a.sv, kN);
+  if (!err) err = hopper::encode(fn, &p.to, a.o, HD, a.H, a.Sq, batch, a.so, 64);
   if (err) return err;
   p.lse = a.lse;
   p.B = batch;
@@ -979,13 +913,6 @@ int repro_flash_fwd(int device, int route, int head_dim, const void* q, const vo
   return dispatch(route, head_dim, a, dims[0], static_cast<cudaStream_t>(stream));
 }
 
-const char* repro_cuda_error_string(int err) {
-  if (err >= wg::kEncodeError) {
-    static thread_local char msg[96];
-    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed with CUresult %d", err - wg::kEncodeError);
-    return msg;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* repro_cuda_error_string(int err) { return hopper::error_string(err); }
 
 }  // extern "C"

@@ -4,9 +4,10 @@ On a CUDA tensor the forward launches the hand-written kernel
 ``csrc/flash_fwd.cu`` (the port of the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention_fwd``), on the
 route :func:`fwd_route` picks from the dtype and head_dim, and the
-backward ``csrc/flash_bwd.cu`` (the JAX package has no backward kernel), or
-they raise if the inputs are ones they cannot take.  On a CPU tensor they
-compute the plain versions (:mod:`.ref`).  There is no other fallback: the
+backward ``csrc/flash_bwd.cu`` (the JAX package has no backward kernel), on
+the route :func:`bwd_route` picks, or they raise if the inputs are ones
+they cannot take.  On a CPU tensor they compute the plain versions
+(:mod:`.ref`).  There is no other fallback: the
 kernels take any sequence lengths S >= 1, ragged tiles included, and read
 their inputs through their strides with no copy.
 
@@ -31,10 +32,12 @@ KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
 HEAD_DIMS = (16, 64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
-#: route -> the code ``repro_flash_fwd`` takes for it
+#: route -> the code ``repro_flash_fwd`` and ``repro_flash_bwd`` take for it
 ROUTES = {"f32": 0, "mma_sync": 1, "wgmma": 2}
 #: forward launches by route, counted beside ``LAUNCHES``
 ROUTE_LAUNCHES: Counter = Counter()
+#: backward launches by route, counted beside ``LAUNCHES``
+BWD_ROUTE_LAUNCHES: Counter = Counter()
 
 
 def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -52,6 +55,23 @@ def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.float32 and head_dim in HEAD_DIMS:
         return "f32"
     raise ValueError(f"no forward kernel for dtype {dtype} with head_dim {head_dim}")
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which backward kernels serve (dtype, head_dim); raises for any other.
+
+    ``"wgmma"``: bf16 at head_dim 64 and 128, the Hopper kernels (TMA rings,
+    wgmma, warp specialisation) that every full-width training path runs.
+    ``"mma_sync"``: bf16 at head_dim 16 (the smoke configs).  ``"f32"``:
+    float32 at 16, 64 and 128.
+    """
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
+        return "wgmma"
+    if dtype == torch.bfloat16 and head_dim == 16:
+        return "mma_sync"
+    if dtype == torch.float32 and head_dim in HEAD_DIMS:
+        return "f32"
+    raise ValueError(f"no backward kernel for dtype {dtype} with head_dim {head_dim}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, logit_softcap) -> None:
@@ -147,8 +167,9 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, causal, window, logit_softca
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     strides, dims = _strides(q, k, v, o, do, dq, dk, dv), _dims(q, k)
     hd = q.shape[3]
+    route = bwd_route(q.dtype, hd)
     err = fn(
-        q.device.index, int(q.dtype == torch.bfloat16), hd,
+        q.device.index, ROUTES[route], hd,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         ctypes.addressof(strides), ctypes.addressof(dims),
@@ -157,6 +178,7 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, causal, window, logit_softca
     )
     _build.check(lib, err, BWD_KERNEL)
     LAUNCHES[BWD_KERNEL] += 1
+    BWD_ROUTE_LAUNCHES[route] += 1
 
 
 def _heads_first(*tensors):

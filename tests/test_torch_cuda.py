@@ -16,6 +16,7 @@ from repro_torch.data import loader_for_model
 from repro_torch.distributed import init_train_state, make_train_step, pod_grads, sync_grads
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention import (
+    bwd_route,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
@@ -23,7 +24,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
     fwd_route,
 )
-from repro_torch.kernels.flash_attention.ops import ROUTE_LAUNCHES
+from repro_torch.kernels.flash_attention.ops import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
 from repro_torch.models import decode_step, init_params, prefill
@@ -53,6 +54,18 @@ CASES = [
     (1, 1000, 1000, 2, 1, 64, True, 200, None),  # window skips leading tiles, starts mid-tile
     (1, 300, 100, 2, 2, 64, False, None, None),  # Sq > 128 with Sk < 128
     (3, 333, 333, 5, 5, 64, True, None, None),  # items that divide evenly into no grid
+]
+
+# Edges of the wgmma backward's 128-key dK/dV items and 64-row query ring,
+# run by the backward test beside every entry of CASES.
+BWD_EDGE_CASES = [
+    (1, 100, 300, 2, 2, 64, True, None, None),  # causal Sq < Sk: keys 100-299 get zero dK, dV
+    # GQA (G = 4): key tile 1 is reached by the last query tile of each of
+    # the 4 heads only, and key tile 2 by no query: its dK, dV are zeros
+    (2, 200, 384, 8, 2, 64, True, None, None),
+    (1, 500, 500, 4, 2, 128, True, 100, None),  # hd 128, the window's edge mid-tile
+    (1, 1000, 1000, 4, 4, 128, True, None, None),  # S 1000 ragged at hd 128
+    (1, 300, 300, 2, 1, 128, True, None, 30.0),  # softcap at hd 128
 ]
 
 
@@ -129,7 +142,7 @@ def test_smoke_prefill_and_decode_card_matches_cpu(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CASES, ids=str)
+@pytest.mark.parametrize("case", CASES + BWD_EDGE_CASES, ids=str)
 def test_backward_kernel_matches_plain(cuda, dtype, case):
     """dq, dk, dv from the kernel's own forward output and lse against the
     plain backward on the same inputs; the kernel's lse against the plain
@@ -175,6 +188,35 @@ def test_wgmma_forward_lse_feeds_backward_to_plain_gradient(cuda, hd):
             got.float(), want.transpose(1, 2).float(), rtol=2e-2, atol=2e-2,
             msg=lambda m, name=name: f"d{name}: {m}",
         )
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_backward_is_deterministic(cuda, hd):
+    """No atomics: two calls on the same inputs give the same bits."""
+    q, k, v = _qkv(7, 2, 700, 700, 8, 2, hd, "bfloat16", cuda)
+    do = _qkv(8, 2, 700, 700, 8, 8, hd, "bfloat16", cuda)[0]
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    second = flash_attention_bwd(q, k, v, out, lse, do)
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), f"d{name} differs between two calls"
+
+
+@pytest.mark.parametrize(
+    "dtype, hd, route",
+    [("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"), ("bfloat16", 16, "mma_sync"), ("float32", 64, "f32")],
+)
+def test_backward_launches_on_its_route(cuda, dtype, hd, route):
+    """The backward's route counter moves by one launch, on the route bwd_route names."""
+    q, k, v = _qkv(9, 1, 130, 130, 2, 2, hd, dtype, cuda)
+    do = _qkv(10, 1, 130, 130, 2, 2, hd, dtype, cuda)[0]
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    assert bwd_route(q.dtype, hd) == route
+    before = dict(BWD_ROUTE_LAUNCHES)
+    flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    moved = {r: n - before.get(r, 0) for r, n in BWD_ROUTE_LAUNCHES.items() if n != before.get(r, 0)}
+    assert moved == {route: 1}
 
 
 def test_autograd_through_the_kernels(cuda):

@@ -23,6 +23,7 @@ from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention import (
     FlashAttentionFn,
+    bwd_route,
     flash_attention,
     flash_attention_bwd_ref,
     flash_attention_ref,
@@ -215,3 +216,27 @@ def test_forward_route(dtype, head_dim):
             fwd_route(dtype, head_dim)
     else:
         assert fwd_route(dtype, head_dim) == want
+
+
+# Which backward kernels each (dtype, head_dim) pair reaches on the card;
+# None: refused.  bf16 at 64 and 128 (every full-width training path) must
+# stay on wgmma.
+BWD_ROUTES = {
+    (torch.bfloat16, 16): "mma_sync",
+    (torch.bfloat16, 64): "wgmma",
+    (torch.bfloat16, 128): "wgmma",
+    (torch.float32, 16): "f32",
+    (torch.float32, 64): "f32",
+    (torch.float32, 128): "f32",
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16], ids=str)
+@pytest.mark.parametrize("head_dim", [8, 16, 32, 64, 96, 128, 256])
+def test_backward_route(dtype, head_dim):
+    want = BWD_ROUTES.get((dtype, head_dim))
+    if want is None:
+        with pytest.raises(ValueError, match="no backward kernel"):
+            bwd_route(dtype, head_dim)
+    else:
+        assert bwd_route(dtype, head_dim) == want

@@ -78,6 +78,9 @@ FLASH_CASES = [
     ("window256", 8, 1024, 12, 12, 64, "bfloat16", 256, None, "wgmma"),
     ("softcap30", 8, 1024, 12, 12, 64, "bfloat16", None, 30.0, "wgmma"),
     ("f32", 8, 1024, 12, 12, 64, "float32", None, None, "f32"),
+    ("phi3v_hd96", 2, 1024, 32, 32, 96, "bfloat16", None, None, "mma_sync"),
+    ("padded_hd12_gqa6_2", 2, 1024, 6, 2, 12, "bfloat16", None, None, "mma_sync"),
+    ("padded_hd8_gqa7_1", 2, 1024, 7, 1, 8, "bfloat16", None, None, "mma_sync"),
 ]
 # (label, B, S, H, KVH, hd, dtype, window, softcap, backward route); the
 # first is the train path's shape
@@ -87,7 +90,12 @@ FLASH_BWD_CASES = [
     ("softcap30", 8, 1024, 12, 12, 64, "bfloat16", None, 30.0, "wgmma"),
     ("gqa_h8_kvh2_hd128", 8, 1024, 8, 2, 128, "bfloat16", None, None, "wgmma"),
     ("f32", 8, 1024, 12, 12, 64, "float32", None, None, "f32"),
+    ("phi3v_hd96", 2, 1024, 32, 32, 96, "bfloat16", None, None, "mma_sync"),
+    ("padded_hd12_gqa6_2", 2, 1024, 6, 2, 12, "bfloat16", None, None, "mma_sync"),
+    ("padded_hd8_gqa7_1", 2, 1024, 7, 1, 8, "bfloat16", None, None, "mma_sync"),
 ]
+# head dims the wrappers zero-pad to 16 (each such launch also moves PADDED_LAUNCHES)
+PADDED_HDS = (8, 12)
 # (label, rows, cols): the stacked 2-pod largest leaves and a ragged one
 WAN_CASES = [
     ("embed_2x50257x768", 2 * 50257, 768),
@@ -103,6 +111,9 @@ WKV_CASES = [
     ("n16", 4, 1024, 16, 16, "bfloat16", "float32", False),
     ("n8", 4, 1024, 8, 8, "bfloat16", "bfloat16", False),
     ("f32", 4, 1024, 64, 64, "float32", "float32", False),
+    ("t37_off_chunk", 4, 37, 64, 64, "bfloat16", "float32", False),
+    ("n128", 4, 1024, 32, 128, "bfloat16", "float32", False),
+    ("n32", 4, 1024, 128, 32, "bfloat16", "float32", False),
 ]
 WKV_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # TestWkv6's, by the r/k/v dtype
 B_SERVE, PROMPT, GEN = 8, 1024, 32
@@ -259,6 +270,7 @@ def phase_kernels(torch):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES, flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import PADDED_LAUNCHES
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = []
@@ -269,11 +281,14 @@ def phase_kernels(torch):
         v = torch.randn((b, s, kvh, hd), generator=gen, device="cuda").to(dt)
         kw = dict(causal=True, window=window, logit_softcap=cap)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        routes = dict(ROUTE_LAUNCHES)
+        routes, padded = dict(ROUTE_LAUNCHES), PADDED_LAUNCHES["flash_attention_fwd"]
         out = flash_attention(q, k, v, **kw)
         took = {r: n - routes.get(r, 0) for r, n in ROUTE_LAUNCHES.items() if n != routes.get(r, 0)}
         if took != {route: 1}:
             raise AssertionError(f"flash_attention_fwd {label}: launched on routes {took}, expected {route}")
+        if PADDED_LAUNCHES["flash_attention_fwd"] - padded != (hd in PADDED_HDS):
+            raise AssertionError(f"flash_attention_fwd {label}: padded count moved "
+                                 f"{PADDED_LAUNCHES['flash_attention_fwd'] - padded}, hd {hd}")
         plain = flash_attention_ref(qh, kh, vh, **kw)[0].transpose(1, 2)
         torch.cuda.synchronize()
         diff = (out.float() - plain.float()).abs()
@@ -294,6 +309,7 @@ def phase_kernels(torch):
         checks.append({
             "label": label, "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd},
             "dtype": dtype, "window": window, "softcap": cap, "fwd_route": route,
+            "padded_to_16": hd in PADDED_HDS,
             "max_abs_err": err, "tol": tol,
             "ms": ms, "call_ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
             "tflops": flash_flops(b, s, h, hd, window) / (ms * 1e-3) / 1e12,
@@ -316,6 +332,7 @@ def phase_kernels_bwd(torch):
         flash_attention_bwd_ref,
         flash_attention_fwd,
     )
+    from repro_torch.kernels.flash_attention.ops import PADDED_LAUNCHES
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     checks = []
@@ -326,11 +343,14 @@ def phase_kernels_bwd(torch):
         kw = dict(causal=True, window=window, logit_softcap=cap)
         out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
         heads = [t.transpose(1, 2) for t in (q, k, v, out, do)]
-        routes = dict(BWD_ROUTE_LAUNCHES)
+        routes, padded = dict(BWD_ROUTE_LAUNCHES), PADDED_LAUNCHES["flash_attention_bwd"]
         grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
         took = {r: n - routes.get(r, 0) for r, n in BWD_ROUTE_LAUNCHES.items() if n != routes.get(r, 0)}
         if took != {route: 1}:
             raise AssertionError(f"flash_attention_bwd {label}: launched on routes {took}, expected {route}")
+        if PADDED_LAUNCHES["flash_attention_bwd"] - padded != (hd in PADDED_HDS):
+            raise AssertionError(f"flash_attention_bwd {label}: padded count moved "
+                                 f"{PADDED_LAUNCHES['flash_attention_bwd'] - padded}, hd {hd}")
         plain = flash_attention_bwd_ref(*heads[:4], lse, heads[4], **kw)
         torch.cuda.synchronize()
         tol, errs = TOL[dtype], {}
@@ -370,6 +390,7 @@ def phase_kernels_bwd(torch):
         checks.append({
             "label": label, "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd},
             "dtype": dtype, "window": window, "softcap": cap, "bwd_route": route,
+            "padded_to_16": hd in PADDED_HDS,
             "max_abs_err": max(errs.values()), "max_abs_err_dq_dk_dv": errs, "tol": tol,
             "ms": ms, "call_ms": time_ms(kernel),
             "tflops": 10 * b * h * hd * attention_pairs(s, s, True, window) / (ms * 1e-3) / 1e12,
@@ -476,6 +497,11 @@ def phase_kernels_wkv(torch):
         torch.cuda.synchronize()
         if in_place and final is not state:
             raise AssertionError(f"wkv6_fwd {label}: the final state is not the state0 tensor")
+        # determinism: a second call from the same state gives the same bits
+        again, again_final = wkv6(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again) and torch.equal(final, again_final)):
+            raise AssertionError(f"wkv6_fwd {label}: two calls on the same inputs differ")
         tol, errs = WKV_TOL[rkv_dtype], {}
         for name, got, want in (("out", out, plain_out), ("state", final, plain_state)):
             diff = (got - want).abs()
@@ -490,7 +516,7 @@ def phase_kernels_wkv(torch):
 
         checks.append({
             "label": label, "shape": {"B": b, "T": t, "H": h, "N": n}, "rkv_dtype": rkv_dtype,
-            "w_dtype": w_dtype, "state_in_place": in_place,
+            "w_dtype": w_dtype, "state_in_place": in_place, "two_calls_equal": True,
             "max_abs_err": max(errs.values()), "max_abs_err_out_state": errs, "tol": tol,
             "ms": device_ms(kernel, calls=5 if slow else GRAPH_CALLS),
             "call_ms": time_ms(kernel, runs=10 if slow else 25),
@@ -498,7 +524,7 @@ def phase_kernels_wkv(torch):
                                 warmup=1 if slow else 3),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-        del r, k, v, w, u, s0, state, out, final, plain_out, plain_state
+        del r, k, v, w, u, s0, state, out, final, again, again_final, plain_out, plain_state
     emit({"phase": "kernels", "kernel": "wkv6_fwd", "checks": checks})
     return checks
 

@@ -77,7 +77,12 @@ def pod_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, npods: i
     for p in range(npods):
         pod_batch = {k: v[p * per : (p + 1) * per] for k, v in batch.items()}
         loss, m = loss_fn(tracked, pod_batch, cfg)
-        grads.append([g.float() for g in torch.autograd.grad(loss, leaves)])
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a leaf the loss never reads (musicgen's untied embed) gets a zero
+        # gradient, as jax.value_and_grad gives it; AdamW still decays it
+        grads.append([
+            torch.zeros_like(x, dtype=torch.float32) if g is None else g.float() for x, g in zip(leaves, got)
+        ])
         losses.append(loss.detach())
         metrics.append({k: v.detach() for k, v in m.items()})
     stacked = tree_unflatten(params, [torch.stack(gs) for gs in zip(*grads)])

@@ -26,11 +26,12 @@
 //   * "wgmma" (bf16, head_dim 64 and 128): flash_bwd_dkdv_wgmma and
 //     flash_bwd_dq_wgmma below, the Hopper design.  Every full-width
 //     training path runs it.
-//   * "mma_sync" (bf16, head_dim 16): flash_bwd_dkdv_bf16 and
+//   * "mma_sync" (bf16, head_dim 16 and 96): flash_bwd_dkdv_bf16 and
 //     flash_bwd_dq_bf16, the first port's kernels (a block per 64-row tile,
 //     four warps, mma.sync m16n8k16, synchronous loads with transposed
-//     shared-memory copies), kept for the smoke configs' 16-wide heads.
-//   * "f32" (float32, head_dim 16, 64, 128): one thread per key row (dK/dV)
+//     shared-memory copies), kept for the smoke configs' 16-wide heads
+//     (8 and 12 zero-padded to 16 by the wrapper) and phi-3-vision's 96.
+//   * "f32" (float32, head_dim 16, 64, 96, 128): one thread per key row (dK/dV)
 //     or query row (dQ), scalar FMA in float32 (no TF32).
 // All tensors go in through element strides (batch, seq, head; head_dim
 // contiguous), as in the forward.  P and dS are rounded to bf16 as operands
@@ -1368,15 +1369,21 @@ int dispatch(int route, const Args& a, cudaStream_t stream) {
     if (e != cudaSuccess) return static_cast<int>(e);
     return a.hd == 64 ? wg::launch<64>(a, stream) : wg::launch<128>(a, stream);
   }
-  if (route == kRouteMmaSync && a.hd == 16) {
+  if (route == kRouteMmaSync && (a.hd == 16 || a.hd == 96)) {
     e = launch(delta_kernel<bf16>, a, grid_delta, 256, 0, stream);
-    if (e == cudaSuccess)
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (a.hd == 16) {
       e = launch(flash_bwd_dkdv_bf16<16>, a, grid_kv, kWarps * 32, dkdv_bf16_smem<16>(), stream);
-    if (e == cudaSuccess)
-      e = launch(flash_bwd_dq_bf16<16>, a, grid_q, kWarps * 32, dq_bf16_smem<16>(), stream);
+      if (e == cudaSuccess)
+        e = launch(flash_bwd_dq_bf16<16>, a, grid_q, kWarps * 32, dq_bf16_smem<16>(), stream);
+    } else {
+      e = launch(flash_bwd_dkdv_bf16<96>, a, grid_kv, kWarps * 32, dkdv_bf16_smem<96>(), stream);
+      if (e == cudaSuccess)
+        e = launch(flash_bwd_dq_bf16<96>, a, grid_q, kWarps * 32, dq_bf16_smem<96>(), stream);
+    }
     return static_cast<int>(e);
   }
-  if (route == kRouteF32 && (a.hd == 16 || a.hd == 64 || a.hd == 128)) {
+  if (route == kRouteF32 && (a.hd == 16 || a.hd == 64 || a.hd == 96 || a.hd == 128)) {
     e = launch(delta_kernel<float>, a, grid_delta, 256, 0, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
     switch (a.hd) {
@@ -1387,6 +1394,10 @@ int dispatch(int route, const Args& a, cudaStream_t stream) {
       case 64:
         e = launch(flash_bwd_dkdv_f32<64>, a, grid_kv, kBlockN, f32_smem<64>(), stream);
         if (e == cudaSuccess) e = launch(flash_bwd_dq_f32<64>, a, grid_q, kBlockM, f32_smem<64>(), stream);
+        break;
+      case 96:
+        e = launch(flash_bwd_dkdv_f32<96>, a, grid_kv, kBlockN, f32_smem<96>(), stream);
+        if (e == cudaSuccess) e = launch(flash_bwd_dq_f32<96>, a, grid_q, kBlockM, f32_smem<96>(), stream);
         break;
       default:
         e = launch(flash_bwd_dkdv_f32<128>, a, grid_kv, kBlockN, f32_smem<128>(), stream);
@@ -1404,8 +1415,8 @@ extern "C" {
 // returns 0 on success, else the first cudaError_t of an attribute call or
 // a launch, or hopper::kEncodeError plus the CUresult of a failed
 // tensor-map encode (see repro_cuda_error_string).
-// route: 0 "f32" (float32, head_dim 16/64/128), 1 "mma_sync" (bf16, 16),
-// 2 "wgmma" (bf16, 64/128); any other pairing is refused.
+// route: 0 "f32" (float32, head_dim 16/64/96/128), 1 "mma_sync" (bf16,
+// 16/96), 2 "wgmma" (bf16, 64/128); any other pairing is refused.
 // dims = {B, H, KVH, Sq, Sk}; strides = element strides {batch, seq, head}
 // of q, k, v, o, dO, dQ, dK, dV in that order.  lse (the forward's) and
 // delta (scratch the wrapper allocates) are contiguous float32 [B, H, Sq].

@@ -21,9 +21,10 @@
 // and a route that does not fit the dtype and head_dim is refused:
 //   * "wgmma" (bf16, head_dim 64 and 128): flash_fwd_wgmma below, the
 //     Hopper design.  It serves every full-width path.
-//   * "mma_sync" (bf16, head_dim 16): flash_fwd_bf16, the first port's
-//     Ampere-style kernel, kept for the smoke configs' 16-wide heads.
-//   * "f32" (float32, head_dim 16, 64, 128): flash_fwd_f32, scalar FMA.
+//   * "mma_sync" (bf16, head_dim 16 and 96): flash_fwd_bf16, the first
+//     port's Ampere-style kernel, kept for the smoke configs' 16-wide heads
+//     (8 and 12 zero-padded to 16 by the wrapper) and phi-3-vision's 96.
+//   * "f32" (float32, head_dim 16, 64, 96, 128): flash_fwd_f32, scalar FMA.
 //
 // What bounds it on the H100.  At the serving path's shape (B=8, H=12,
 // S=1024, hd=64, bf16, causal) it must move ~50 MB (q, k, v, o once each:
@@ -157,7 +158,7 @@ constexpr size_t bf16_smem_bytes() {
   return (size_t(2) * kBlockM * (HD + 8) + size_t(HD) * (kBlockN + 8)) * sizeof(__nv_bfloat16);
 }
 
-// The "mma_sync" route (bf16, head_dim 16).  One block per (64-row query
+// The "mma_sync" route (bf16, head_dim 16 and 96).  One block per (64-row query
 // tile, head, batch), four warps of 16 rows, a loop over 64-key tiles; q, k
 // and v (transposed) in padded shared memory, loaded synchronously; both
 // products with mma.sync m16n8k16 (bf16 in, float32 accumulate).
@@ -863,10 +864,14 @@ int dispatch(int route, int head_dim, const Args& a, int batch, cudaStream_t s) 
   if (route == kRouteWgmma && head_dim == 128) return wg::launch<128>(a, batch, s);
   if (route == kRouteMmaSync && head_dim == 16)
     return static_cast<int>(launch(flash_fwd_bf16<16>, a, batch, kWarps * 32, bf16_smem_bytes<16>(), s));
+  if (route == kRouteMmaSync && head_dim == 96)
+    return static_cast<int>(launch(flash_fwd_bf16<96>, a, batch, kWarps * 32, bf16_smem_bytes<96>(), s));
   if (route == kRouteF32 && head_dim == 16)
     return static_cast<int>(launch(flash_fwd_f32<16>, a, batch, kBlockM, f32_smem_bytes<16>(), s));
   if (route == kRouteF32 && head_dim == 64)
     return static_cast<int>(launch(flash_fwd_f32<64>, a, batch, kBlockM, f32_smem_bytes<64>(), s));
+  if (route == kRouteF32 && head_dim == 96)
+    return static_cast<int>(launch(flash_fwd_f32<96>, a, batch, kBlockM, f32_smem_bytes<96>(), s));
   if (route == kRouteF32 && head_dim == 128)
     return static_cast<int>(launch(flash_fwd_f32<128>, a, batch, kBlockM, f32_smem_bytes<128>(), s));
   return static_cast<int>(cudaErrorInvalidValue);  // a route that does not fit the head_dim
@@ -879,7 +884,7 @@ extern "C" {
 // Launches the forward pass on `stream` and returns 0 on success, else a
 // cudaError_t of the attribute call or the launch, or kEncodeError plus the
 // CUresult of a failed tensor-map encode (see repro_cuda_error_string).
-// route: 0 "f32" (float32, head_dim 16/64/128), 1 "mma_sync" (bf16, 16),
+// route: 0 "f32" (float32, head_dim 16/64/96/128), 1 "mma_sync" (bf16, 16/96),
 // 2 "wgmma" (bf16, 64/128); any other pairing is refused.  dims = {B, H,
 // KVH, Sq, Sk}; strides = element strides {batch, seq, head} of q, k, v, o
 // in that order.  sm_scale is head_dim**-0.5 rounded once to float32, as the

@@ -9,7 +9,10 @@ the route :func:`bwd_route` picks, or they raise if the inputs are ones
 they cannot take.  On a CPU tensor they compute the plain versions
 (:mod:`.ref`).  There is no other fallback: the
 kernels take any sequence lengths S >= 1, ragged tiles included, and read
-their inputs through their strides with no copy.
+their inputs through their strides with no copy.  Head dims 8 and 12 (the
+smoke configs of yi-34b and starcoder2-7b) run zero-padded to 16 on the
+16-wide kernels (:func:`pad_head_dim`), with the softmax scale of the true
+head_dim; ``PADDED_LAUNCHES`` counts those launches beside their route.
 
 :func:`flash_attention` records a gradient only where autograd needs one:
 then it goes through :class:`FlashAttentionFn`, whose forward also writes
@@ -30,7 +33,15 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
-HEAD_DIMS = (16, 64, 128)
+#: head dims a kernel is built for
+HEAD_DIMS = (16, 64, 96, 128)
+#: head dims that run zero-padded on head_dim to ``PAD_TO``
+PADDED_HEAD_DIMS = (8, 12)
+PAD_TO = 16
+ITEM_12 = (
+    "head_dim 256 (recurrentgemma-9b) has no kernel yet: it waits for ROADMAP "
+    "queue 1, item 12, the first ported path to reach it"
+)
 _DTYPES = (torch.bfloat16, torch.float32)
 #: route -> the code ``repro_flash_fwd`` and ``repro_flash_bwd`` take for it
 ROUTES = {"f32": 0, "mma_sync": 1, "wgmma": 2}
@@ -38,6 +49,29 @@ ROUTES = {"f32": 0, "mma_sync": 1, "wgmma": 2}
 ROUTE_LAUNCHES: Counter = Counter()
 #: backward launches by route, counted beside ``LAUNCHES``
 BWD_ROUTE_LAUNCHES: Counter = Counter()
+#: launches by kernel name (forward, backward) whose head_dim was zero-padded
+PADDED_LAUNCHES: Counter = Counter()
+
+
+def kernel_head_dim(head_dim: int) -> int:
+    """The head_dim the kernel runs at: ``head_dim`` itself, or ``PAD_TO``
+    for the padded ones; raises for any other."""
+    if head_dim in HEAD_DIMS:
+        return head_dim
+    if head_dim in PADDED_HEAD_DIMS:
+        return PAD_TO
+    why = ITEM_12 if head_dim == 256 else f"kernels take {HEAD_DIMS}, padded {PADDED_HEAD_DIMS}"
+    raise ValueError(f"no kernel for head_dim {head_dim}: {why}")
+
+
+def pad_head_dim(*tensors: torch.Tensor):
+    """[B, S, H, hd] tensors zero-padded on head_dim to the kernel's
+    (:func:`kernel_head_dim`); unchanged where it is the same.  Zero
+    columns leave q . k unchanged, and give zero output and gradient
+    columns, which the caller slices off."""
+    hd = tensors[0].shape[3]
+    extra = kernel_head_dim(hd) - hd
+    return [torch.nn.functional.pad(t, (0, extra)) if extra else t for t in tensors]
 
 
 def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -45,16 +79,11 @@ def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
 
     ``"wgmma"``: bf16 at head_dim 64 and 128, the Hopper kernel (TMA ring,
     wgmma, warp specialisation) that every full-width path runs.
-    ``"mma_sync"``: bf16 at head_dim 16 (the smoke configs).  ``"f32"``:
-    float32 at 16, 64 and 128.
+    ``"mma_sync"``: bf16 at head_dim 96 (phi-3-vision-4.2b) and 16 (the
+    smoke configs; 8 and 12 padded to 16).  ``"f32"``: float32 at 16, 64,
+    96 and 128 (8 and 12 padded).
     """
-    if dtype == torch.bfloat16 and head_dim in (64, 128):
-        return "wgmma"
-    if dtype == torch.bfloat16 and head_dim == 16:
-        return "mma_sync"
-    if dtype == torch.float32 and head_dim in HEAD_DIMS:
-        return "f32"
-    raise ValueError(f"no forward kernel for dtype {dtype} with head_dim {head_dim}")
+    return _route(dtype, head_dim, "forward")
 
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -62,16 +91,22 @@ def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
 
     ``"wgmma"``: bf16 at head_dim 64 and 128, the Hopper kernels (TMA rings,
     wgmma, warp specialisation) that every full-width training path runs.
-    ``"mma_sync"``: bf16 at head_dim 16 (the smoke configs).  ``"f32"``:
-    float32 at 16, 64 and 128.
+    ``"mma_sync"``: bf16 at head_dim 96 and 16 (8 and 12 padded to 16).
+    ``"f32"``: float32 at 16, 64, 96 and 128 (8 and 12 padded).
     """
-    if dtype == torch.bfloat16 and head_dim in (64, 128):
-        return "wgmma"
-    if dtype == torch.bfloat16 and head_dim == 16:
-        return "mma_sync"
-    if dtype == torch.float32 and head_dim in HEAD_DIMS:
+    return _route(dtype, head_dim, "backward")
+
+
+def _route(dtype: torch.dtype, head_dim: int, which: str) -> str:
+    try:
+        hd = kernel_head_dim(head_dim)
+    except ValueError as e:
+        raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim {head_dim}: {e}") from None
+    if dtype == torch.bfloat16:
+        return "wgmma" if hd in (64, 128) else "mma_sync"
+    if dtype == torch.float32:
         return "f32"
-    raise ValueError(f"no backward kernel for dtype {dtype} with head_dim {head_dim}")
+    raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim {head_dim}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, logit_softcap) -> None:
@@ -102,6 +137,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, logit_soft
 
 def _layout_error(name: str, t: torch.Tensor) -> Optional[str]:
     """Why the kernels cannot read ``t`` through its strides, or None."""
+    if kernel_head_dim(t.shape[3]) != t.shape[3]:
+        return None  # the kernels read a zero-padded copy
     if t.stride(3) != 1:
         return f"{name}: head_dim must be contiguous, strides {t.stride()}"
     # bf16 tiles load as 16-byte vectors of 8 elements
@@ -113,8 +150,7 @@ def _layout_error(name: str, t: torch.Tensor) -> Optional[str]:
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _DTYPES:
         raise ValueError(f"kernel takes {_DTYPES}, got {q.dtype}")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {q.shape[3]}")
+    kernel_head_dim(q.shape[3])  # raises, naming the head_dim
     b, sq, h, _ = q.shape
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the grid's 65535")
@@ -134,7 +170,7 @@ def _dims(q: torch.Tensor, k: torch.Tensor) -> ctypes.Array:
     return (ctypes.c_int * 5)(b, h, k.shape[2], sq, k.shape[1])
 
 
-def _launch_fwd(q, k, v, out, lse, *, causal, window, logit_softcap) -> None:
+def _launch_fwd(q, k, v, out, lse, *, scale, causal, window, logit_softcap) -> None:
     lib = _build.load("flash_fwd")
     fn = lib.repro_flash_fwd
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + [
@@ -149,7 +185,7 @@ def _launch_fwd(q, k, v, out, lse, *, causal, window, logit_softcap) -> None:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         ctypes.addressof(strides), ctypes.addressof(dims),
-        int(causal), window or 0, logit_softcap or 0.0, hd ** -0.5,
+        int(causal), window or 0, logit_softcap or 0.0, scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, KERNEL)
@@ -157,7 +193,7 @@ def _launch_fwd(q, k, v, out, lse, *, causal, window, logit_softcap) -> None:
     ROUTE_LAUNCHES[route] += 1
 
 
-def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, causal, window, logit_softcap) -> None:
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, scale, causal, window, logit_softcap) -> None:
     lib = _build.load("flash_bwd")
     fn = lib.repro_flash_bwd
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12 + [
@@ -173,7 +209,7 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, causal, window, logit_softca
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         ctypes.addressof(strides), ctypes.addressof(dims),
-        int(causal), window or 0, logit_softcap or 0.0, hd ** -0.5,
+        int(causal), window or 0, logit_softcap or 0.0, scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, BWD_KERNEL)
@@ -194,11 +230,16 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, logit_softcap=None
         out = out.transpose(1, 2)
     else:
         _check_cuda(q, k, v)
+        hd = q.shape[3]
+        q, k, v = pad_head_dim(q, k, v)
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         lse = None
         if with_lse:
             lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
-        _launch_fwd(q, k, v, out, lse, **kw)
+        _launch_fwd(q, k, v, out, lse, scale=hd ** -0.5, **kw)
+        if out.shape[3] != hd:
+            PADDED_LAUNCHES[KERNEL] += 1
+            out = out[..., :hd]
     return (out, lse) if with_lse else out
 
 
@@ -220,10 +261,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, logit_
             raise ValueError(err)
     if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 [B, H, Sq], got {tuple(lse.shape)} {lse.dtype}")
+    hd = q.shape[3]
+    q, k, v, o, do = pad_head_dim(q, k, v, o, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, **kw)
+    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scale=hd ** -0.5, **kw)
+    if q.shape[3] != hd:
+        PADDED_LAUNCHES[BWD_KERNEL] += 1
+        return dq[..., :hd], dk[..., :hd], dv[..., :hd]
     return dq, dk, dv
 
 

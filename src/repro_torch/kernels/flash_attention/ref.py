@@ -27,12 +27,12 @@ import torch
 NEG_INF = -1e30
 
 
-def _logits(q, k, *, causal, window, logit_softcap):
+def _logits(q, k, *, causal, window, logit_softcap, scale):
     """Masked float32 logits [B, KVH, G, Sq, Sk], tanh(s / cap) (or None), mask."""
     b, h, sq, hd = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, sq, hd).float()
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * hd ** -0.5
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
     th = None
     if logit_softcap is not None:
         th = torch.tanh(logits / logit_softcap)
@@ -56,10 +56,15 @@ def flash_attention_ref(
     causal: bool = True,
     window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (out [B, H, Sq, hd] in q's dtype, lse [B, H, Sq] float32)."""
+    """-> (out [B, H, Sq, hd] in q's dtype, lse [B, H, Sq] float32).
+
+    ``scale`` defaults to hd ** -0.5 (a zero-padded head_dim passes its
+    true one's)."""
     b, h, sq, hd = q.shape
-    logits, _, _ = _logits(q, k, causal=causal, window=window, logit_softcap=logit_softcap)
+    scale = hd ** -0.5 if scale is None else scale
+    logits, _, _ = _logits(q, k, causal=causal, window=window, logit_softcap=logit_softcap, scale=scale)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
@@ -77,8 +82,10 @@ def flash_attention_bwd_ref(
     causal: bool = True,
     window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (dq, dk, dv) in the inputs' dtype and shapes.
+    """-> (dq, dk, dv) in the inputs' dtype and shapes; ``scale`` as in
+    :func:`flash_attention_ref`.
 
     D = rowsum(dO * O); P = exp(s - lse); dV = P^T dO; dP = dO V^T;
     dS = P * (dP - D), times 1 - tanh^2(s / cap) under a softcap and 0
@@ -89,7 +96,8 @@ def flash_attention_bwd_ref(
     b, h, sq, hd = q.shape
     kvh = k.shape[1]
     g = h // kvh
-    logits, th, mask = _logits(q, k, causal=causal, window=window, logit_softcap=logit_softcap)
+    scale = hd ** -0.5 if scale is None else scale
+    logits, th, mask = _logits(q, k, causal=causal, window=window, logit_softcap=logit_softcap, scale=scale)
     p = torch.exp(logits - lse.reshape(b, kvh, g, sq, 1).float())
     dog = do.reshape(b, kvh, g, sq, hd).float()
     d = (dog * o.reshape(b, kvh, g, sq, hd).float()).sum(-1, keepdim=True)
@@ -98,7 +106,6 @@ def flash_attention_bwd_ref(
     ds = torch.where(mask, p * (dp - d), torch.zeros((), device=q.device))  # the mask cuts it
     if th is not None:
         ds = ds * (1.0 - th * th)
-    scale = hd ** -0.5
     dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
     dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, q.reshape(b, kvh, g, sq, hd).float()) * scale
     return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

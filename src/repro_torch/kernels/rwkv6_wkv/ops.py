@@ -25,6 +25,9 @@ from .ref import wkv6_ref
 
 KERNEL = "wkv6_fwd"
 HEAD_DIMS = (8, 16, 32, 64, 128)
+#: time steps the kernel stages through shared memory at once (8 at N =
+#: 128; ``csrc/wkv6.cu``, ``Shape::L``); the card tests straddle it
+CHUNK = 16
 _DTYPES = (torch.bfloat16, torch.float32)
 NO_BACKWARD = (
     "wkv6 has no backward kernel yet: RWKV6 training waits for it "

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import loader_for_model
 from repro_torch.distributed import init_train_state, make_train_step, pod_grads, sync_grads
 from repro_torch.kernels import LAUNCHES
@@ -24,9 +24,11 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
     fwd_route,
 )
-from repro_torch.kernels.flash_attention.ops import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
+from repro_torch.kernels.flash_attention.ops import BWD_ROUTE_LAUNCHES, PADDED_LAUNCHES, ROUTE_LAUNCHES
 from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
+from repro_torch.kernels.rwkv6_wkv.ops import CHUNK as WKV_CHUNK
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
+from repro_torch.launch.batches import synthetic_prompt_batch
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.optim import global_norm
 from repro_torch.tree import tree_items, tree_map
@@ -54,6 +56,12 @@ CASES = [
     (1, 1000, 1000, 2, 1, 64, True, 200, None),  # window skips leading tiles, starts mid-tile
     (1, 300, 100, 2, 2, 64, False, None, None),  # Sq > 128 with Sk < 128
     (3, 333, 333, 5, 5, 64, True, None, None),  # items that divide evenly into no grid
+    # head dims off the wgmma route: phi-3-vision's 96 (H 32 = KVH), and
+    # yi-34b's 8 (7 heads over 1) and starcoder2-7b's 12 (6 over 2) smoke
+    # heads, zero-padded to 16
+    (1, 300, 300, 32, 32, 96, True, None, None),
+    (2, 40, 40, 7, 1, 8, True, None, None),
+    (1, 37, 37, 6, 2, 12, True, None, 30.0),
 ]
 
 # Edges of the wgmma backward's 128-key dK/dV items and 64-row query ring,
@@ -115,15 +123,37 @@ def test_kernel_reads_strided_inputs(cuda):
 
 
 def test_wrapper_rejects_unsupported_head_dim(cuda):
-    q, k, v = _qkv(1, 1, 16, 16, 2, 2, 32, "float32", cuda)
-    with pytest.raises(ValueError, match="head_dim"):
+    """head_dim 256 (recurrentgemma-9b) has no kernel until its path is ported."""
+    q, k, v = _qkv(1, 1, 16, 16, 2, 2, 256, "float32", cuda)
+    with pytest.raises(ValueError, match="head_dim 256.*item 12"):
         flash_attention(q, k, v)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_smoke_prefill_and_decode_card_matches_cpu(cuda, dtype):
-    """The serving path at the smoke config on the card and on the CPU."""
-    cfg = dataclasses.replace(get_smoke_config("distilgpt2-82m"), dtype=dtype)
+@pytest.mark.parametrize("hd", [8, 12])
+def test_padded_head_dim_counts_its_launches(cuda, dtype, hd):
+    """hd 8 and 12 launch the 16-wide kernels on their route, and the
+    padded counter moves with them, forward and backward."""
+    q, k, v = (t.requires_grad_(True) for t in _qkv(12, 2, 50, 50, 6, 2, hd, dtype, cuda))
+    route = fwd_route(q.dtype, hd)
+    assert route == bwd_route(q.dtype, hd) == ("f32" if dtype == "float32" else "mma_sync")
+    before = (dict(PADDED_LAUNCHES), ROUTE_LAUNCHES[route], BWD_ROUTE_LAUNCHES[route])
+    out = flash_attention(q, k, v)
+    assert out.shape == q.shape
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    moved = {n: c - before[0].get(n, 0) for n, c in PADDED_LAUNCHES.items() if c != before[0].get(n, 0)}
+    assert moved == {"flash_attention_fwd": 1, "flash_attention_bwd": 1}
+    assert (ROUTE_LAUNCHES[route], BWD_ROUTE_LAUNCHES[route]) == (before[1] + 1, before[2] + 1)
+    assert all(t.grad.shape == t.shape and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["distilgpt2-82m", "yi-34b", "starcoder2-7b"])
+def test_smoke_prefill_and_decode_card_matches_cpu(cuda, arch, dtype):
+    """The serving path at the smoke config on the card and on the CPU
+    (yi-34b's head_dim 8 and starcoder2-7b's 12 run padded to 16)."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
     params = init_params(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
     cpu_params = _tree(params, lambda t: t.cpu())
     tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
@@ -139,6 +169,22 @@ def test_smoke_prefill_and_decode_card_matches_cpu(cuda, dtype):
         c_logits, c_cache = decode_step(cpu_params, nxt.cpu(), c_cache, cfg, 40 + i)
         torch.testing.assert_close(g_logits.float().cpu(), c_logits.float(), rtol=tol, atol=tol)
     assert LAUNCHES["flash_attention_fwd"] == before + cfg.num_layers
+
+
+def test_phi3_vision_full_width_prefill_card_matches_cpu(cuda):
+    """phi-3-vision-4.2b at full width (head_dim 96 on the mma_sync route),
+    cut to 2 layers: prefill of 256 patch embeddings and 64 tokens on the
+    card against the CPU, bf16 at 5e-2."""
+    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"), num_layers=2)
+    assert cfg.head_dim == 96 and cfg.dtype == "bfloat16"
+    params = init_params(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    batch = synthetic_prompt_batch(cfg, torch.Generator(cuda).manual_seed(1), 1, cfg.num_prefix_tokens + 64)
+    before = ROUTE_LAUNCHES["mma_sync"]
+    g_logits, _ = prefill(params, batch, cfg)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES["mma_sync"] == before + cfg.num_layers
+    c_logits, _ = prefill(_tree(params, lambda t: t.cpu()), _tree(batch, lambda t: t.cpu()), cfg)
+    torch.testing.assert_close(g_logits.float().cpu(), c_logits.float(), rtol=5e-2, atol=5e-2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -316,6 +362,39 @@ def test_wkv6_kernel_matches_plain(cuda, case):
     tol = WKV_TOL[rkv_dtype]
     torch.testing.assert_close(out, plain_out, rtol=tol, atol=tol)
     torch.testing.assert_close(final, plain_final, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 37, WKV_CHUNK, WKV_CHUNK + 1, 4096])
+def test_wkv6_kernel_over_t_and_n_is_right_and_deterministic(cuda, t, n):
+    """T around the kernel's staged chunk (one step, ragged, one chunk, one
+    step more, the prefill's 4096) at every head size; two calls give the
+    same bits (no atomics, fixed summation orders)."""
+    rkv_dtype = "bfloat16" if n != 32 else "float32"
+    r, k, v, w, u, s0 = _wkv_inputs(t + n, 1, t, 2, n, rkv_dtype, "float32", cuda)
+    out, final = wkv6(r, k, v, w, u, s0)
+    again, again_final = wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(final, again_final)
+    plain_out, plain_final = wkv6_ref(r, k, v, w, u, s0)
+    tol = WKV_TOL[rkv_dtype]
+    torch.testing.assert_close(out, plain_out, rtol=tol, atol=tol)
+    torch.testing.assert_close(final, plain_final, rtol=tol, atol=tol)
+
+
+def test_wkv6_kernel_reads_unaligned_strides(cuda):
+    """bf16 views whose addresses and strides are 2-byte aligned only (the
+    kernel's narrowest copies), a chunk and a half long."""
+    big = torch.randn((2, WKV_CHUNK * 3 // 2, 3, 17), device=cuda).to(torch.bfloat16)
+    r, k = big[..., 1:], big[..., :16]
+    assert r.data_ptr() % 4 and r.stride(2) % 2
+    v = torch.randn((2, WKV_CHUNK * 3 // 2, 3, 16), device=cuda).to(torch.bfloat16)
+    w = torch.sigmoid(torch.randn((2, WKV_CHUNK * 3 // 2, 3, 16), device=cuda) + 2)
+    u = torch.randn((3, 16), device=cuda) * 0.1
+    out, final = wkv6(r, k, v, w, u)
+    plain_out, plain_final = wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(out, plain_out, rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(final, plain_final, rtol=5e-2, atol=5e-2)
 
 
 def test_wkv6_decode_steps_update_the_state_in_place(cuda):

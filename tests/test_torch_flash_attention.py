@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
     fwd_route,
 )
+from repro_torch.kernels.flash_attention.ops import kernel_head_dim, pad_head_dim
 
 # The JAX suite's own tolerances (tests/test_kernels.py::TOL).
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -196,19 +197,26 @@ def test_wrapper_rejects_bad_shapes():
 
 
 # Which forward kernel each (dtype, head_dim) pair reaches on the card; None:
-# refused.  bf16 at 64 and 128 (every full-width path) must stay on wgmma.
+# refused.  bf16 at 64 and 128 (every full-width path) must stay on wgmma;
+# 96 is phi-3-vision-4.2b's; 8 and 12 run zero-padded to 16.
 ROUTES = {
+    (torch.bfloat16, 8): "mma_sync",
+    (torch.bfloat16, 12): "mma_sync",
     (torch.bfloat16, 16): "mma_sync",
     (torch.bfloat16, 64): "wgmma",
+    (torch.bfloat16, 96): "mma_sync",
     (torch.bfloat16, 128): "wgmma",
+    (torch.float32, 8): "f32",
+    (torch.float32, 12): "f32",
     (torch.float32, 16): "f32",
     (torch.float32, 64): "f32",
+    (torch.float32, 96): "f32",
     (torch.float32, 128): "f32",
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16], ids=str)
-@pytest.mark.parametrize("head_dim", [8, 16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("head_dim", [8, 12, 16, 32, 64, 96, 128, 256])
 def test_forward_route(dtype, head_dim):
     want = ROUTES.get((dtype, head_dim))
     if want is None:
@@ -220,19 +228,12 @@ def test_forward_route(dtype, head_dim):
 
 # Which backward kernels each (dtype, head_dim) pair reaches on the card;
 # None: refused.  bf16 at 64 and 128 (every full-width training path) must
-# stay on wgmma.
-BWD_ROUTES = {
-    (torch.bfloat16, 16): "mma_sync",
-    (torch.bfloat16, 64): "wgmma",
-    (torch.bfloat16, 128): "wgmma",
-    (torch.float32, 16): "f32",
-    (torch.float32, 64): "f32",
-    (torch.float32, 128): "f32",
-}
+# stay on wgmma.  The same table as the forward's.
+BWD_ROUTES = dict(ROUTES)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16], ids=str)
-@pytest.mark.parametrize("head_dim", [8, 16, 32, 64, 96, 128, 256])
+@pytest.mark.parametrize("head_dim", [8, 12, 16, 32, 64, 96, 128, 256])
 def test_backward_route(dtype, head_dim):
     want = BWD_ROUTES.get((dtype, head_dim))
     if want is None:
@@ -240,3 +241,46 @@ def test_backward_route(dtype, head_dim):
             bwd_route(dtype, head_dim)
     else:
         assert bwd_route(dtype, head_dim) == want
+
+
+def test_head_dim_256_is_refused_naming_its_item():
+    for route in (fwd_route, bwd_route):
+        with pytest.raises(ValueError, match="item 12"):
+            route(torch.bfloat16, 256)
+
+
+# (b, s, h, kvh, hd, window, softcap): yi-34b's smoke heads (7 of hd 8 over
+# 1 kv head) and starcoder2-7b's (6 of hd 12 over 2)
+PADDED = [
+    (2, 40, 7, 1, 8, None, None),
+    (1, 37, 6, 2, 12, None, None),
+    (1, 50, 6, 2, 12, 16, 30.0),
+]
+
+
+@pytest.mark.parametrize("case", PADDED, ids=str)
+def test_padded_head_dim_matches_unpadded_plain(case):
+    """What the card runs for head_dim 8 and 12: q, k, v (and o, dO) zero-
+    padded to 16 by ``pad_head_dim``, the softmax scaled by the true
+    head_dim, the output and gradients sliced back; here with the plain
+    versions as the kernels, against the unpadded plain versions (float32,
+    1e-5: the zero columns add exact zeros)."""
+    b, s, h, kvh, hd, window, cap = case
+    kw = dict(causal=True, window=window, logit_softcap=cap)
+    q, k, v = (_torch(a, "float32") for a in _qkv(11, b, s, s, h, kvh, hd, "float32"))
+    do = _torch(_qkv(12, b, s, s, h, h, hd, "float32")[0], "float32")
+    assert kernel_head_dim(hd) == 16
+    heads = [t.transpose(1, 2) for t in (q, k, v, do)]
+    want_out, want_lse = flash_attention_ref(*heads[:3], **kw)
+    want = flash_attention_bwd_ref(*heads[:3], want_out, want_lse, heads[3], **kw)
+
+    pq, pk, pv, pdo = (t.transpose(1, 2) for t in pad_head_dim(q, k, v, do))
+    assert pq.shape[3] == pk.shape[3] == 16 and not pq[..., hd:].any()
+    out, lse = flash_attention_ref(pq, pk, pv, scale=hd ** -0.5, **kw)
+    assert not out[..., hd:].any()
+    np.testing.assert_allclose(out[..., :hd].numpy(), want_out.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5, atol=1e-5)
+    got = flash_attention_bwd_ref(pq, pk, pv, out, lse, pdo, scale=hd ** -0.5, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert not g[..., hd:].any(), f"d{name}: padded columns not zero"
+        np.testing.assert_allclose(g[..., :hd].numpy(), w.numpy(), rtol=1e-5, atol=1e-5, err_msg=f"d{name}")

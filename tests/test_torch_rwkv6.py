@@ -104,6 +104,18 @@ def test_wkv6_ragged_t_matches_jax(dtype):
     _close(fin, jf, TOL[dtype], "state")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_plain_matches_pallas_interpret_off_any_chunk(dtype):
+    """T = 51 (three Pallas chunks of 17) is a multiple of none of the
+    chunks the CUDA kernel stages (8, 16, 32, 64): the plain version the
+    kernel is held to on the card against the Pallas kernel itself."""
+    j, tt = _both(_wkv_inputs(9, 2, 51, 2, 64), dtype)
+    out, fin = wkv6_ref(*tt)
+    jo, jf = jax_wkv6_fwd(*j, chunk=17, interpret=True)
+    _close(out, jo, TOL[dtype], "out")
+    _close(fin, jf, TOL[dtype], "state")
+
+
 def test_wkv6_stepwise_equals_whole():
     """T single steps, the state carried in place, == one T-step call
     (mirrors test_models.py::TestRwkv::test_scan_vs_stepwise)."""

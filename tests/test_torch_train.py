@@ -58,6 +58,7 @@ from repro_torch.data import loader_for_model
 from repro_torch.distributed import (
     init_train_state,
     make_train_step,
+    pod_grads,
     sync_allreduce,
     sync_hier,
     sync_hier_int8,
@@ -65,7 +66,7 @@ from repro_torch.distributed import (
 )
 from repro_torch.models import loss_fn
 from repro_torch.optim import AdamWConfig, adamw_update, init_adamw
-from repro_torch.tree import tree_items, tree_leaves, tree_unflatten
+from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -105,8 +106,15 @@ def _batch(cfg, seed=1, seq=32, batch=2):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch,remat", [("distilgpt2-82m", "none"), ("olmo-1b", "none"), ("olmo-1b", "full")])
+@pytest.mark.parametrize(
+    "arch,remat",
+    [("distilgpt2-82m", "none"), ("olmo-1b", "none"), ("olmo-1b", "full"),
+     ("musicgen-large", "none"), ("phi-3-vision-4.2b", "none")],
+)
 def test_loss_and_every_grad_leaf_match_jax(arch, remat, dtype):
+    """Through the port's ``pod_grads`` (one pod).  musicgen-large's frame
+    frontend never reads its untied ``embed``: JAX gives that leaf a zero
+    gradient, and so must the port."""
     jcfg = dataclasses.replace(jax_smoke(arch), dtype=dtype, remat=remat)
     tcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype, remat=remat)
     jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
@@ -116,16 +124,16 @@ def test_loss_and_every_grad_leaf_match_jax(arch, remat, dtype):
     )(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
 
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
-    leaves = [p.requires_grad_(True) for p in tree_leaves(tparams)]
-    tparams = tree_unflatten(tparams, leaves)
-    loss, metrics = loss_fn(tparams, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
-    grads = tree_unflatten(tparams, torch.autograd.grad(loss, leaves))
+    loss, metrics, grads = pod_grads(tparams, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg, 1)
+    grads = tree_map(lambda g: g[0], grads)
     tol = TOL[dtype]
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=tol, atol=tol)
     np.testing.assert_allclose(metrics["ce"].item(), float(jmetrics["ce"]), rtol=tol, atol=tol)
     assert metrics["tokens"].item() == float(jmetrics["tokens"])
-    assert len(leaves) == len(jax.tree.leaves(jgrads))
+    assert len(tree_leaves(grads)) == len(jax.tree.leaves(jgrads))
     _close_trees(params_to_numpy(grads), _np_tree(jgrads), tol, "grad")
+    if arch == "musicgen-large":
+        assert not grads["embed"].any() and not np.asarray(jgrads["embed"]).any()
 
 
 def test_loss_masks_ignored_labels():
@@ -266,6 +274,40 @@ def test_three_hier_int8_steps_match_jax():
         np.testing.assert_allclose(free["loss"].item(), float(jloss), rtol=tol, atol=tol, err_msg=f"free loss {i}")
 
 
+def test_musicgen_hier_int8_step_matches_jax():
+    """One whole 2-pod hier_int8 step of musicgen-large's smoke config from
+    the JAX state.  Its untied ``embed`` is a leaf the loss never reads: a
+    zero gradient on both sides, zero error feedback, and AdamW's weight
+    decay alone moves it."""
+    npods, arch = 2, "musicgen-large"
+    jcfg, tcfg = jax_smoke(arch), get_smoke_config(arch)
+    jparams = jax_init_params(jax.random.PRNGKey(4), jcfg)
+    jadam = jax_init_adamw(jparams)
+    jef = jax.tree.map(lambda p: jnp.zeros((npods, *p.shape), jnp.float32), jax_init_ef(jparams))
+    batch = jax_loader(jcfg, seq_len=32, global_batch=4, seed=6).next_batch()
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    state = init_train_state(params, AdamWConfig(**OPT), strategy="hier_int8", npods=npods)
+    step = make_train_step(tcfg, npods=npods, strategy="hier_int8", opt_cfg=AdamWConfig(**OPT), device="cpu")
+    embed0 = params["embed"].clone()
+    jparams, jadam, jef, jloss, jnorm = _jax_step(jcfg, JaxAdamWConfig(**OPT), npods)(
+        jparams, jadam, jef, {k: jnp.asarray(v) for k, v in batch.items()})
+    params, state, metrics = step(params, state, batch)
+    tol = TOL["float32"]
+    np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=tol, atol=tol)
+    np.testing.assert_allclose(metrics["grad_norm"].item(), float(jnorm), rtol=tol, atol=tol)
+    _close_trees_but_int8_flips(params_to_numpy(params), _np_tree(jparams), tol, "params")
+    ts = train_state_to_numpy(state)
+    _close_trees_but_int8_flips(ts["adam"]["m"], _np_tree(jadam.m), tol, "m")
+    _close_trees_but_int8_flips(ts["adam"]["v"], _np_tree(jadam.v), tol, "v")
+    _close_trees_but_int8_flips(ts["ef"], _np_tree(jef), tol, "ef")
+    # the unused leaf: no moments, no error feedback, decayed and nothing else
+    assert not state.adam.m["embed"].any() and not state.adam.v["embed"].any()
+    assert not state.ef["embed"].any()
+    moved = params["embed"] - embed0
+    assert moved.abs().max() > 0 and bool((moved * embed0 <= 0).all())
+    np.testing.assert_allclose(params["embed"].numpy(), np.asarray(jparams["embed"]), rtol=tol, atol=tol)
+
+
 def test_train_state_roundtrips_through_numpy():
     tcfg = get_smoke_config("distilgpt2-82m")
     jparams = jax_init_params(jax.random.PRNGKey(0), jax_smoke("distilgpt2-82m"))
@@ -312,6 +354,16 @@ def test_train_cli_on_cpu():
     )
     assert out.returncode == 0, out.stderr
     assert "final loss" in out.stdout and "(2 pods, hier_int8, 4 x 32)" in out.stdout
+
+
+def test_train_cli_trains_musicgen_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "musicgen-large", "--device", "cpu",
+         "--steps", "1"],
+        env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "final loss" in out.stdout and "after 1 steps" in out.stdout
 
 
 def test_train_cli_defaults_to_cuda_and_raises_without_it():

@@ -19,8 +19,23 @@ Phases, each printing one JSON line on stdout:
 5. ``train``: the training path, distilgpt2-82m at full width on 2 emulated
    pods with the ``hier_int8`` WAN sync, global batch 16 x 1024, through
    ``GeoTrainer``: 2 warm-up steps and 10 timed, with the kernel launch
-   counts of that run; then one ``hier_int8`` step at global batch 2 x 128
-   on the card against the CPU (loss, gradient norm, every synced leaf).
+   counts of that run, the emulated fabric's modelled WAN seconds a step
+   (``wan_s_est``, held to its value for 324,504,576 gradient bytes, and
+   printed for all five strategies), the straggler monitor's sync
+   efficiency and the final checkpoint (bytes on disk, snapshot ms, write
+   s); then one ``hier_int8`` step at global batch 2 x 128 on the card
+   against the CPU (loss, gradient norm, every synced leaf, the whole step).
+   ``train_ps`` and ``train_local_sgd``: the same run under the parameter
+   server and under local SGD with the DiLoCo outer step (H = 8: step 7 is
+   the outer step), each with its WAN bytes held to their analytic values,
+   12 + 12 flash launches a step on ``wgmma`` and no ``wan_quant``, and its
+   own step on the card against the CPU (for local_sgd an outer step).
+   ``checkpoint``: 4 ``hier_int8`` steps checkpointed every 2 with ``pod1``
+   silenced from step 1 (the drill must declare it dead after
+   ``detect_mult`` steps), then a new trainer restores step 2 from a copy
+   of the directory: its losses must equal the uninterrupted run's (rtol
+   1e-6); save and restore seconds and bytes on disk.  Checkpoints go to
+   ``build/chip_smoke_checkpoints/`` and are removed after each phase.
 6. ``serve_rwkv``: the serving path of rwkv6-7b at full width and full
    depth (32 RWKV layers, 7.5 B parameters, random weights from a seed):
    prefill of 4 x 4096 tokens, then 32 greedy decode steps, with the WKV
@@ -28,7 +43,7 @@ Phases, each printing one JSON line on stdout:
    on the card against the CPU on a [1, 256] prompt (prefill and 4 decode
    steps), and the state carried from a 4096-token prefill through one
    decode step against a 4097-token prefill.  It runs after the train
-   phase's tensors are released.
+   phases' tensors are released.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` prints them, and, last, ``{"ok": true, "device": ...}``.
@@ -750,81 +765,165 @@ def _logit_diff(card, cpu):
     return d.max().item(), (d / (SERVE_TOL + SERVE_TOL * b.abs())).max().item()
 
 
-def phase_train(torch):
-    """The training path: GeoTrainer at full width, 2 pods, hier_int8."""
+# The emulated fabric's WAN seconds a step for distilgpt2-82m's float32
+# gradients (81,126,144 parameters) on 2 DCs: numpy cost model, no card.
+FULL_GRAD_BYTES = 324_504_576
+MODELLED_WAN_S = {"allreduce": 3.67299648, "ps": 4.88988864, "hier": 1.23921216,
+                  "hier_int8": 0.32654304, "local_sgd": 0.15490152}
+
+
+def modelled_wan_s():
+    """Each strategy's modelled WAN seconds a step, held to MODELLED_WAN_S."""
+    from repro_torch.core import GeoFabric, SyncOptions
+
+    geo = GeoFabric(num_pods=NPODS)
+    got = {s: geo.sync_cost(s, FULL_GRAD_BYTES, options=SyncOptions(jitter=False)).amortized_seconds
+           for s in MODELLED_WAN_S}
+    if any(abs(got[s] - want) > 1e-12 * want for s, want in MODELLED_WAN_S.items()):
+        raise AssertionError(f"modelled WAN seconds {got}, expected {MODELLED_WAN_S}")
+    return got
+
+
+def ckpt_dir(name):
+    """A fresh checkpoint directory in the checkout's build/ (gitignored)."""
+    import shutil
+
+    d = ROOT / "build" / "chip_smoke_checkpoints" / name
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def train_main_path(torch, strategy, directory, *, steps=STEPS, inject_failure_at=None, **tc_more):
+    """GeoTrainer at full width on 2 pods, the counts zeroed just before and
+    read just after.  Returns (trainer, result, launches, fwd routes, bwd
+    routes, peak bytes)."""
     from repro_torch.configs import get_config
-    from repro_torch.data import loader_for_model
-    from repro_torch.distributed import pod_grads, sync_grads, wan_bytes_per_step
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
-    from repro_torch.models import init_params
-    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import GeoTrainer, TrainerConfig
-    from repro_torch.tree import tree_items, tree_leaves, tree_map
 
     cfg = get_config("distilgpt2-82m")
     opt = AdamWConfig(lr=1e-3, warmup_steps=WARMUP, total_steps=STEPS)
-    trainer = GeoTrainer(cfg, device="cuda", trainer_cfg=TrainerConfig(
-        seq_len=SEQ_TRAIN, global_batch=B_TRAIN, steps=STEPS, strategy="hier_int8",
-        npods=NPODS, log_every=STEPS, seed=0, opt=opt,
+    trainer = GeoTrainer(cfg, device="cuda", checkpoint_dir=str(directory), trainer_cfg=TrainerConfig(
+        seq_len=SEQ_TRAIN, global_batch=B_TRAIN, steps=steps, strategy=strategy,
+        npods=NPODS, log_every=steps, seed=0, opt=opt, **tc_more,
     ))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
     ROUTE_LAUNCHES.clear()
     BWD_ROUTE_LAUNCHES.clear()
-    result = trainer.run()
-    launches = dict(LAUNCHES)
-    routes = dict(ROUTE_LAUNCHES)
-    bwd_routes = dict(BWD_ROUTE_LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    rows = result["metrics"]
-    n_leaves = len(tree_leaves(trainer.params))
-    per_step = {"flash_attention_fwd": NPODS * cfg.num_layers, "flash_attention_bwd": NPODS * cfg.num_layers,
-                "wan_quant": n_leaves, "wan_dequant": n_leaves}
-    expected = {k: STEPS * n for k, n in per_step.items()}
+    result = trainer.run(inject_failure_at=inject_failure_at)
+    launches, routes, bwd_routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES), dict(BWD_ROUTE_LAUNCHES)
+    return trainer, result, launches, routes, bwd_routes, torch.cuda.max_memory_allocated()
+
+
+def check_train_launches(label, cfg, launches, routes, bwd_routes, n_leaves, steps, quant):
+    """12 + 12 flash launches a step, all on wgmma; wan_quant/wan_dequant on
+    every leaf of every step under hier_int8 and never otherwise."""
+    per_step = {"flash_attention_fwd": NPODS * cfg.num_layers, "flash_attention_bwd": NPODS * cfg.num_layers}
+    if quant:
+        per_step.update(wan_quant=n_leaves, wan_dequant=n_leaves)
+    expected = {k: steps * n for k, n in per_step.items()}
     if launches != expected:
-        raise AssertionError(f"train: launches {launches} over {STEPS} steps, expected {expected}")
+        raise AssertionError(f"{label}: launches {launches} over {steps} steps, expected {expected}")
     if routes != {"wgmma": expected["flash_attention_fwd"]}:
-        raise AssertionError(f"train: flash forward routes {routes}, expected all on wgmma")
+        raise AssertionError(f"{label}: flash forward routes {routes}, expected all on wgmma")
     if bwd_routes != {"wgmma": expected["flash_attention_bwd"]}:
-        raise AssertionError(f"train: flash backward routes {bwd_routes}, expected all on wgmma")
+        raise AssertionError(f"{label}: flash backward routes {bwd_routes}, expected all on wgmma")
+    return per_step
+
+
+def falling_losses(label, rows):
     losses = [r["loss"] for r in rows]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train: loss not finite or not falling: {losses}")
-    param_bytes = sum(t.numel() * 4 for t in tree_leaves(trainer.params))
-    analytic = wan_bytes_per_step(param_bytes, "hier_int8", npods=NPODS)
-    wan = rows[-1]["wan_bytes"]
-    if abs(wan - analytic) > 0.01 * analytic:
-        raise AssertionError(f"train: WAN payload {wan} B/pod/step vs wan_bytes_per_step {analytic}")
-    timed = [r["step_s"] * 1e3 for r in rows[WARMUP:]]
-    step_ms = statistics.median(timed)
-    del trainer
+        raise AssertionError(f"{label}: loss not finite or not falling: {losses}")
+    return losses
 
-    # The card against the CPU: one hier_int8 step's loss, synced leaves and
-    # their norm at full width, global batch 2 x 128, from the same weights.
+
+def card_vs_cpu_step(torch, cfg, strategy):
+    """One step's loss, gradient leaves and their norm at full width, global
+    batch 2 x 128, from the same weights on the card and on the CPU: the
+    gradients ``sync_grads`` returns (the pod mean under hier_int8 and ps,
+    each pod's own under local_sgd, whose norm is pod 0's), each leaf by its
+    relative norm; then the whole step (for local_sgd an outer step,
+    sync_every 1) by its loss, grad_norm and WAN bytes."""
+    from repro_torch.data import loader_for_model
+    from repro_torch.distributed import init_pod_params, init_train_state, make_train_step, pod_grads, sync_grads
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, DilocoConfig, global_norm
+    from repro_torch.tree import tree_items, tree_map
+
     params = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
     batch = loader_for_model(cfg, seq_len=128, global_batch=NPODS, seed=1).next_batch()
     sides = {}
     for name, p in (("card", params), ("cpu", tree_map(lambda t: t.cpu(), params))):
         dev = "cuda" if name == "card" else "cpu"
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        ef = tree_map(lambda t: torch.zeros((NPODS, *t.shape), device=dev), p)
+        ef = tree_map(lambda t: torch.zeros((NPODS, *t.shape), device=dev), p) if strategy == "hier_int8" else ()
         loss, _, grads = pod_grads(p, b, cfg, NPODS)
-        synced, _, _ = sync_grads(grads, ef, strategy="hier_int8")
-        sides[name] = (loss.item(), global_norm(synced).item(), tree_map(lambda t: t.float().cpu(), synced))
+        synced, _, _ = sync_grads(grads, ef, strategy=strategy)
+        norm = global_norm(tree_map(lambda g: g[0], synced) if strategy == "local_sgd" else synced)
+        leaves = tree_map(lambda t: t.float().cpu(), synced)
         del grads, synced
-    (g_loss, g_norm, g_synced), (c_loss, c_norm, c_synced) = sides["card"], sides["cpu"]
+        step = make_train_step(cfg, npods=NPODS, strategy=strategy, opt_cfg=AdamWConfig(),
+                               diloco_cfg=DilocoConfig(sync_every=1), device=dev)
+        state = init_train_state(p, AdamWConfig(), strategy=strategy, npods=NPODS)
+        new, _, m = step(init_pod_params(p, strategy=strategy, npods=NPODS), state, b)
+        if strategy == "local_sgd" and not all(bool(torch.equal(t[0], t[1])) for _, t in tree_items(new)):
+            raise AssertionError(f"{name}: the pods differ after the outer step")
+        sides[name] = (loss.item(), norm.item(), leaves, m["loss"].item(), m["grad_norm"].item(), m["wan_bytes"])
+        del new, state
+    g, c = sides["card"], sides["cpu"]
     leaf_err = {
-        path: ((g - c).norm() / c.norm().clamp_min(1e-30)).item()
-        for (path, g), (_, c) in zip(tree_items(g_synced), tree_items(c_synced))
+        path: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        for (path, a), (_, b) in zip(tree_items(g[2]), tree_items(c[2]))
     }
-    if (abs(g_loss - c_loss) > TRAIN_TOL * abs(c_loss) or abs(g_norm - c_norm) > TRAIN_TOL * abs(c_norm)
-            or max(leaf_err.values()) > TRAIN_TOL):
-        raise AssertionError(
-            f"train: card vs CPU loss {g_loss} / {c_loss}, grad_norm {g_norm} / {c_norm}, "
-            f"leaf relative errors {leaf_err}, tolerance {TRAIN_TOL}"
-        )
+    pairs = {"loss": (g[0], c[0]), "grad_norm": (g[1], c[1]), "step_loss": (g[3], c[3]),
+             "step_grad_norm": (g[4], c[4])}
+    if (any(abs(a - b) > TRAIN_TOL * abs(b) for a, b in pairs.values())
+            or max(leaf_err.values()) > TRAIN_TOL or g[5] != c[5]):
+        raise AssertionError(f"{strategy}: card vs CPU {pairs}, WAN bytes {g[5]} / {c[5]}, "
+                             f"leaf relative errors {leaf_err}, tolerance {TRAIN_TOL}")
+    return {"batch": [NPODS, 128], **{k: list(v) for k, v in pairs.items()}, "wan_bytes": g[5],
+            "leaf_rel_err_max": max(leaf_err.values()), "tol": TRAIN_TOL}
+
+
+def phase_train(torch):
+    """The training path: GeoTrainer at full width, 2 pods, hier_int8."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import wan_bytes_per_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("distilgpt2-82m")
+    directory = ckpt_dir("train")
+    trainer, result, launches, routes, bwd_routes, peak = train_main_path(torch, "hier_int8", directory)
+    rows = result["metrics"]
+    n_leaves = len(tree_leaves(trainer.params))
+    per_step = check_train_launches("train", cfg, launches, routes, bwd_routes, n_leaves, STEPS, quant=True)
+    losses = falling_losses("train", rows)
+    param_bytes = sum(t.numel() * 4 for t in tree_leaves(trainer.params))
+    analytic = wan_bytes_per_step(param_bytes, "hier_int8", npods=NPODS)
+    wan = rows[-1]["wan_bytes"]
+    if abs(wan - analytic) > 0.01 * analytic:
+        raise AssertionError(f"train: WAN payload {wan} B/pod/step vs wan_bytes_per_step {analytic}")
+    modelled = modelled_wan_s()
+    if param_bytes != FULL_GRAD_BYTES or rows[-1]["wan_s_est"] != modelled["hier_int8"]:
+        raise AssertionError(f"train: wan_s_est {rows[-1]['wan_s_est']} for {param_bytes} B, "
+                             f"expected {modelled['hier_int8']} for {FULL_GRAD_BYTES} B")
+    if result["last_checkpoint"] != STEPS or trainer.store.steps() != [STEPS]:
+        raise AssertionError(f"train: checkpoints {trainer.store.steps()}, expected the final one, {STEPS}")
+    ckpt = {"step": STEPS, "bytes_on_disk": trainer.store.nbytes(STEPS),
+            "snapshot_ms": trainer.ckpt.snapshot_s * 1e3, "write_s": trainer.ckpt.write_s}
+    timed = [r["step_s"] * 1e3 for r in rows[WARMUP:]]
+    step_ms = statistics.median(timed)
+    opt = trainer.tc.opt
+    del trainer
+    shutil.rmtree(directory)
+
     emit({
         "phase": "train", "arch": cfg.name, "dtype": cfg.dtype, "params": param_bytes // 4,
         "leaves": n_leaves, "pods": NPODS, "strategy": "hier_int8",
@@ -836,10 +935,145 @@ def phase_train(torch):
         "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
         "grad_norm_last": rows[-1]["grad_norm"], "peak_memory_bytes": peak,
         "wan_bytes_per_pod_step": wan, "wan_bytes_per_step_analytic": analytic,
+        "wan_s_est": rows[-1]["wan_s_est"], "wan_s_est_by_strategy": modelled,
+        "wan_s_est_is": "GeoFabric(num_pods=2).sync_cost(...).amortized_seconds: the emulated fabric's numpy "
+                        "cost model, not a measurement",
+        "sync_efficiency": result["sync_efficiency"], "checkpoint": ckpt,
         "launches_main_path": launches, "launches_per_step": per_step, "fwd_routes_main_path": routes,
         "bwd_routes_main_path": bwd_routes,
-        "card_vs_cpu": {"batch": [NPODS, 128], "loss": [g_loss, c_loss], "grad_norm": [g_norm, c_norm],
-                        "leaf_rel_err_max": max(leaf_err.values()), "tol": TRAIN_TOL},
+        "card_vs_cpu": card_vs_cpu_step(torch, cfg, "hier_int8"),
+    })
+    return launches
+
+
+def phase_train_strategy(torch, strategy):
+    """``ps`` or ``local_sgd`` at full width: 2 pods, 16 x 1024, 12 steps
+    (2 untimed); local_sgd keeps H = 8, so step 7 is its outer step."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import wan_bytes_per_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import DilocoConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("distilgpt2-82m")
+    label = f"train_{strategy}"
+    directory = ckpt_dir(label)
+    trainer, result, launches, routes, bwd_routes, peak = train_main_path(torch, strategy, directory)
+    rows = result["metrics"]
+    n_leaves = len(tree_leaves(trainer.params))
+    per_step = check_train_launches(label, cfg, launches, routes, bwd_routes, n_leaves, STEPS, quant=False)
+    losses = falling_losses(label, rows)
+    param_bytes = sum(t.numel() * 4 for t in tree_leaves(init_params(cfg, device="meta")))
+    wan = [r["wan_bytes"] for r in rows]
+    sync_every = DilocoConfig().sync_every
+    if strategy == "ps":
+        analytic = wan_bytes_per_step(param_bytes, "ps", npods=NPODS)
+        expected_wan = None if all(abs(w - analytic) <= 0.01 * analytic for w in wan) else analytic
+    else:  # a ring all-reduce of the float32 deltas on the outer step, nothing on the others
+        analytic = 2 * (NPODS - 1) * param_bytes // NPODS
+        want = [analytic if (i + 1) % sync_every == 0 else 0 for i in range(STEPS)]
+        expected_wan = None if wan == want else want
+    if expected_wan is not None:
+        raise AssertionError(f"{label}: WAN bytes per pod per step {wan}, expected {expected_wan}")
+    modelled = modelled_wan_s()
+    if rows[-1]["wan_s_est"] != modelled[strategy]:
+        raise AssertionError(f"{label}: wan_s_est {rows[-1]['wan_s_est']}, expected {modelled[strategy]}")
+    timed = [r["step_s"] * 1e3 for r in rows[WARMUP:]]
+    step_ms = statistics.median(timed)
+    ckpt = {"step": STEPS, "bytes_on_disk": trainer.store.nbytes(STEPS),
+            "snapshot_ms": trainer.ckpt.snapshot_s * 1e3, "write_s": trainer.ckpt.write_s}
+    more = {}
+    if strategy == "local_sgd":
+        inner = [r["step_s"] * 1e3 for r in rows[WARMUP:] if r["wan_bytes"] == 0]
+        more = {"sync_every": sync_every, "outer_steps": [r["step"] for r in rows if r["wan_bytes"]],
+                "inner_step_ms_median": statistics.median(inner),
+                "outer_step_ms": [r["step_s"] * 1e3 for r in rows if r["wan_bytes"]]}
+    del trainer
+    shutil.rmtree(directory)
+    emit({
+        "phase": label, "arch": cfg.name, "dtype": cfg.dtype, "params": param_bytes // 4, "pods": NPODS,
+        "strategy": strategy, "global_batch": B_TRAIN, "seq_len": SEQ_TRAIN, "steps": STEPS,
+        "warmup_steps_untimed": WARMUP, "step_ms_median": step_ms, "step_ms": timed,
+        "tokens_per_s": B_TRAIN * SEQ_TRAIN / (step_ms / 1e3), **more,
+        "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+        "grad_norm_last": rows[-1]["grad_norm"], "peak_memory_bytes": peak,
+        "wan_bytes_per_pod_step": wan, "wan_bytes_analytic": analytic,
+        "wan_s_est": rows[-1]["wan_s_est"], "sync_efficiency": result["sync_efficiency"], "checkpoint": ckpt,
+        "launches_main_path": launches, "launches_per_step": per_step, "fwd_routes_main_path": routes,
+        "bwd_routes_main_path": bwd_routes,
+        "card_vs_cpu": card_vs_cpu_step(torch, cfg, strategy),
+    })
+    return launches
+
+
+def phase_checkpoint(torch):
+    """hier_int8 at full width: 4 steps checkpointed every 2 (with pod1
+    silenced from step 1 on: the drill), then a new trainer restores step 2
+    from a copy of the directory and runs steps 2-3.  Every kernel on the
+    path is deterministic, so the resumed losses must equal the
+    uninterrupted ones (rtol 1e-6; bit equality expected and reported)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import GeoTrainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("distilgpt2-82m")
+    steps, every = 4, 2
+    first = ckpt_dir("checkpoint_first")
+    trainer, result, launches, routes, bwd_routes, peak = train_main_path(
+        torch, "hier_int8", first, steps=steps, inject_failure_at=1, checkpoint_every=every)
+    rows = result["metrics"]
+    check_train_launches("checkpoint", cfg, launches, routes, bwd_routes, len(tree_leaves(trainer.params)),
+                         steps, quant=True)
+    falling_losses("checkpoint", rows)
+    detect_mult = trainer.heartbeats.workers["pod1"].session.detect_mult
+    drills = [(d["step"], d["dead"]) for d in result["recovery_drills"]]
+    if drills != [(detect_mult, ["pod1"])]:
+        raise AssertionError(f"checkpoint: drills {drills}, expected pod1 dead at step {detect_mult}")
+    if trainer.store.steps() != [every, steps]:
+        raise AssertionError(f"checkpoint: steps on disk {trainer.store.steps()}, expected {[every, steps]}")
+    save = {"step": steps, "snapshot_s": trainer.ckpt.snapshot_s, "write_s": trainer.ckpt.write_s,
+            "bytes_on_disk": trainer.store.nbytes(steps)}
+    tc = trainer.tc
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    second = ckpt_dir("checkpoint_second")
+    second.mkdir(parents=True)
+    shutil.copytree(first / f"step_{every:08d}", second / f"step_{every:08d}")
+    shutil.copy(first / f"step_{every:08d}.COMMITTED", second)
+    resumed = GeoTrainer(cfg, device="cuda", checkpoint_dir=str(second), trainer_cfg=tc)
+    like = resumed.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, meta = resumed.store.restore(every, like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del like, restored
+    again = resumed.run()
+    want = [r["loss"] for r in rows[every:]]
+    got = [r["loss"] for r in again["metrics"]]
+    if [r["step"] for r in again["metrics"]] != list(range(every, steps)) or meta != {"data_step": every}:
+        raise AssertionError(f"checkpoint: resumed steps {[r['step'] for r in again['metrics']]}, metadata {meta}")
+    if any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(got, want)):
+        raise AssertionError(f"checkpoint: resumed losses {got} vs uninterrupted {want}, rtol 1e-6")
+    del resumed
+    shutil.rmtree(first)
+    shutil.rmtree(second)
+    emit({
+        "phase": "checkpoint", "arch": cfg.name, "strategy": "hier_int8", "pods": NPODS,
+        "global_batch": B_TRAIN, "seq_len": SEQ_TRAIN, "steps": steps, "checkpoint_every": every,
+        "losses_uninterrupted": [r["loss"] for r in rows],
+        "losses_resumed_from_step_2": got, "resumed_bit_equal": got == want,
+        "resumed_max_abs_diff": max(abs(a - b) for a, b in zip(got, want)),
+        "save": save, "restore_s": restore_s, "restored_step": every,
+        "drill": result["recovery_drills"][0], "detect_mult": detect_mult,
+        "peak_memory_bytes": peak, "launches_main_path": launches,
+        "fwd_routes_main_path": routes, "bwd_routes_main_path": bwd_routes,
     })
     return launches
 
@@ -861,7 +1095,15 @@ def main() -> int:
     wkv = phase_kernels_wkv(torch)
     serve = phase_serve(torch)
     train = phase_train(torch)
-    gc.collect()  # the train phase's ~16 GB go before rwkv6-7b's ~31 GB
+    trains = {}
+    for strategy in ("ps", "local_sgd"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        trains[strategy] = phase_train_strategy(torch, strategy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = phase_checkpoint(torch)
+    gc.collect()  # the train phases' ~16 GB go before rwkv6-7b's ~31 GB
     torch.cuda.empty_cache()
     rwkv, rwkv_per_step = phase_serve_rwkv(torch)
 
@@ -872,7 +1114,9 @@ def main() -> int:
             "max_abs_err": check["max_abs_err"], "tol": check["tol"], "ms": check["ms"],
             "call_ms": check["call_ms"], "ms_is": MS_IS,
             "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
-            "library_ms": check["library_ms"], "library_call_ms": check.get("library_call_ms"), **more,
+            "library_ms": check["library_ms"], "library_call_ms": check.get("library_call_ms"),
+            "launches_train_ps": trains["ps"].get(name, 0), "launches_train_local_sgd": trains["local_sgd"].get(name, 0),
+            "launches_checkpoint": ckpt.get(name, 0), **more,
         }
 
     wan_err = {

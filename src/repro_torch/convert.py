@@ -6,10 +6,14 @@ JAX package's keys, so a leaf keeps its ``jax.tree_util.keystr`` path.  Take
 a JAX tree to numpy with ``jax.tree.map(np.asarray, tree)`` first; this
 module imports neither JAX nor the JAX package.
 
-A train state goes as ``{"adam": {"step", "m", "v"}, "ef": tree or ()}``:
-the fields of the JAX ``TrainState`` and ``AdamWState``, with the error
-feedback of ``hier_int8`` as one ``[npods, ...]`` leaf per parameter (the
-JAX per-pod values stacked along the pod axis).
+A train state goes as ``{"adam": {"step", "m", "v"}, "ef": tree or (),
+"diloco": {"anchor", "momentum"} or ()}``: the fields of the JAX
+``TrainState``, ``AdamWState`` and ``DilocoState``, with the error feedback
+of ``hier_int8`` as one ``[npods, ...]`` leaf per parameter (the JAX
+per-pod values stacked along the pod axis).  Under ``local_sgd`` on more
+than one pod the moments ``m`` and ``v`` (and the parameters the step
+takes) are per-pod replicas stacked the same way; the DiLoCo anchor and
+momentum are the same on every pod and have no pod axis.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from .device import DeviceLike, resolve_device
 from .distributed.steps import TrainState
 from .optim.adamw import AdamWState
+from .optim.diloco import DilocoState
 from .tree import tree_map
 
 
@@ -60,6 +65,7 @@ def cache_to_numpy(tree):
 def train_state_from_numpy(tree, device: DeviceLike = "cuda") -> TrainState:
     adam = tree["adam"]
     ef = tree.get("ef", ())
+    diloco = tree.get("diloco", ())
     return TrainState(
         adam=AdamWState(
             step=_to_torch(np.asarray(adam["step"], np.int32), resolve_device(device)),
@@ -67,7 +73,10 @@ def train_state_from_numpy(tree, device: DeviceLike = "cuda") -> TrainState:
             v=params_from_numpy(adam["v"], device),
         ),
         ef=params_from_numpy(ef, device) if len(ef) else (),
-        diloco=(),
+        diloco=DilocoState(
+            anchor=params_from_numpy(diloco["anchor"], device),
+            momentum=params_from_numpy(diloco["momentum"], device),
+        ) if len(diloco) else (),
     )
 
 
@@ -76,4 +85,8 @@ def train_state_to_numpy(state: TrainState):
     return {
         "adam": {"step": _to_numpy(adam.step), "m": params_to_numpy(adam.m), "v": params_to_numpy(adam.v)},
         "ef": params_to_numpy(state.ef) if len(state.ef) else (),
+        "diloco": {
+            "anchor": params_to_numpy(state.diloco.anchor),
+            "momentum": params_to_numpy(state.diloco.momentum),
+        } if len(state.diloco) else (),
     }

@@ -6,8 +6,8 @@ than float32, and the error-feedback helpers that carry each pod's
 quantisation residual into its next step (Seide et al.).  The transform
 runs through :mod:`repro_torch.kernels.wan_quant`: the CUDA kernels on the
 card, their plain versions on the CPU.  Magnitude top-k
-(``topk_sparsify`` / ``topk_densify``) is not ported: no sync strategy
-calls it.
+(:func:`topk_sparsify` / :func:`topk_densify`) is plain PyTorch, as the
+JAX package's is plain ``jax.lax.top_k``.
 """
 
 from __future__ import annotations
@@ -49,6 +49,23 @@ def int8_decompress(c: Int8Compressed) -> torch.Tensor:
 
 def compressed_bytes(c: Int8Compressed) -> int:
     return int(c.values.numel() + c.scales.numel() * 4)
+
+
+def topk_sparsify(x: torch.Tensor, k_fraction: float = 0.01):
+    """Magnitude top-k: returns (values, flat indices, shape)."""
+    flat = x.reshape(-1)
+    k = max(1, int(flat.numel() * k_fraction))
+    _, idx = torch.topk(flat.abs(), k)
+    return flat[idx], idx, tuple(x.shape)
+
+
+def topk_densify(vals: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tensor:
+    size = 1
+    for s in shape:
+        size *= s
+    flat = torch.zeros((size,), dtype=vals.dtype, device=vals.device)
+    flat[idx] = vals
+    return flat.reshape(shape)
 
 
 # -- error feedback ----------------------------------------------------------------

@@ -14,7 +14,12 @@ pod there, is returned once.
                     into ``num_channels`` separate reductions (§3.3 striping);
 * ``hier_int8``  -- ``hier`` with int8 + error feedback on the WAN hop, the
                     quantiser being the ``wan_quant`` kernels;
-* ``ps`` and ``local_sgd`` are not ported yet (ROADMAP queue 1, item 10).
+* ``ps``         -- parameter server (the survey's M1): each pod pushes its
+                    float32 gradients, the server averages them and every
+                    pod pulls the updated parameters;
+* ``local_sgd``  -- no gradient sync at all: each pod steps alone and the
+                    DiLoCo outer step (:mod:`repro_torch.optim.diloco`)
+                    averages the pods' parameter deltas every H steps.
 """
 
 from __future__ import annotations
@@ -31,11 +36,6 @@ from .compression import (
 from ..tree import tree_leaves, tree_map
 
 STRATEGIES = ("allreduce", "ps", "hier", "hier_int8", "local_sgd")
-
-NOT_PORTED = {
-    "ps": "parameter-server sync is not ported yet (ROADMAP queue 1, item 10)",
-    "local_sgd": "local_sgd / the DiLoCo outer step is not ported yet (ROADMAP queue 1, item 10)",
-}
 
 
 def _chunk_bounds(dim0: int, num_channels: int):
@@ -54,6 +54,19 @@ def _chunk_bounds(dim0: int, num_channels: int):
 def sync_allreduce(grads):
     """Flat cross-pod mean (paper M2).  grads: leaves [npods, ...]."""
     return tree_map(lambda g: g.float().sum(0) / g.shape[0], grads)
+
+
+def sync_ps(grads):
+    """The parameter server's average of the pushed float32 gradients: the
+    JAX step's all-gather over pods, then ``.mean(0)`` (a sum over the pod
+    dimension divided by its size).  The update computed from it is the
+    one every pod pulls."""
+    return tree_map(lambda g: g.float().sum(0) / g.shape[0], grads)
+
+
+def sync_local(grads):
+    """``local_sgd`` sends no gradients: each pod keeps its own."""
+    return grads
 
 
 def sync_hier(grads, *, num_channels: int = 4):
@@ -104,6 +117,12 @@ def full_precision_bytes(grads) -> int:
     leaves = tree_leaves(grads)
     n = leaves[0].shape[0]
     return int(2 * (n - 1) * sum(g[0].numel() * 4 for g in leaves) // n)
+
+
+def ps_bytes(grads) -> int:
+    """WAN bytes each pod moves under ``ps``: its float32 gradients pushed
+    to the server and the float32 parameters pulled back."""
+    return int(2 * sum(g[0].numel() * 4 for g in tree_leaves(grads)))
 
 
 def wan_bytes_per_step(params_size_bytes: int, strategy: str, *, npods: int = 2) -> float:

@@ -6,15 +6,20 @@ on the chosen architecture (smoke-scale unless ``--full-config``), with
 the card (``--device cuda``, the default) or, when asked, on the CPU
 through the plain PyTorch path.  ``--profile`` (card only) runs one more
 step under ``torch.profiler`` and prints the device's busy share of the
-step's wall time and the ops by device time.  Checkpointing, failure
-injection and the WAN cost model of the JAX launcher are not ported yet
-(ROADMAP queue 1, items 8 and 9).
+step's wall time and the ops by device time.  It checkpoints into
+``--checkpoint-dir`` (a new temporary directory unless given; a directory
+that holds checkpoints resumes from the newest) every ``--checkpoint-every``
+steps (Young/Daly when not given), can silence ``pod1`` from
+``--inject-failure-at`` on for a recovery drill, and prints the emulated
+fabric's WAN seconds a step for the strategy, as ``examples/train_geo.py``
+does for the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import tempfile
 from pathlib import Path
 
 
@@ -34,6 +39,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-json", default=None)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--checkpoint-dir", default=None, help="default: a new temporary directory")
+    ap.add_argument("--checkpoint-every", type=int, default=None, help="default: Young/Daly")
+    ap.add_argument("--inject-failure-at", type=int, default=None, help="silence pod1 from this step on")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -55,16 +63,27 @@ def main(argv=None) -> None:
             npods=args.pods,
             num_channels=args.num_channels,
             seed=args.seed,
+            checkpoint_every=args.checkpoint_every,
         ),
+        checkpoint_dir=args.checkpoint_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_"),
         device=device,
     )
-    result = trainer.run()
+    result = trainer.run(inject_failure_at=args.inject_failure_at)
     rows = result["metrics"]
     print(
         f"\nfinal loss {result['final_loss']:.4f} after {len(rows)} steps "
         f"({args.pods} pods, {args.strategy}, {args.global_batch} x {args.seq_len}); "
         f"last step {rows[-1]['step_s'] * 1e3:.2f} ms, {rows[-1]['wan_bytes']} WAN bytes/pod"
     )
+    print(f"WAN sync estimate [{args.strategy}]: {rows[-1]['wan_s_est']:.3f} s/step "
+          f"(emulated fabric: {trainer.geo.num_pods} DCs)")
+    print(f"sync efficiency: {result['sync_efficiency']:.2f}; "
+          f"last checkpoint: step {result['last_checkpoint']} in {trainer.store.root}")
+    for drill in result["recovery_drills"]:
+        p = drill["plan"]
+        print(f"recovery drill @step {drill['step']}: detected {drill['dead']} in "
+              f"{p['detection_s'] * 1e3:.0f} ms; lost {p['lost_steps']} steps; "
+              f"downtime {p['detection_s'] + p['restore_s'] + p['remesh_s']:.1f} s")
     if args.out_json:
         Path(args.out_json).write_text(json.dumps(rows, indent=1))
     if args.profile:

@@ -6,6 +6,7 @@ They skip without a GPU.  On a machine with one (no JAX needed there):
 """
 
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import loader_for_model
-from repro_torch.distributed import init_train_state, make_train_step, pod_grads, sync_grads
+from repro_torch.distributed import init_pod_params, init_train_state, make_train_step, pod_grads, sync_grads
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.flash_attention import (
     bwd_route,
@@ -30,7 +31,8 @@ from repro_torch.kernels.rwkv6_wkv.ops import CHUNK as WKV_CHUNK
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
 from repro_torch.launch.batches import synthetic_prompt_batch
 from repro_torch.models import decode_step, init_params, prefill
-from repro_torch.optim import global_norm
+from repro_torch.optim import DilocoConfig, global_norm
+from repro_torch.runtime import GeoTrainer, TrainerConfig
 from repro_torch.tree import tree_items, tree_map
 
 pytestmark = pytest.mark.cuda
@@ -320,6 +322,60 @@ def test_smoke_train_step_card_matches_cpu(cuda, strategy):
     leaves = len(list(tree_items(params)))
     assert launched.get("wan_quant", 0) == launched.get("wan_dequant", 0) == (leaves if strategy == "hier_int8" else 0)
     assert torch.isfinite(metrics["loss"])
+
+
+@pytest.mark.parametrize("strategy", ["ps", "local_sgd"])
+def test_smoke_ps_and_local_sgd_step_card_matches_cpu(cuda, strategy):
+    """One whole 2-pod step on the card and on the CPU from the same
+    parameters and batch: ``ps``, and ``local_sgd`` with sync_every = 1 so
+    the step is an outer step.  Float32 smoke config: loss and grad norm at
+    1e-4 as above; each leaf's update (new minus old parameters) at a
+    relative norm of 1e-3, AdamW's first step being sign-like where a
+    gradient sits near its eps."""
+    cfg = get_smoke_config("distilgpt2-82m")
+    params = init_params(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    batch = loader_for_model(cfg, seq_len=64, global_batch=4).next_batch()
+    out = {}
+    for name, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        p = _tree(params, lambda t: t.to(dev))
+        state = init_train_state(p, None, strategy=strategy, npods=2)
+        step = make_train_step(cfg, npods=2, strategy=strategy, diloco_cfg=DilocoConfig(sync_every=1), device=dev)
+        before = dict(LAUNCHES)
+        new, _, metrics = step(init_pod_params(p, strategy=strategy, npods=2), state, batch)
+        launched = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES if LAUNCHES[k] != before.get(k, 0)}
+        if name == "card":
+            torch.cuda.synchronize()
+            assert launched == {"flash_attention_fwd": 2 * cfg.num_layers, "flash_attention_bwd": 2 * cfg.num_layers}
+        if strategy == "local_sgd":  # after the outer step every pod holds the same parameters
+            assert all(torch.equal(t[0], t[1]) for _, t in tree_items(new))
+            new = _tree(new, lambda t: t[0])
+        update = _tree(new, lambda t: t.cpu())
+        out[name] = (metrics["loss"].item(), metrics["grad_norm"].item(), metrics["wan_bytes"],
+                     {path: u - p0.cpu() for (path, u), (_, p0) in zip(tree_items(update), tree_items(p))})
+    (g_loss, g_norm, g_wan, g_upd), (c_loss, c_norm, c_wan, c_upd) = out["card"], out["cpu"]
+    torch.testing.assert_close(g_loss, c_loss, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(g_norm, c_norm, rtol=1e-4, atol=1e-4)
+    assert g_wan == c_wan > 0
+    for path, c in c_upd.items():
+        assert (g_upd[path] - c).norm() <= 1e-3 * c.norm() + 1e-9, path
+
+
+def test_smoke_checkpoint_resume_on_the_card_equals_the_uninterrupted_run(cuda, tmp_path):
+    """Four 2-pod hier_int8 steps checkpointed every 2; a new trainer
+    restores step 2 from a copy of the directory and runs steps 2-3.  Every
+    kernel on the path is deterministic, so the losses agree to rtol 1e-6."""
+    cfg = get_smoke_config("distilgpt2-82m")
+    tc = TrainerConfig(seq_len=64, global_batch=4, steps=4, strategy="hier_int8", npods=2,
+                       checkpoint_every=2, log_every=100)
+    whole = GeoTrainer(cfg, trainer_cfg=tc, checkpoint_dir=str(tmp_path / "whole"), device=cuda).run()
+    assert whole["last_checkpoint"] == 4
+    shutil.copytree(tmp_path / "whole", tmp_path / "resume")
+    shutil.rmtree(tmp_path / "resume" / "step_00000004")
+    (tmp_path / "resume" / "step_00000004.COMMITTED").unlink()
+    rest = GeoTrainer(cfg, trainer_cfg=tc, checkpoint_dir=str(tmp_path / "resume"), device=cuda).run()
+    assert [r["step"] for r in rest["metrics"]] == [2, 3]
+    np.testing.assert_allclose([r["loss"] for r in rest["metrics"]],
+                               [r["loss"] for r in whole["metrics"][2:]], rtol=1e-6, atol=0)
 
 
 # (b, t, h, n, r/k/v dtype, w dtype); the first is rwkv6-7b's layout at a

@@ -18,6 +18,14 @@ Tolerances, each the JAX suite's own or stated with its reason:
   neighbouring int8 levels where x / scale sits at a .5 tie, which moves
   that lane's synced gradient and error feedback by one quantisation step.
 
+* ``ps`` and ``local_sgd`` steps, each from the JAX state: loss, grad
+  norm, params, moments, DiLoCo anchor and momentum at float32 2e-5 (no
+  int8 on these paths), but for ``ps`` parameters on the few lanes where
+  the pods' mean gradient cancels to below AdamW's eps (see
+  ``_close_params_but_eps_lanes``);
+* top-k: exact, on inputs whose magnitudes are all distinct (``torch.topk``
+  and ``jax.lax.top_k`` may break ties differently).
+
 The JAX multi-pod ``make_train_step`` crashes XLA's partitioner on this
 jax; the reference is the JAX functions themselves under
 ``jax.vmap(..., axis_name="pod")``, composed as ``steps.py`` composes them.
@@ -38,6 +46,9 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke
 from repro.data import loader_for_model as jax_loader
 from repro.distributed.compression import init_error_feedback as jax_init_ef
+from repro.distributed.compression import topk_densify as jax_topk_densify
+from repro.distributed.compression import topk_sparsify as jax_topk_sparsify
+from repro.distributed.sync import all_gather_compat as jax_all_gather
 from repro.distributed.sync import sync_allreduce as jax_sync_allreduce
 from repro.distributed.sync import sync_hier as jax_sync_hier
 from repro.distributed.sync import sync_hier_int8 as jax_sync_hier_int8
@@ -47,6 +58,9 @@ from repro.models import loss_fn as jax_loss_fn
 from repro.optim.adamw import AdamWConfig as JaxAdamWConfig
 from repro.optim.adamw import adamw_update as jax_adamw_update
 from repro.optim.adamw import init_adamw as jax_init_adamw
+from repro.optim.diloco import DilocoConfig as JaxDilocoConfig
+from repro.optim.diloco import init_diloco as jax_init_diloco
+from repro.optim.diloco import outer_step as jax_outer_step
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import (
     params_from_numpy,
@@ -56,16 +70,23 @@ from repro_torch.convert import (
 )
 from repro_torch.data import loader_for_model
 from repro_torch.distributed import (
+    full_precision_bytes,
+    init_pod_params,
     init_train_state,
     make_train_step,
     pod_grads,
+    ps_bytes,
     sync_allreduce,
+    sync_grads,
     sync_hier,
     sync_hier_int8,
+    sync_ps,
+    topk_densify,
+    topk_sparsify,
     wan_bytes_per_step,
 )
 from repro_torch.models import loss_fn
-from repro_torch.optim import AdamWConfig, adamw_update, init_adamw
+from repro_torch.optim import AdamWConfig, DilocoConfig, adamw_update, init_adamw
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -99,6 +120,28 @@ def _close_trees_but_int8_flips(port_np, jax_np, tol, what):
         off += int((np.abs(got - want) > tol + tol * np.abs(want)).sum())
         total += want.size
     assert off < 1e-3 * total, f"{what}: {off} of {total} values off by more than {tol}"
+
+
+def _close_params_but_eps_lanes(port_np, jax_np, m_np, step, tol, what):
+    """Parameters at ``tol`` but on lanes whose bias-corrected first moment
+    (the JAX state's, after the step) is below 10 x AdamW's eps: there the
+    update g / (|g| + eps) is linear in a mean gradient at float32 noise
+    level (the pods' gradients cancel), so summation-order ulps in g move
+    the parameter by up to lr.  There a lane is held to lr, the most that
+    term can move it, and fewer than 1e-4 of all values may leave ``tol``."""
+    port, ref, moment = _flat(port_np), _flat(jax_np), _flat(m_np)
+    assert set(port) == set(ref), what
+    b1, eps, lr = AdamWConfig().b1, AdamWConfig().eps, OPT["lr"]
+    exempt = total = 0
+    for path, want in ref.items():
+        got = np.asarray(port[path], np.float64)
+        flat = np.abs(moment[path]) / (1 - b1 ** step) < 10 * eps
+        diff = np.abs(got - want)
+        assert (diff[~flat] <= tol + tol * np.abs(want[~flat])).all(), f"{what} {path}"
+        assert (diff[flat] <= lr).all(), f"{what} {path}"
+        exempt += int((diff[flat] > tol + tol * np.abs(want[flat])).sum())
+        total += want.size
+    assert exempt < 1e-4 * total, f"{what}: {exempt} of {total} values off by more than {tol}"
 
 
 def _batch(cfg, seed=1, seq=32, batch=2):
@@ -335,9 +378,171 @@ def test_loader_copy_gives_the_same_batches(arch):
 
 
 @pytest.mark.parametrize("strategy", ["ps", "local_sgd"])
-def test_unported_strategies_raise(strategy):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(get_smoke_config("distilgpt2-82m"), npods=2, strategy=strategy, device="cpu")
+def test_sync_grads_of_ps_and_local_sgd(strategy):
+    """ps: the pods' mean gradient (JAX's all-gather then .mean(0)) and 2 x
+    the float32 gradient bytes (push, pull); local_sgd: nothing sent."""
+    grads = _pod_grads(2)
+    tgrads = params_from_numpy(grads, device="cpu")
+    synced, ef, wan = sync_grads(tgrads, (), strategy=strategy)
+    assert ef == ()
+    if strategy == "local_sgd":
+        assert synced is tgrads and wan == 0
+        return
+    gathered = jax.vmap(lambda g: jax.tree.map(lambda x: jax_all_gather(x, "pod").mean(0), g),
+                        axis_name="pod")(grads)
+    for pod in range(2):
+        _close_trees(params_to_numpy(synced), jax.tree.map(lambda a: np.asarray(a[pod]), gathered), 0, f"pod {pod}")
+    values = sum(a[0].size for a in jax.tree.leaves(grads))
+    assert wan == ps_bytes(tgrads) == 2 * 4 * values == wan_bytes_per_step(4 * values, "ps")
+    assert synced.keys() == sync_ps(tgrads).keys()
+
+
+def _jax_ps_step(jcfg, opt_cfg, npods):
+    """The JAX ``ps`` pod step (``steps.py``'s ``inner``): the pushed
+    gradients all-gathered and averaged, one AdamW update, and pod 0's
+    parameters pulled by every pod (a psum of the server's copy)."""
+
+    def inner(params, adam, batch):
+        (loss, _), grads = jax.value_and_grad(lambda p: jax_loss_fn(p, batch, jcfg), has_aux=True)(params)
+        loss = jax.lax.psum(loss, "pod") / npods
+        g_mean = jax.tree.map(lambda g: jax_all_gather(g.astype(jnp.float32), "pod").mean(0), grads)
+        new_params, new_adam, om = jax_adamw_update(opt_cfg, g_mean, adam, params)
+        is_server = (jax.lax.axis_index("pod") == 0).astype(jnp.float32)
+        new_params = jax.tree.map(lambda u: jax.lax.psum(u * is_server.astype(u.dtype), "pod"), new_params)
+        return new_params, new_adam, loss, om["grad_norm"]
+
+    def step(params, adam, batch):
+        pods = jax.tree.map(lambda x: x.reshape(npods, x.shape[0] // npods, *x.shape[1:]), batch)
+        out = jax.vmap(inner, in_axes=(None, None, 0), axis_name="pod")(params, adam, pods)
+        first = lambda t: jax.tree.map(lambda a: a[0], t)  # noqa: E731  identical over pods
+        return first(out[0]), first(out[1]), out[2][0], out[3][0]
+
+    return jax.jit(step)
+
+
+def test_three_ps_steps_match_jax():
+    """Three 2-pod ps steps, each from the JAX state, and a free-running
+    chain of port steps whose losses must match too."""
+    npods, arch = 2, "distilgpt2-82m"
+    jcfg, tcfg = jax_smoke(arch), get_smoke_config(arch)
+    jparams = jax_init_params(jax.random.PRNGKey(5), jcfg)
+    jadam = jax_init_adamw(jparams)
+    jstep = _jax_ps_step(jcfg, JaxAdamWConfig(**OPT), npods)
+    step = make_train_step(tcfg, npods=npods, strategy="ps", opt_cfg=AdamWConfig(**OPT), device="cpu")
+    free_params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    free_state = init_train_state(free_params, AdamWConfig(**OPT), strategy="ps", npods=npods)
+    jl, tl = jax_loader(jcfg, seq_len=32, global_batch=4, seed=7), loader_for_model(
+        tcfg, seq_len=32, global_batch=4, seed=7)
+    tol = TOL["float32"]
+    for i in range(3):
+        jb, tb = jl.next_batch(), tl.next_batch()
+        params = params_from_numpy(_np_tree(jparams), device="cpu")
+        state = train_state_from_numpy(
+            {"adam": {"step": np.asarray(jadam.step), "m": _np_tree(jadam.m), "v": _np_tree(jadam.v)}}, device="cpu")
+        jparams, jadam, jloss, jnorm = jstep(jparams, jadam, {k: jnp.asarray(v) for k, v in jb.items()})
+        params, state, metrics = step(params, state, tb)
+        np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=tol, atol=tol, err_msg=f"loss {i}")
+        np.testing.assert_allclose(metrics["grad_norm"].item(), float(jnorm), rtol=tol, atol=tol)
+        _close_params_but_eps_lanes(params_to_numpy(params), _np_tree(jparams), _np_tree(jadam.m), i + 1, tol,
+                                    f"step {i} params")
+        ts = train_state_to_numpy(state)
+        _close_trees(ts["adam"]["m"], _np_tree(jadam.m), tol, f"step {i} m")
+        _close_trees(ts["adam"]["v"], _np_tree(jadam.v), tol, f"step {i} v")
+        assert int(ts["adam"]["step"]) == int(jadam.step) == i + 1
+        assert metrics["wan_bytes"] == ps_bytes(tree_map(lambda t: t[None], params))
+
+        free_params, free_state, free = step(free_params, free_state, tb)
+        np.testing.assert_allclose(free["loss"].item(), float(jloss), rtol=tol, atol=tol, err_msg=f"free loss {i}")
+
+
+def _jax_local_step(jcfg, opt_cfg, dcfg, npods):
+    """The JAX ``local_sgd`` pod step (``steps.py``'s ``inner``): each pod's
+    own AdamW step, then ``outer_step`` under ``lax.cond`` on the updated
+    step count -- here with per-pod parameters and moments, as DiLoCo's
+    docstring describes, under ``jax.vmap(..., axis_name="pod")``."""
+
+    def inner(params, adam, diloco, batch):
+        (loss, _), grads = jax.value_and_grad(lambda p: jax_loss_fn(p, batch, jcfg), has_aux=True)(params)
+        loss = jax.lax.psum(loss, "pod") / npods
+        new_params, new_adam, om = jax_adamw_update(opt_cfg, grads, adam, params)
+        new_params, new_diloco = jax.lax.cond(
+            new_adam.step % dcfg.sync_every == 0,
+            lambda ops: jax_outer_step(dcfg, *ops),
+            lambda ops: ops,
+            (new_params, diloco),
+        )
+        return new_params, new_adam, new_diloco, loss, om["grad_norm"]
+
+    def step(params, adam, diloco, batch):
+        pods = jax.tree.map(lambda x: x.reshape(npods, x.shape[0] // npods, *x.shape[1:]), batch)
+        p, a, d, loss, norm = jax.vmap(inner, in_axes=(0, 0, None, 0), axis_name="pod")(params, adam, diloco, pods)
+        return p, a, jax.tree.map(lambda x: x[0], d), loss[0], norm[0]  # anchor, momentum: the same on every pod
+
+    return jax.jit(step)
+
+
+def test_four_local_sgd_steps_match_jax():
+    """2 pods, sync_every = 2, 4 steps, each from the JAX state: each pod's
+    parameters and moments after every step, the DiLoCo anchor and
+    momentum after each outer step (steps 2 and 4), and WAN bytes 0 on the
+    inner steps and a float32 ring all-reduce on the outer ones."""
+    npods, arch = 2, "distilgpt2-82m"
+    jcfg, tcfg = jax_smoke(arch), get_smoke_config(arch)
+    jp0 = jax_init_params(jax.random.PRNGKey(6), jcfg)
+    stack = lambda t: jax.tree.map(lambda a: jnp.stack([a] * npods), t)  # noqa: E731
+    jparams, jadam, jdiloco = stack(jp0), stack(jax_init_adamw(jp0)), jax_init_diloco(jp0)
+    jstep = _jax_local_step(jcfg, JaxAdamWConfig(**OPT), JaxDilocoConfig(sync_every=2), npods)
+    step = make_train_step(tcfg, npods=npods, strategy="local_sgd", opt_cfg=AdamWConfig(**OPT),
+                           diloco_cfg=DilocoConfig(sync_every=2), device="cpu")
+    p0 = params_from_numpy(jax.tree.map(np.asarray, jp0), device="cpu")
+    free_state = init_train_state(p0, AdamWConfig(**OPT), strategy="local_sgd", npods=npods)
+    free_params = init_pod_params(p0, strategy="local_sgd", npods=npods)
+    jl, tl = jax_loader(jcfg, seq_len=32, global_batch=4, seed=8), loader_for_model(
+        tcfg, seq_len=32, global_batch=4, seed=8)
+    tol = TOL["float32"]
+    for i in range(4):
+        jb, tb = jl.next_batch(), tl.next_batch()
+        params = params_from_numpy(_np_tree(jparams), device="cpu")
+        state = train_state_from_numpy({
+            "adam": {"step": np.asarray(jadam.step[0]), "m": _np_tree(jadam.m), "v": _np_tree(jadam.v)},
+            "diloco": {"anchor": _np_tree(jdiloco.anchor), "momentum": _np_tree(jdiloco.momentum)},
+        }, device="cpu")
+        jparams, jadam, jdiloco, jloss, jnorm = jstep(jparams, jadam, jdiloco, {k: jnp.asarray(v) for k, v in jb.items()})
+        params, state, metrics = step(params, state, tb)
+        outer = (i + 1) % 2 == 0
+        np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=tol, atol=tol, err_msg=f"loss {i}")
+        np.testing.assert_allclose(metrics["grad_norm"].item(), float(jnorm), rtol=tol, atol=tol)
+        _close_trees(params_to_numpy(params), _np_tree(jparams), tol, f"step {i} params per pod")
+        ts = train_state_to_numpy(state)
+        _close_trees(ts["adam"]["m"], _np_tree(jadam.m), tol, f"step {i} m per pod")
+        _close_trees(ts["adam"]["v"], _np_tree(jadam.v), tol, f"step {i} v per pod")
+        assert int(ts["adam"]["step"]) == i + 1
+        if outer:
+            _close_trees(ts["diloco"]["anchor"], _np_tree(jdiloco.anchor), tol, f"step {i} anchor")
+            _close_trees(ts["diloco"]["momentum"], _np_tree(jdiloco.momentum), tol, f"step {i} momentum")
+            for t in tree_leaves(params):  # the pods hold the same parameters again
+                assert torch.equal(t[0], t[1])
+            assert metrics["wan_bytes"] == full_precision_bytes(params) > 0
+        else:
+            assert metrics["wan_bytes"] == 0
+            assert not torch.equal(params["embed"][0], params["embed"][1])  # the pods drifted apart
+
+        free_params, free_state, free = step(free_params, free_state, tb)
+        np.testing.assert_allclose(free["loss"].item(), float(jloss), rtol=tol, atol=tol, err_msg=f"free loss {i}")
+
+
+@pytest.mark.parametrize("shape,k_fraction", [((6, 50), 0.1), ((1000,), 0.01), ((3, 4, 5), 0.5)])
+def test_topk_matches_jax(shape, k_fraction):
+    rng = np.random.default_rng(9)
+    n = int(np.prod(shape))
+    x = (rng.permutation(n) + 1.0) * rng.choice([-1.0, 1.0], n) / n  # distinct magnitudes
+    x = x.astype(np.float32).reshape(shape)
+    jv, ji, jshape = jax_topk_sparsify(jnp.asarray(x), k_fraction)
+    tv, ti, tshape = topk_sparsify(torch.from_numpy(x), k_fraction)
+    assert tshape == jshape == shape
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(topk_densify(tv, ti, tshape).numpy(), np.asarray(jax_topk_densify(jv, ji, jshape)))
 
 
 def _env():
@@ -346,20 +551,36 @@ def _env():
     return env
 
 
-def test_train_cli_on_cpu():
+def test_train_cli_on_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--steps", "2",
-         "--pods", "2", "--strategy", "hier_int8", "--global-batch", "4", "--seq-len", "32"],
+         "--pods", "2", "--strategy", "hier_int8", "--global-batch", "4", "--seq-len", "32",
+         "--checkpoint-dir", str(tmp_path)],
         env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT,
     )
     assert out.returncode == 0, out.stderr
     assert "final loss" in out.stdout and "(2 pods, hier_int8, 4 x 32)" in out.stdout
 
 
-def test_train_cli_trains_musicgen_on_cpu():
+@pytest.mark.parametrize("strategy", ["ps", "local_sgd"])
+def test_train_cli_runs_ps_and_local_sgd_with_a_drill_on_cpu(tmp_path, strategy):
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--steps", "4",
+         "--pods", "2", "--strategy", strategy, "--global-batch", "4", "--seq-len", "32",
+         "--inject-failure-at", "1", "--checkpoint-dir", str(tmp_path), "--checkpoint-every", "2"],
+        env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+    assert f"(2 pods, {strategy}, 4 x 32)" in out.stdout
+    assert f"WAN sync estimate [{strategy}]: " in out.stdout
+    assert "recovery drill @step 3: detected ['pod1']" in out.stdout
+    assert (tmp_path / "step_00000004.COMMITTED").exists()
+
+
+def test_train_cli_trains_musicgen_on_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", "musicgen-large", "--device", "cpu",
-         "--steps", "1"],
+         "--steps", "1", "--checkpoint-dir", str(tmp_path)],
         env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT,
     )
     assert out.returncode == 0, out.stderr

@@ -30,6 +30,19 @@ Phases, each printing one JSON line on stdout:
    the outer step), each with its WAN bytes held to their analytic values,
    12 + 12 flash launches a step on ``wgmma`` and no ``wan_quant``, and its
    own step on the card against the CPU (for local_sgd an outer step).
+   ``train_scenario``: the scenario path, a ``repro_torch.scenario.Scenario``
+   (``repro_torch.examples.train_geo``'s spec: 2 DCs, ``hier_int8``, 12
+   steps) whose event script (a BFD-detected link flap at steps 3-6, a
+   brownout of the DC pair at steps 4-8) is replayed at step boundaries,
+   through the trainer ``train_geo`` builds, with the ``train`` phase's
+   configuration: its losses must equal ``train``'s (rtol 1e-6), with one
+   ``bfd`` recovery, 2 EVPN resyncs and the link up at the end; then the
+   paper's Fig. 14 step modelled with this card's median step as compute.
+   ``serve_geo``: ``serving_under_flap`` on the host, its metrics held to
+   the JAX package's (``SERVING_UNDER_FLAP``), then the peak step's first 8
+   trace requests (``request_batch``, ragged prompt lengths) prefilled at
+   full width on the card, 6 flash launches each on ``wgmma``, each one's
+   logits held to its prefill on the CPU (rtol = atol = 5e-2).
    ``checkpoint``: 4 ``hier_int8`` steps checkpointed every 2 with ``pod1``
    silenced from step 1 (the drill must declare it dead after
    ``detect_mult`` steps), then a new trainer restores step 2 from a copy
@@ -770,6 +783,14 @@ def _logit_diff(card, cpu):
 FULL_GRAD_BYTES = 324_504_576
 MODELLED_WAN_S = {"allreduce": 3.67299648, "ps": 4.88988864, "hier": 1.23921216,
                   "hier_int8": 0.32654304, "local_sgd": 0.15490152}
+# serving_under_flap's metrics as the JAX package gives them (a CPU test
+# holds these constants to it), its peak step, and that step's first eight
+# requests' prompt lengths
+SERVING_UNDER_FLAP = {
+    "serving_requests": 123.0, "serving_migrated_sessions": 23.0, "serving_migration_bytes": 434110464.0,
+    "serving_p99_ms": 1074.3584640000001, "serving_slo_miss_frac": 0.04878048780487805,
+}
+PEAK_STEP, PEAK_TOKENS = 13, (102, 276, 58, 45, 520, 91, 136, 200)
 
 
 def modelled_wan_s():
@@ -793,11 +814,13 @@ def ckpt_dir(name):
     return d
 
 
-def train_main_path(torch, strategy, directory, *, steps=STEPS, inject_failure_at=None, **tc_more):
+def train_main_path(torch, strategy, directory, *, steps=STEPS, inject_failure_at=None, scenario=None, **tc_more):
     """GeoTrainer at full width on 2 pods, the counts zeroed just before and
-    read just after.  Returns (trainer, result, launches, fwd routes, bwd
-    routes, peak bytes)."""
+    read just after; with ``scenario``, built as ``repro_torch.examples.train_geo``
+    builds it.  Returns (trainer, result, launches, fwd routes, bwd routes,
+    peak bytes)."""
     from repro_torch.configs import get_config
+    from repro_torch.examples.train_geo import build_trainer
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
     from repro_torch.optim import AdamWConfig
@@ -805,10 +828,14 @@ def train_main_path(torch, strategy, directory, *, steps=STEPS, inject_failure_a
 
     cfg = get_config("distilgpt2-82m")
     opt = AdamWConfig(lr=1e-3, warmup_steps=WARMUP, total_steps=STEPS)
-    trainer = GeoTrainer(cfg, device="cuda", checkpoint_dir=str(directory), trainer_cfg=TrainerConfig(
+    tc = TrainerConfig(
         seq_len=SEQ_TRAIN, global_batch=B_TRAIN, steps=steps, strategy=strategy,
         npods=NPODS, log_every=steps, seed=0, opt=opt, **tc_more,
-    ))
+    )
+    if scenario is None:
+        trainer = GeoTrainer(cfg, device="cuda", checkpoint_dir=str(directory), trainer_cfg=tc)
+    else:
+        trainer = build_trainer(cfg, scenario, tc, checkpoint_dir=str(directory), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
@@ -943,7 +970,7 @@ def phase_train(torch):
         "bwd_routes_main_path": bwd_routes,
         "card_vs_cpu": card_vs_cpu_step(torch, cfg, "hier_int8"),
     })
-    return launches
+    return launches, losses, step_ms
 
 
 def phase_train_strategy(torch, strategy):
@@ -1004,6 +1031,164 @@ def phase_train_strategy(torch, strategy):
         "launches_main_path": launches, "launches_per_step": per_step, "fwd_routes_main_path": routes,
         "bwd_routes_main_path": bwd_routes,
         "card_vs_cpu": card_vs_cpu_step(torch, cfg, strategy),
+    })
+    return launches
+
+
+# train_scenario's event script: a BFD-detected flap of one WAN link and a
+# brownout of the DC pair's fiber, each lifted later
+SCENARIO_LINK = ("d1s1", "d2s1")
+
+
+def scenario_events():
+    from repro_torch.scenario import ScenarioEvent
+
+    return (
+        ScenarioEvent(kind="fail_link", at_step=3, link=SCENARIO_LINK),
+        ScenarioEvent(kind="degrade_pair", at_step=4, pair=(1, 2), bandwidth_fraction=0.25, extra_delay_ms=10.0),
+        ScenarioEvent(kind="restore_link", at_step=6, link=SCENARIO_LINK),
+        ScenarioEvent(kind="restore_degradation", at_step=8, pair=(1, 2)),
+    )
+
+
+def phase_train_scenario(torch, train_losses, train_step_ms):
+    """The scenario path: train_geo's spec (2 DCs of 2 workers, hier_int8,
+    12 steps, jitter off) with its event script replayed at step
+    boundaries, through GeoTrainer at full width with the train phase's
+    TrainerConfig.  The events touch the modelled fabric only, so the
+    losses must equal the train phase's."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples.train_geo import geo_scenario
+    from repro_torch.scenario import get_scenario, run_scenario
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("distilgpt2-82m")
+    spec = geo_scenario("hier_int8", STEPS, pods=NPODS, events=scenario_events())
+    directory = ckpt_dir("train_scenario")
+    trainer, result, launches, routes, bwd_routes, peak = train_main_path(
+        torch, "hier_int8", directory, scenario=spec)
+    rows = result["metrics"]
+    n_leaves = len(tree_leaves(trainer.params))
+    per_step = check_train_launches("train_scenario", cfg, launches, routes, bwd_routes, n_leaves, STEPS,
+                                    quant=True)
+    losses = [r["loss"] for r in rows]
+    if len(losses) != len(train_losses) or any(abs(a - b) > 1e-6 * abs(b) for a, b in zip(losses, train_losses)):
+        raise AssertionError(f"train_scenario: losses {losses} vs train's {train_losses}, rtol 1e-6")
+    if rows[-1]["wan_s_est"] != MODELLED_WAN_S["hier_int8"]:
+        raise AssertionError(f"train_scenario: wan_s_est {rows[-1]['wan_s_est']}, "
+                             f"expected {MODELLED_WAN_S['hier_int8']}")
+    recoveries = result["scenario_recoveries"]
+    if [r["mechanism"] for r in recoveries] != ["bfd"] or result["scenario_evpn_resyncs"] != 2:
+        raise AssertionError(f"train_scenario: recoveries {recoveries}, "
+                             f"{result['scenario_evpn_resyncs']} EVPN resyncs; expected one bfd and 2")
+    if not trainer.geo.fabric.link_up(*SCENARIO_LINK):
+        raise AssertionError(f"train_scenario: link {SCENARIO_LINK} is down at the end")
+    timed = [r["step_s"] * 1e3 for r in rows[WARMUP:]]
+    step_ms = statistics.median(timed)
+    event_s = list(trainer.event_s)
+    del trainer
+    shutil.rmtree(directory)
+    emit({
+        "phase": "train_scenario", "arch": cfg.name, "dtype": cfg.dtype, "pods": NPODS,
+        "scenario": spec.to_dict(), "global_batch": B_TRAIN, "seq_len": SEQ_TRAIN, "steps": STEPS,
+        "warmup_steps_untimed": WARMUP, "step_ms_median": step_ms, "step_ms": timed,
+        "train_step_ms_median_same_run": train_step_ms,
+        "losses": losses, "losses_equal_train_bitwise": losses == list(train_losses),
+        "wan_s_est": rows[-1]["wan_s_est"], "scenario_recoveries": recoveries,
+        "scenario_evpn_resyncs": result["scenario_evpn_resyncs"], "link_up_at_end": True,
+        "event_host_s": event_s, "wan_phases": result["wan_phases"],
+        "peak_memory_bytes": peak, "launches_main_path": launches, "launches_per_step": per_step,
+        "fwd_routes_main_path": routes, "bwd_routes_main_path": bwd_routes,
+    })
+    # The paper's Fig. 14 step with this card's compute: modelled by the
+    # simulator, not measured.
+    fig14 = {name: run_scenario(get_scenario(name, compute_seconds=step_ms / 1e3)).mean_step_seconds
+             for name in ("fig14_allreduce", "fig14_ps")}
+    emit({"phase": "train_scenario", "modelled_not_measured": True,
+          "fig14_step_s_with_this_card_compute": fig14, "compute_seconds": step_ms / 1e3})
+    return launches
+
+
+def phase_serve_geo(torch):
+    """serving_under_flap on the host, held to the JAX package's metrics;
+    then the peak step's first eight trace requests materialised on the
+    card by ``request_batch`` and prefilled at full width (ragged lengths
+    through the flash forward), each held to its prefill on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples.serve_geo import peak_requests
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.models import init_params, prefill
+    from repro_torch.scenario import get_scenario, run_scenario
+    from repro_torch.serving import request_batch
+    from repro_torch.tree import tree_map
+
+    spec = get_scenario("serving_under_flap")
+    t0 = time.perf_counter()
+    result = run_scenario(spec)
+    scenario_s = time.perf_counter() - t0
+    metrics = result.metrics()
+    got = {k: metrics[k] for k in SERVING_UNDER_FLAP}
+    if any(abs(got[k] - want) > 1e-12 * abs(want) for k, want in SERVING_UNDER_FLAP.items()):
+        raise AssertionError(f"serve_geo: metrics {got}, expected {SERVING_UNDER_FLAP}")
+    peak, requests = peak_requests(spec, result)
+    requests = requests[: len(PEAK_TOKENS)]
+    if (peak.step, tuple(r.tokens for r in requests)) != (PEAK_STEP, PEAK_TOKENS):
+        raise AssertionError(f"serve_geo: peak step {peak.step} with prompts {[r.tokens for r in requests]}")
+
+    cfg = get_config("distilgpt2-82m")
+    params = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    batches = [request_batch(cfg, r, device="cuda") for r in requests]
+
+    def run():
+        rows, outs = [], []
+        for req, batch in zip(requests, batches):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            logits, _ = prefill(params, batch, cfg, max_len=req.tokens + 8)
+            end.record()
+            torch.cuda.synchronize()
+            rows.append({"rid": req.rid, "tokens": req.tokens, "host_ms": (time.perf_counter() - t0) * 1e3,
+                         "event_ms": start.elapsed_time(end),
+                         "ok": tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())})
+            outs.append(logits)
+        return rows, outs
+
+    run()  # warm-up: cuBLAS handles and allocator pools for each length
+    LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
+    rows, outs = run()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    want = cfg.num_layers * len(requests)
+    if launches != {"flash_attention_fwd": want} or routes != {"wgmma": want}:
+        raise AssertionError(f"serve_geo: launches {launches}, routes {routes}; expected {want} on wgmma")
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"serve_geo: logits not finite or of the wrong shape: {rows}")
+
+    # Every length the path ran (45 and 58 are shorter than one flash tile,
+    # 520 spans several), the main path's own logits against the CPU's.
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    diffs = []
+    for req, batch, g_logits in zip(requests, batches, outs):
+        c_logits, _ = prefill(cpu_params, tree_map(lambda t: t.cpu(), batch), cfg, max_len=req.tokens + 8)
+        err, share = _logit_diff(g_logits, c_logits)
+        diffs.append({"rid": req.rid, "tokens": req.tokens, "max_abs_err": err, "share_of_tol": share})
+    if not all(d["share_of_tol"] <= 1 for d in diffs):
+        raise AssertionError(f"serve_geo: card vs CPU logits outside rtol=atol={SERVE_TOL}: {diffs}")
+    del params, cpu_params
+    emit({
+        "phase": "serve_geo", "scenario": spec.name, "scenario_host_s": scenario_s,
+        "metrics": got, "metrics_expected": SERVING_UNDER_FLAP, "peak_step": peak.step,
+        "arch": cfg.name, "dtype": cfg.dtype, "prefills": rows,
+        "event_ms_is": "CUDA event pair around one prefill call (the device's clock; host gaps included)",
+        "launches_main_path": launches, "fwd_routes_main_path": routes,
+        "flash_fwd_per_prefill": cfg.num_layers,
+        "card_vs_cpu": diffs, "card_vs_cpu_worst_share_of_tol": max(d["share_of_tol"] for d in diffs),
+        "card_vs_cpu_tol": SERVE_TOL,
     })
     return launches
 
@@ -1094,12 +1279,18 @@ def main() -> int:
     wan, wan_step = phase_kernels_wan(torch)
     wkv = phase_kernels_wkv(torch)
     serve = phase_serve(torch)
-    train = phase_train(torch)
+    train, train_losses, train_step_ms = phase_train(torch)
     trains = {}
     for strategy in ("ps", "local_sgd"):
         gc.collect()
         torch.cuda.empty_cache()
         trains[strategy] = phase_train_strategy(torch, strategy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scenario = phase_train_scenario(torch, train_losses, train_step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_geo = phase_serve_geo(torch)
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = phase_checkpoint(torch)
@@ -1116,7 +1307,8 @@ def main() -> int:
             "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
             "library_ms": check["library_ms"], "library_call_ms": check.get("library_call_ms"),
             "launches_train_ps": trains["ps"].get(name, 0), "launches_train_local_sgd": trains["local_sgd"].get(name, 0),
-            "launches_checkpoint": ckpt.get(name, 0), **more,
+            "launches_checkpoint": ckpt.get(name, 0), "launches_train_scenario": scenario.get(name, 0),
+            "launches_serve_geo": serve_geo.get(name, 0), **more,
         }
 
     wan_err = {

@@ -9,8 +9,9 @@ step under ``torch.profiler`` and prints the device's busy share of the
 step's wall time and the ops by device time.  It checkpoints into
 ``--checkpoint-dir`` (a new temporary directory unless given; a directory
 that holds checkpoints resumes from the newest) every ``--checkpoint-every``
-steps (Young/Daly when not given), can silence ``pod1`` from
-``--inject-failure-at`` on for a recovery drill, and prints the emulated
+steps (Young/Daly when not given), takes a named shape of
+:data:`~repro_torch.launch.shapes.SHAPES` through ``--shape``, can silence
+``pod1`` from ``--inject-failure-at`` on for a recovery drill, and prints the emulated
 fabric's WAN seconds a step for the strategy, as ``examples/train_geo.py``
 does for the JAX package.
 """
@@ -28,6 +29,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="distilgpt2-82m")
     ap.add_argument("--full-config", action="store_true",
                     help="the full (paper-scale) config instead of the smoke one")
+    ap.add_argument("--shape", default=None,
+                    help="a named shape of launch.shapes.SHAPES (train_4k): sets --seq-len and --global-batch")
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=50)
@@ -47,12 +50,16 @@ def main(argv=None) -> None:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.device import resolve_device
     from repro_torch.launch.profiling import profile_run
+    from repro_torch.launch.shapes import SHAPES
     from repro_torch.runtime import GeoTrainer, TrainerConfig
 
     device = resolve_device(args.device)
     if args.profile and device.type != "cuda":
         raise ValueError("--profile traces the card: use --device cuda")
     cfg = get_config(args.arch) if args.full_config else get_smoke_config(args.arch)
+    if args.shape is not None:
+        spec = SHAPES[args.shape]
+        args.seq_len, args.global_batch = spec.seq_len, spec.global_batch
     trainer = GeoTrainer(
         cfg,
         trainer_cfg=TrainerConfig(

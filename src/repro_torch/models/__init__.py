@@ -1,4 +1,5 @@
-"""Model stack of the port: the attention and RWKV6 layer kinds, for serving and training (RWKV6 serves only)."""
+"""Model stack of the port: the attention and RWKV6 layer kinds, for serving and training (RWKV6 serves only);
+the parameters and decode state of every arch, MoE and RG-LRU included."""
 
 from .config import ATTN, LOCAL, RECURRENT, RWKV, ModelConfig, MoEConfig
 from .lm import DecoderLM

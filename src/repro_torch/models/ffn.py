@@ -1,8 +1,9 @@
 """Feed-forward blocks: the dense FFN (GELU / SwiGLU / GeGLU / relu²).
 
-Port of ``repro.models.ffn``'s dense half.  The large products stay
-``torch.matmul``, as the JAX package leaves them to XLA.  Mixture-of-experts
-is not ported yet (ROADMAP queue 1, item 11).
+Port of ``repro.models.ffn``'s dense half and of the mixture-of-experts
+init (:func:`init_moe`, leaf for leaf).  The large products stay
+``torch.matmul``, as the JAX package leaves them to XLA.  The MoE forward is
+not ported yet (ROADMAP queue 1, item 11): :func:`moe_ffn` raises.
 """
 
 from __future__ import annotations
@@ -71,8 +72,23 @@ def dense_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
     return y
 
 
-def init_moe(cfg: ModelConfig, **_):
-    raise NotImplementedError(MOE_NOT_PORTED)
+def init_moe(cfg: ModelConfig, *, generator: Optional[torch.Generator], device: torch.device) -> Params:
+    """The router (float32 ``[d, E]``), the stacked experts ``[E, d, f]`` /
+    ``[E, f, d]`` (``w_gate`` too under a GLU activation) and, for Arctic's
+    ``parallel_dense``, a dense FFN beside them."""
+    assert cfg.moe is not None
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    kw = dict(dtype=torch_dtype(cfg.param_dtype), generator=generator, device=device)
+    params: Params = {
+        "router": dense_init((d, e), dtype=torch.float32, generator=generator, device=device),
+        "w_up": dense_init((e, d, f), in_axis_size=d, **kw),
+        "w_down": dense_init((e, f, d), in_axis_size=f, **kw),
+    }
+    if cfg.activation in ("swiglu", "geglu"):
+        params["w_gate"] = dense_init((e, d, f), in_axis_size=d, **kw)
+    if cfg.moe.parallel_dense:
+        params["dense"] = init_dense_ffn(cfg, generator=generator, device=device)
+    return params
 
 
 def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig):

@@ -25,7 +25,11 @@ RWKV6 layers (rwkv6-7b) serve: prefill and decode run the WKV recurrence
 in the hand-written kernel (:mod:`repro_torch.kernels.rwkv6_wkv`), and
 decode updates their state in place.  Their training waits for a WKV
 backward kernel (ROADMAP queue 1, item 13): a gradient through them raises.
-Recurrent (RG-LRU) layers are not ported yet (ROADMAP queue 1, item 12).
+Recurrent (RG-LRU) layers and mixture-of-experts FFNs have their
+parameters and decode state (:func:`init_params`, :func:`init_decode_cache`,
+so the sizing hooks of :mod:`repro_torch.launch.shapes` cover every arch),
+but a pass through them raises: RG-LRU waits for ROADMAP queue 1, item 12,
+MoE for item 11.
 """
 
 from __future__ import annotations
@@ -41,20 +45,18 @@ from .attention import attention_decode, attention_forward, init_attention, init
 from .config import ATTN, LOCAL, RECURRENT, RWKV, ModelConfig
 from .ffn import dense_ffn, init_dense_ffn, init_moe, moe_ffn
 from .layers import apply_norm, dense_init, embed_init, init_norm, softcap
+from .rglru import RGLRU_NOT_PORTED, init_rglru_block, init_rglru_state
 from .rwkv6 import channel_mix, init_rwkv_block, init_rwkv_state, time_mix
 
 Params = Dict[str, Any]
 
 IGNORE_LABEL = -100
 
-_NOT_PORTED = {
-    RECURRENT: "RG-LRU recurrent layers are not ported yet (ROADMAP queue 1, item 12)",
-}
-
 
 def _check_kind(kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind])
+    """The layer kinds a pass (forward, prefill, decode) can run."""
+    if kind == RECURRENT:
+        raise NotImplementedError(RGLRU_NOT_PORTED)
     if kind not in (ATTN, LOCAL, RWKV):
         raise ValueError(kind)
 
@@ -63,17 +65,21 @@ def _check_kind(kind: str) -> None:
 
 
 def _init_layer(kind: str, cfg: ModelConfig, generator, device) -> Params:
-    _check_kind(kind)
     kw = dict(generator=generator, device=device)
     params: Params = {"norm1": init_norm(cfg, device=device), "norm2": init_norm(cfg, device=device)}
-    if kind == RWKV:
-        params["rwkv"] = init_rwkv_block(cfg, **kw)
-        return params
-    params["attn"] = init_attention(cfg, **kw)
-    if cfg.moe is not None and kind == ATTN:
-        params["ffn"] = init_moe(cfg, **kw)
-    else:
+    if kind in (ATTN, LOCAL):
+        params["attn"] = init_attention(cfg, **kw)
+        if cfg.moe is not None and kind == ATTN:
+            params["ffn"] = init_moe(cfg, **kw)
+        else:
+            params["ffn"] = init_dense_ffn(cfg, **kw)
+    elif kind == RECURRENT:
+        params["rec"] = init_rglru_block(cfg, **kw)
         params["ffn"] = init_dense_ffn(cfg, **kw)
+    elif kind == RWKV:
+        params["rwkv"] = init_rwkv_block(cfg, **kw)
+    else:
+        raise ValueError(kind)
     return params
 
 
@@ -318,10 +324,13 @@ def init_decode_cache(
     device = resolve_device(device)
 
     def one(kind: str):
-        _check_kind(kind)
+        if kind in (ATTN, LOCAL):
+            return init_cache(cfg, batch, max_len, window=_layer_window(kind, cfg), device=device)
+        if kind == RECURRENT:
+            return init_rglru_state(cfg, batch, device=device)
         if kind == RWKV:
             return init_rwkv_state(cfg, batch, device=device)
-        return init_cache(cfg, batch, max_len, window=_layer_window(kind, cfg), device=device)
+        raise ValueError(kind)
 
     cache: Params = {}
     if cfg.num_groups > 0:

@@ -19,8 +19,15 @@ step's sync (``GeoFabric.sync_cost``, the numpy cost model of
   plan priced when a pod is declared dead;
 * a straggler monitor fed each step's time per pod.
 
-The scenario path of the JAX trainer (a declarative ``Scenario`` with its
-event script) is not ported yet (ROADMAP queue 1, item 9).
+``scenario=`` takes a declarative :class:`~repro_torch.scenario.Scenario`
+instead of ``geo``: the spec builds the emulated deployment, its workload's
+strategy, channel count and steps override the ``TrainerConfig`` (when the
+workload names a strategy), its options price the sync (jitter off), and
+its event script (link flaps, brownouts, tenant churn) is replayed through
+the scenario runner at step boundaries, before the step's batch and outside
+its timed window.  Straggler events scale modelled compute only, so the
+trainer, which measures its compute, skips them.  The pod count stays
+``TrainerConfig.npods``.
 """
 
 from __future__ import annotations
@@ -69,12 +76,31 @@ class GeoTrainer:
         trainer_cfg: TrainerConfig,
         checkpoint_dir: str,
         geo: Optional[GeoFabric] = None,
+        scenario=None,
         device: DeviceLike = "cuda",
     ):
         self.cfg = cfg
-        self.tc = tc = trainer_cfg
+        self.tc = trainer_cfg
         self.device = resolve_device(device)
         self.sync_options = SyncOptions(jitter=False)
+        self.scenario = scenario
+        if scenario is not None:
+            # the spec supplies the deployment, the strategy and cadence, the
+            # step budget and the costing options; the fields the trainer
+            # measures for real (compute_seconds, overlap_fraction,
+            # grad_bytes, model) and the batch shape, optimiser and
+            # checkpoint cadence of trainer_cfg are not taken from it
+            if geo is not None:
+                raise ValueError("pass scenario or geo, not both")
+            geo = scenario.topology.build()
+            wl = scenario.workload
+            if wl.strategy is not None:
+                # the spec is authoritative, including an explicit steps=1
+                self.tc = dataclasses.replace(
+                    self.tc, strategy=wl.strategy, num_channels=scenario.topology.num_channels, steps=wl.steps,
+                )
+            self.sync_options = dataclasses.replace(scenario.options, jitter=False)
+        tc = self.tc
         # one pod stands for a mesh without a pod axis, which the JAX trainer prices as 2
         self.geo = geo or GeoFabric(num_pods=tc.npods if tc.npods > 1 else 2)
         self.store = CheckpointStore(checkpoint_dir, keep=tc.checkpoint_keep)
@@ -89,6 +115,7 @@ class GeoTrainer:
         )
         self.grad_bytes = sum(t.numel() * 4 for t in tree_leaves(init_params(cfg, device="meta")))
         self.metrics_log: List[Dict[str, float]] = []
+        self.event_s: List[Dict[str, Any]] = []  # host seconds each replayed scenario event took
         self.params: Any = None
         self.state: Any = None
 
@@ -139,6 +166,16 @@ class GeoTrainer:
         last_ckpt = start
         wan_cost = self.geo.sync_cost(tc.strategy, self.grad_bytes, options=self.sync_options)
         recovery_drills = []
+        # the scenario's event script, replayed at step boundaries
+        events_by_step: Dict[int, list] = {}
+        scenario_rollup = None
+        if self.scenario is not None and self.scenario.events:
+            from ..scenario.runner import ScenarioResult, apply_event
+
+            scenario_rollup = ScenarioResult(scenario=self.scenario, steps=[], sync=None, geo=self.geo)
+            for ev in self.scenario.events:
+                if ev.kind != "straggler":
+                    events_by_step.setdefault(ev.at_step, []).append(ev)
         t_step_ewma = None
         # simulated heartbeat clock: one beat interval per training step, so
         # detection semantics are step-count-based (detect_mult missed
@@ -146,6 +183,10 @@ class GeoTrainer:
         interval_ms = next(iter(self.heartbeats.workers.values())).session.interval_ms
         sim_ms = 0.0
         for step in range(start, tc.steps):
+            for ev in events_by_step.get(step, ()):
+                t0 = time.perf_counter()
+                apply_event(ev, self.geo, scenario_rollup, {})
+                self.event_s.append({"step": step, "kind": ev.kind, "s": time.perf_counter() - t0})
             batch = self.next_batch()
             self._sync()
             t0 = time.perf_counter()
@@ -205,4 +246,8 @@ class GeoTrainer:
             "sync_efficiency": self.stragglers.sync_efficiency(),
             "last_checkpoint": last_ckpt,
             "wan_phases": {p.name: p.duration_s for p in wan_cost.phases},
+            "scenario_recoveries": [
+                {"mechanism": t.mechanism, "recovery_ms": t.recovery_ms} for t in scenario_rollup.recoveries
+            ] if scenario_rollup is not None else [],
+            "scenario_evpn_resyncs": len(scenario_rollup.evpn_resyncs) if scenario_rollup is not None else 0,
         }

@@ -520,3 +520,64 @@ def _tree(tree, fn):
     if isinstance(tree, list):
         return [_tree(v, fn) for v in tree]
     return fn(tree)
+
+
+def test_smoke_scenario_trainer_on_the_card_equals_the_run_without_events(cuda, tmp_path):
+    """The scenario path at smoke size on the card: train_geo's spec with a
+    link flap and a brownout, 2 pods under hier_int8; the events touch the
+    modelled fabric only, so the losses equal a run of the same spec without
+    them (rtol 1e-6: every kernel on the path is deterministic)."""
+    from repro_torch.examples.train_geo import build_trainer, geo_scenario
+    from repro_torch.scenario import ScenarioEvent
+
+    cfg = get_smoke_config("distilgpt2-82m")
+    tc = TrainerConfig(seq_len=64, global_batch=4, steps=100, log_every=100)
+    events = (
+        ScenarioEvent(kind="fail_link", at_step=1, link=("d1s1", "d2s1")),
+        ScenarioEvent(kind="degrade_pair", at_step=1, pair=(1, 2), bandwidth_fraction=0.25),
+        ScenarioEvent(kind="restore_link", at_step=2, link=("d1s1", "d2s1")),
+        ScenarioEvent(kind="restore_degradation", at_step=3, pair=(1, 2)),
+    )
+    runs = {}
+    for name, evs in (("events", events), ("none", ())):
+        trainer = build_trainer(cfg, geo_scenario("hier_int8", 4, events=evs), tc,
+                                checkpoint_dir=str(tmp_path / name), device=cuda)
+        assert trainer.tc.npods == 2 and trainer.tc.steps == 4
+        runs[name] = (trainer.run(), trainer)
+    result, trainer = runs["events"]
+    assert [t["mechanism"] for t in result["scenario_recoveries"]] == ["bfd"]
+    assert result["scenario_evpn_resyncs"] == 2
+    assert trainer.geo.fabric.link_up("d1s1", "d2s1")
+    np.testing.assert_allclose([r["loss"] for r in result["metrics"]],
+                               [r["loss"] for r in runs["none"][0]["metrics"]], rtol=1e-6, atol=0)
+
+
+def test_request_batch_on_the_card(cuda):
+    from repro_torch.serving import Request, request_batch
+
+    cfg = get_smoke_config("distilgpt2-82m")
+    req = Request(rid=108, step=13, home_dc=1, user=0, tokens=102)
+    batch = request_batch(cfg, req, device=cuda)
+    assert batch["tokens"].device.type == "cuda" and batch["tokens"].dtype == torch.int32
+    assert tuple(batch["tokens"].shape) == (1, 102)
+    assert torch.equal(batch["tokens"], request_batch(cfg, req, device=cuda)["tokens"])
+
+
+def test_serve_geo_ragged_prefill_card_matches_cpu(cuda):
+    """A traced request of serving_under_flap's peak step (276 tokens, no
+    multiple of the kernel's tiles) prefilled at full width, cut to 2
+    layers: one flash launch a layer on wgmma, bf16 logits against the CPU
+    at 5e-2."""
+    from repro_torch.serving import Request, request_batch
+
+    cfg = dataclasses.replace(get_config("distilgpt2-82m"), num_layers=2)
+    params = init_params(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    req = Request(rid=109, step=13, home_dc=1, user=0, tokens=276)
+    batch = request_batch(cfg, req, device=cuda)
+    before = ROUTE_LAUNCHES["wgmma"]
+    g_logits, _ = prefill(params, batch, cfg, max_len=req.tokens + 8)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES["wgmma"] == before + cfg.num_layers
+    c_logits, _ = prefill(_tree(params, lambda t: t.cpu()), _tree(batch, lambda t: t.cpu()), cfg,
+                          max_len=req.tokens + 8)
+    torch.testing.assert_close(g_logits.float().cpu(), c_logits.float(), rtol=5e-2, atol=5e-2)

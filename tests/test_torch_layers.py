@@ -161,14 +161,18 @@ def test_init_std_matches_jax():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "recurrentgemma-9b", "rwkv6-7b"])
 def test_unported_layers_raise(arch):
-    """MoE and RG-LRU layers are not ported; RWKV6 layers serve, and a
-    gradient through them (training) raises."""
+    """MoE and RG-LRU layers have their parameters, but a pass through them
+    raises; RWKV6 layers serve, and a gradient through them (training)
+    raises."""
+    from repro_torch.models import loss_fn
+
     cfg = get_smoke_config(arch)
     if arch != "rwkv6-7b":
+        params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        tokens = torch.zeros((1, 5), dtype=torch.long)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(cfg, device="meta")
+            loss_fn(params, {"tokens": tokens, "labels": tokens}, cfg)
         return
-    from repro_torch.models import loss_fn
 
     params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     for leaf in jax.tree.leaves(params):

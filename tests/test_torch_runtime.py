@@ -210,7 +210,7 @@ def test_two_pod_drill_declares_pod1_dead_after_detect_mult_steps(tmp_path):
     assert plan["restore_s"] == pytest.approx(trainer.grad_bytes * 3 * 8 / 10e9)
     assert trainer.heartbeats.alive() == ["pod0"]
     assert set(result) == {"final_loss", "metrics", "recovery_drills", "sync_efficiency",
-                           "last_checkpoint", "wan_phases"}
+                           "last_checkpoint", "wan_phases", "scenario_recoveries", "scenario_evpn_resyncs"}
 
 
 def test_trainer_prices_one_pod_as_two_dcs(tmp_path):

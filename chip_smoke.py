@@ -30,12 +30,27 @@ Phases, each printing one JSON line on stdout:
    the outer step), each with its WAN bytes held to their analytic values,
    12 + 12 flash launches a step on ``wgmma`` and no ``wan_quant``, and its
    own step on the card against the CPU (for local_sgd an outer step).
+   ``train_group``: the pod axis as a process group: 2 ranks on the card,
+   one gloo group, each running ``GeoTrainer`` on a ``"pod"`` DeviceMesh
+   at full width with its 8 x 1024 rows of the global batch: ``hier_int8``
+   for the ``train`` phase's 12 steps, ``allreduce``, ``hier`` and ``ps``
+   for 3, ``local_sgd`` for 8 (its outer step at step 7), the WAN
+   strategies as real collectives.  Each rank's losses must equal the
+   one-process losses bit for bit (``train``, ``train_ps``,
+   ``train_local_sgd``, and 3-step one-process runs of ``allreduce`` and
+   ``hier`` made in this phase), every flash launch take ``wgmma``
+   (``wan_quant`` and ``wan_dequant`` 19 a step a rank under
+   ``hier_int8``), parameters and state stay on the card, and the bytes
+   the ranks handed to the collectives give each strategy's analytic WAN
+   bytes on every step.  Per rank: the losses, step and collective
+   milliseconds, counted bytes, launches and routes.
    ``train_scenario``: the scenario path, a ``repro_torch.scenario.Scenario``
    (``repro_torch.examples.train_geo``'s spec: 2 DCs, ``hier_int8``, 12
    steps) whose event script (a BFD-detected link flap at steps 3-6, a
    brownout of the DC pair at steps 4-8) is replayed at step boundaries,
-   through the trainer ``train_geo`` builds, with the ``train`` phase's
-   configuration: its losses must equal ``train``'s (rtol 1e-6), with one
+   through ``GeoTrainer(scenario=...)``, whose pod count the spec gives,
+   with the ``train`` phase's configuration: its losses must equal
+   ``train``'s (rtol 1e-6), with one
    ``bfd`` recovery, 2 EVPN resyncs and the link up at the end; then the
    paper's Fig. 14 step modelled with this card's median step as compute.
    ``serve_geo``: ``serving_under_flap`` on the host, its metrics held to
@@ -816,26 +831,17 @@ def ckpt_dir(name):
 
 def train_main_path(torch, strategy, directory, *, steps=STEPS, inject_failure_at=None, scenario=None, **tc_more):
     """GeoTrainer at full width on 2 pods, the counts zeroed just before and
-    read just after; with ``scenario``, built as ``repro_torch.examples.train_geo``
-    builds it.  Returns (trainer, result, launches, fwd routes, bwd routes,
-    peak bytes)."""
+    read just after; ``scenario`` (a spec of 2 DCs) goes to the trainer,
+    whose pod count it then also gives.  Returns (trainer, result,
+    launches, fwd routes, bwd routes, peak bytes)."""
     from repro_torch.configs import get_config
-    from repro_torch.examples.train_geo import build_trainer
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.runtime import GeoTrainer, TrainerConfig
+    from repro_torch.runtime import GeoTrainer
 
     cfg = get_config("distilgpt2-82m")
-    opt = AdamWConfig(lr=1e-3, warmup_steps=WARMUP, total_steps=STEPS)
-    tc = TrainerConfig(
-        seq_len=SEQ_TRAIN, global_batch=B_TRAIN, steps=steps, strategy=strategy,
-        npods=NPODS, log_every=steps, seed=0, opt=opt, **tc_more,
-    )
-    if scenario is None:
-        trainer = GeoTrainer(cfg, device="cuda", checkpoint_dir=str(directory), trainer_cfg=tc)
-    else:
-        trainer = build_trainer(cfg, scenario, tc, checkpoint_dir=str(directory), device="cuda")
+    trainer = GeoTrainer(cfg, device="cuda", checkpoint_dir=str(directory), scenario=scenario,
+                         trainer_cfg=train_config(strategy, steps, npods=NPODS, **tc_more))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
@@ -844,6 +850,16 @@ def train_main_path(torch, strategy, directory, *, steps=STEPS, inject_failure_a
     result = trainer.run(inject_failure_at=inject_failure_at)
     launches, routes, bwd_routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES), dict(BWD_ROUTE_LAUNCHES)
     return trainer, result, launches, routes, bwd_routes, torch.cuda.max_memory_allocated()
+
+
+def train_config(strategy, steps, **more):
+    """The train phases' TrainerConfig: global 16 x 1024, AdamW warm-up 2 of STEPS."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainerConfig
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=WARMUP, total_steps=STEPS)
+    return TrainerConfig(seq_len=SEQ_TRAIN, global_batch=B_TRAIN, steps=steps, strategy=strategy,
+                         log_every=steps, seed=0, opt=opt, **more)
 
 
 def check_train_launches(label, cfg, launches, routes, bwd_routes, n_leaves, steps, quant):
@@ -1032,7 +1048,166 @@ def phase_train_strategy(torch, strategy):
         "bwd_routes_main_path": bwd_routes,
         "card_vs_cpu": card_vs_cpu_step(torch, cfg, strategy),
     })
-    return launches
+    return launches, losses
+
+
+# train_group: each strategy's steps on 2 ranks; hier_int8 runs the train
+# phase's 12, ps 3 and local_sgd 8 (H = 8: step 7 is its outer step), each
+# held to its one-process phase's first losses; allreduce and hier 3, held
+# to a one-process run of 3 steps made in this phase
+GROUP_STEPS = {"hier_int8": STEPS, "allreduce": 3, "hier": 3, "ps": 3, "local_sgd": 8}
+GROUP_TIMEOUT_S = 420  # the whole spawn; a collective waits at most 60 s
+
+
+def train_group_rank(rank, plan):
+    """One pod's rank of train_group: GeoTrainer on the 2-rank pod mesh,
+    each strategy with the counts zeroed just before its run and read just
+    after.  Returns per strategy the rows, the launches and routes, the
+    collectives' counts of the last step, the parameters' devices and the
+    peak memory."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import GeoTrainer
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("distilgpt2-82m")
+    mesh = make_host_mesh(pods=NPODS, device="cuda")
+    out = {"device": torch.cuda.get_device_name(torch.cuda.current_device()), "strategies": {}}
+    for strategy, steps in plan:
+        directory = ROOT / "build" / "chip_smoke_checkpoints" / f"train_group_{strategy}"
+        trainer = GeoTrainer(cfg, mesh, device="cuda", checkpoint_dir=str(directory),
+                             trainer_cfg=train_config(strategy, steps))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        ROUTE_LAUNCHES.clear()
+        BWD_ROUTE_LAUNCHES.clear()
+        result = trainer.run()
+        group = trainer.step_fn.group
+        out["strategies"][strategy] = {
+            "rows": result["metrics"], "launches": dict(LAUNCHES), "routes": dict(ROUTE_LAUNCHES),
+            "bwd_routes": dict(BWD_ROUTE_LAUNCHES), "last_step_handed": dict(group.handed),
+            "last_step_calls": dict(group.calls), "last_step_seconds": dict(group.seconds),
+            "devices": sorted({t.device.type for t in tree_leaves((trainer.params, trainer.state))}),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "last_checkpoint": result["last_checkpoint"],
+            "sync_efficiency": result["sync_efficiency"],
+        }
+        del trainer
+        torch.cuda.empty_cache()
+        if rank == 0:
+            shutil.rmtree(directory, ignore_errors=True)
+    return out
+
+
+def int8_payload_bytes(shapes) -> int:
+    """One pod's hier_int8 payload: each leaf's rows of int8 lanes padded to
+    256 and a float32 scale a 256-lane block (a 0-d leaf is one lane)."""
+    total = 0
+    for shp in shapes:
+        cols = shp[-1] if shp else 1
+        rows, blocks = math.prod(shp) // cols, -(-cols // 256)
+        total += rows * blocks * (256 + 4)
+    return total
+
+
+def phase_train_group(torch, one_process_losses, train_step_ms):
+    """The training path with the pod axis as a process group: 2 ranks
+    share the card over gloo, each running GeoTrainer at full width on its
+    8 x 1024 rows of the 16 x 1024 global batch; the WAN strategies run as
+    collectives between them.  Every rank's losses must equal the
+    one-process losses bit for bit, every flash launch take wgmma, every
+    leaf's parameters live on the card, and the counted WAN bytes equal
+    the strategy's analytic bytes on every step."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spawn
+    from repro_torch.models import init_params
+    from repro_torch.optim import DilocoConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("distilgpt2-82m")
+    sync_every = DilocoConfig().sync_every
+    shapes = [tuple(t.shape) for t in tree_leaves(init_params(cfg, device="meta"))]
+    values = sum(math.prod(shp) for shp in shapes)
+    analytic = {
+        "allreduce": 2 * (NPODS - 1) * 4 * values // NPODS, "hier": 2 * (NPODS - 1) * 4 * values // NPODS,
+        "hier_int8": (NPODS - 1) * int8_payload_bytes(shapes), "ps": 2 * 4 * values,
+        "local_sgd": 2 * (NPODS - 1) * 4 * values // NPODS,
+    }
+    want_losses = dict(one_process_losses)
+    for strategy in ("allreduce", "hier"):  # one-process references of the same steps, made here
+        directory = ckpt_dir(f"train_group_{strategy}_one_process")
+        trainer, result, *_ = train_main_path(torch, strategy, directory, steps=GROUP_STEPS[strategy])
+        want_losses[strategy] = [r["loss"] for r in result["metrics"]]
+        del trainer
+        shutil.rmtree(directory)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(train_group_rank, NPODS, list(GROUP_STEPS.items()), device="cuda", join_timeout_s=GROUP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    summary = {}
+    for strategy, steps in GROUP_STEPS.items():
+        per_rank = []
+        for r, rank in enumerate(ranks):
+            got = rank["strategies"][strategy]
+            rows = got["rows"]
+            label = f"train_group {strategy} rank {r}"
+            losses = [row["loss"] for row in rows]
+            if losses != want_losses[strategy][:steps]:
+                raise AssertionError(f"{label}: losses {losses} vs one-process {want_losses[strategy][:steps]}")
+            if got["devices"] != ["cuda"]:
+                raise AssertionError(f"{label}: parameters and state on {got['devices']}")
+            per_step = {"flash_attention_fwd": cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
+            if strategy == "hier_int8":
+                per_step.update(wan_quant=len(shapes), wan_dequant=len(shapes))
+            expected = {k: steps * n for k, n in per_step.items()}
+            if got["launches"] != expected or got["routes"] != {"wgmma": expected["flash_attention_fwd"]} \
+                    or got["bwd_routes"] != {"wgmma": expected["flash_attention_bwd"]}:
+                raise AssertionError(f"{label}: launches {got['launches']}, routes {got['routes']} / "
+                                     f"{got['bwd_routes']}; expected {expected}, all on wgmma")
+            wan = [row["wan_bytes"] for row in rows]
+            if strategy == "local_sgd":
+                want_wan = [analytic[strategy] if (i + 1) % sync_every == 0 else 0 for i in range(steps)]
+            else:
+                want_wan = [analytic[strategy]] * steps
+            if wan != want_wan:
+                raise AssertionError(f"{label}: counted WAN bytes {wan}, analytic {want_wan}")
+            timed = rows[WARMUP:] if steps > WARMUP + 1 else rows[1:]
+            per_rank.append({
+                "losses": losses, "step_ms": [row["step_s"] * 1e3 for row in rows],
+                "step_ms_median": statistics.median(row["step_s"] * 1e3 for row in timed),
+                "collective_ms": [row["collective_s"] * 1e3 for row in rows],
+                "collective_ms_median": statistics.median(row["collective_s"] * 1e3 for row in timed),
+                "wan_bytes": wan, "launches": got["launches"], "fwd_routes": got["routes"],
+                "bwd_routes": got["bwd_routes"], "last_step_handed_bytes": got["last_step_handed"],
+                "last_step_collective_calls": got["last_step_calls"],
+                "last_step_collective_s": got["last_step_seconds"],
+                "peak_memory_bytes": got["peak_memory_bytes"], "device": rank["device"],
+                "sync_efficiency": got["sync_efficiency"],
+            })
+        summary[strategy] = {"steps": steps, "analytic_wan_bytes": analytic[strategy],
+                             "losses_equal_one_process_bitwise": True, "ranks": per_rank}
+    emit({
+        "phase": "train_group", "arch": cfg.name, "dtype": cfg.dtype, "ranks": NPODS, "backend": "gloo",
+        "global_batch": B_TRAIN, "seq_len": SEQ_TRAIN, "rows_per_rank": B_TRAIN // NPODS,
+        "warmup_steps_untimed": WARMUP, "spawn_s": spawn_s,
+        "train_step_ms_median_one_process_same_run": train_step_ms,
+        "step_ms_is": "each rank's host clock around its step, ending in torch.cuda.synchronize()",
+        "collective_ms_is": "each rank's host seconds inside gloo's all_reduce/all_gather/broadcast, "
+                            "the device synchronised before and after each",
+        "strategies": summary,
+    })
+    return {s: [r["launches"] for r in v["ranks"]] for s, v in summary.items()}
 
 
 # train_scenario's event script: a BFD-detected flap of one WAN link and a
@@ -1280,11 +1455,14 @@ def main() -> int:
     wkv = phase_kernels_wkv(torch)
     serve = phase_serve(torch)
     train, train_losses, train_step_ms = phase_train(torch)
-    trains = {}
+    trains, one_process_losses = {}, {"hier_int8": train_losses}
     for strategy in ("ps", "local_sgd"):
         gc.collect()
         torch.cuda.empty_cache()
-        trains[strategy] = phase_train_strategy(torch, strategy)
+        trains[strategy], one_process_losses[strategy] = phase_train_strategy(torch, strategy)
+    gc.collect()
+    torch.cuda.empty_cache()
+    group = phase_train_group(torch, one_process_losses, train_step_ms)
     gc.collect()
     torch.cuda.empty_cache()
     scenario = phase_train_scenario(torch, train_losses, train_step_ms)
@@ -1308,7 +1486,9 @@ def main() -> int:
             "library_ms": check["library_ms"], "library_call_ms": check.get("library_call_ms"),
             "launches_train_ps": trains["ps"].get(name, 0), "launches_train_local_sgd": trains["local_sgd"].get(name, 0),
             "launches_checkpoint": ckpt.get(name, 0), "launches_train_scenario": scenario.get(name, 0),
-            "launches_serve_geo": serve_geo.get(name, 0), **more,
+            "launches_serve_geo": serve_geo.get(name, 0),
+            "launches_train_group_per_rank": {s: [r.get(name, 0) for r in ranks] for s, ranks in group.items()},
+            **more,
         }
 
     wan_err = {

@@ -1,13 +1,21 @@
-"""Cross-pod (inter-data-center) gradient synchronisation on one device.
+"""Cross-pod (inter-data-center) gradient synchronisation.
 
 Port of ``repro.distributed.sync``.  The JAX functions run inside
-``shard_map`` with a manual ``"pod"`` axis; one H100 cannot hold a process
-per pod, so here the pod axis is the LEADING dimension of every gradient
-leaf, ``[npods, ...]``: a ``psum`` over pods becomes a sum over that
-dimension, and the all-gather of the int8 payloads is the stacked tensor
-itself.  Each function computes what its JAX counterpart computes under
-``jax.vmap(..., axis_name="pod")``; the synced gradient, identical on every
-pod there, is returned once.
+``shard_map`` with a manual ``"pod"`` axis.  The port has two forms of
+each strategy:
+
+* stacked, in one process: the pod axis is the LEADING dimension of every
+  gradient leaf, ``[npods, ...]``; a ``psum`` over pods becomes a sum over
+  that dimension, and the all-gather of the int8 payloads is the stacked
+  tensor itself.  Each function computes what its JAX counterpart
+  computes under ``jax.vmap(..., axis_name="pod")``; the synced gradient,
+  identical on every pod there, is returned once;
+* group (``*_group``), one rank per pod: each rank holds its own leaves,
+  as the JAX function sees them inside its ``"pod"`` shard, and the
+  strategy runs as collectives of a
+  :class:`~repro_torch.distributed.pod_group.PodGroup`.  Sums over
+  gathered payloads run in rank order, as the stacked forms sum over
+  their leading dimension.
 
 * ``allreduce``  -- flat mean over pods (the paper's M2 / DDP setting);
 * ``hier``       -- the same bytes, each leaf split along its leading dim
@@ -27,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from .compression import (
+    Int8Compressed,
     apply_error_feedback,
     compressed_bytes,
     int8_compress,
@@ -110,6 +119,88 @@ def sync_hier_int8(grads, ef):
     transmitted = tree_map(one, boosted)
     synced = tree_map(lambda d: d.sum(0) / d.shape[0], transmitted)
     return synced, residual(boosted, transmitted), payload
+
+
+# -- group forms: one rank per pod --------------------------------------------------
+
+
+def sync_allreduce_group(grads, group):
+    """Flat cross-pod mean: one ``all_reduce`` SUM per leaf, then / n."""
+    return tree_map(lambda g: group.all_reduce(g.to(torch.float32, copy=True)) / group.size, grads)
+
+
+def sync_ps_group(grads, group):
+    """The parameter server's average of the pushed float32 gradients: the
+    ``all_gather`` of each leaf (the push), summed in rank order / n."""
+    return tree_map(lambda g: group.all_gather(g.float()).sum(0) / group.size, grads)
+
+
+def pull_params_group(params, group):
+    """The pull: rank 0's parameters on every pod, broadcast as float32."""
+
+    def one(p):
+        return group.broadcast(p.to(torch.float32, copy=True)).to(p.dtype)
+
+    return tree_map(one, params)
+
+
+def sync_hier_group(grads, group, *, num_channels: int = 4):
+    """Channel-striped cross-pod mean: a leaf with a leading dim >= 2 is
+    reduced by one ``all_reduce`` per slice of that dim (§3.3 striping),
+    in place in one float32 buffer."""
+
+    def one(g):
+        g = g.to(torch.float32, copy=True)
+        if g.dim() == 0 or g.shape[0] < 2:
+            return group.all_reduce(g) / group.size
+        for s, size in _chunk_bounds(g.shape[0], num_channels):
+            group.all_reduce(g[s : s + size])
+        return g / group.size
+
+    return tree_map(one, grads)
+
+
+def sync_hier_int8_group(grads, ef, group):
+    """int8 + error feedback on the WAN hop, one rank per pod.
+
+    g' = g + ef; ``wan_quant`` of the rank's own leaf; ``all_gather`` of
+    its int8 payload and of its float32 scales; one ``wan_dequant`` launch
+    over all the gathered payloads of the leaf; their sum in rank order,
+    / n; the new ef is g' minus the rank's own dequantised payload.
+    Returns (synced grads, new ef)."""
+    boosted = apply_error_feedback(grads, ef)
+    n, rank = group.size, group.rank
+
+    def one(g):
+        c = int8_compress(g)
+        gathered = Int8Compressed(
+            values=group.all_gather(c.values), scales=group.all_gather(c.scales),
+            orig_last=c.orig_last, orig_shape=(n, *c.orig_shape),
+        )
+        deq = int8_decompress(gathered)
+        return deq.sum(0) / n, deq[rank]
+
+    out = tree_map(one, boosted)
+    synced = tree_map(lambda _, pair: pair[0], boosted, out)
+    transmitted = tree_map(lambda _, pair: pair[1], boosted, out)
+    return synced, residual(boosted, transmitted)
+
+
+def group_wan_bytes(strategy: str, handed, npods: int) -> int:
+    """The WAN bytes each pod sends this step under ``strategy``, from the
+    bytes handed to each collective (``PodGroup.handed``): a ring
+    all-reduce sends 2 (n - 1) / n of what it is handed; the int8 payload
+    goes to each of the n - 1 other pods; the parameter server's push is
+    the pod's gradients once and its pull the parameters once.  These
+    equal :func:`full_precision_bytes`, the stacked ``hier_int8`` payload
+    and :func:`ps_bytes` of the same leaves."""
+    if strategy in ("allreduce", "hier", "local_sgd"):
+        return int(2 * (npods - 1) * handed["all_reduce"] // npods)
+    if strategy == "hier_int8":
+        return int((npods - 1) * handed["all_gather"])
+    if strategy == "ps":
+        return int(handed["all_gather"] + handed["broadcast"])
+    raise ValueError(strategy)
 
 
 def full_precision_bytes(grads) -> int:

@@ -9,9 +9,11 @@ training curve.
 
 The experiment is one declarative ``repro_torch.scenario.Scenario``
 (topology + workload + costing options) handed to the trainer; the CLI
-flags are spec edits.  Default is a few hundred steps of the reduced
-config; ``--paper-scale`` trains the real 82M model.  It runs on the card
-(``--device cuda``, the default) or, when asked, on the CPU.
+flags are spec edits.  The spec's ``topology.num_pods`` is the pod count:
+one rank per DC, each a process of one gloo group, with the WAN strategy
+as real collectives between them.  Default is a few hundred steps of the
+reduced config; ``--paper-scale`` trains the real 82M model.  It runs on
+the card (``--device cuda``, the default) or, when asked, on the CPU.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.train_geo --steps 200
       PYTHONPATH=src python -m repro_torch.examples.train_geo --paper-scale --steps 30
@@ -23,7 +25,6 @@ Run:  PYTHONPATH=src python -m repro_torch.examples.train_geo --steps 200
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import tempfile
 
 from ..core.schedule import SYNC_STRATEGIES
@@ -43,18 +44,29 @@ def geo_scenario(strategy: str, steps: int, *, pods: int = 2, events=()) -> Scen
     )
 
 
-def build_trainer(cfg, scenario: Scenario, trainer_cfg, *, checkpoint_dir: str, device="cuda"):
-    """A :class:`~repro_torch.runtime.GeoTrainer` driven by ``scenario``,
-    one emulated pod per DC of the spec."""
-    from ..runtime import GeoTrainer
+def group_rank(rank: int, args, scenario: Scenario):
+    """One DC's rank: the trainer on a pod mesh of the spec's DCs."""
+    from ..configs import get_config, get_smoke_config
+    from ..launch.mesh import make_host_mesh
+    from ..optim import AdamWConfig
+    from ..runtime import GeoTrainer, TrainerConfig
 
-    return GeoTrainer(
-        cfg,
-        trainer_cfg=dataclasses.replace(trainer_cfg, npods=scenario.topology.num_pods),
-        checkpoint_dir=checkpoint_dir,
+    mesh = make_host_mesh(pods=scenario.topology.num_pods, device=args.device)
+    cfg = get_config("distilgpt2-82m") if args.paper_scale else get_smoke_config("distilgpt2-82m")
+    trainer = GeoTrainer(
+        cfg, mesh,
+        trainer_cfg=TrainerConfig(
+            seq_len=args.seq_len,
+            global_batch=args.global_batch,
+            steps=args.steps,
+            log_every=max(args.steps // 20, 1),
+            opt=AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=args.steps),
+        ),
+        checkpoint_dir=args.checkpoint_dir,
         scenario=scenario,
-        device=device,
+        device=args.device,
     )
+    return trainer.run(inject_failure_at=args.inject_failure_at)
 
 
 def main(argv=None) -> None:
@@ -68,31 +80,17 @@ def main(argv=None) -> None:
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--inject-failure-at", type=int, default=None)
     ap.add_argument("--checkpoint-dir", default=None, help="default: a new temporary directory")
-    ap.add_argument("--pods", type=int, default=2, help="emulated DCs, one pod each (the spec's num_pods)")
+    ap.add_argument("--pods", type=int, default=2, help="DCs, one rank each (the spec's num_pods)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    from ..configs import get_config, get_smoke_config
     from ..device import resolve_device
-    from ..optim import AdamWConfig
-    from ..runtime import TrainerConfig
+    from ..distributed import spawn
 
     device = resolve_device(args.device)
-    cfg = get_config("distilgpt2-82m") if args.paper_scale else get_smoke_config("distilgpt2-82m")
+    args.checkpoint_dir = args.checkpoint_dir or tempfile.mkdtemp(prefix="repro_torch_train_geo_")
     scenario = geo_scenario(args.strategy, args.steps, pods=args.pods)
-    trainer = build_trainer(
-        cfg, scenario,
-        TrainerConfig(
-            seq_len=args.seq_len,
-            global_batch=args.global_batch,
-            steps=args.steps,
-            log_every=max(args.steps // 20, 1),
-            opt=AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=args.steps),
-        ),
-        checkpoint_dir=args.checkpoint_dir or tempfile.mkdtemp(prefix="repro_torch_train_geo_"),
-        device=device,
-    )
-    result = trainer.run(inject_failure_at=args.inject_failure_at)
+    result = spawn(group_rank, scenario.topology.num_pods, args, scenario, device=device)[0]
     losses = [m["loss"] for m in result["metrics"]]
     wan = result["metrics"][-1]["wan_s_est"]
     print(f"\nloss: {losses[0]:.3f} -> {losses[-1]:.3f}")

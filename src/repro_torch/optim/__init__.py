@@ -7,7 +7,7 @@ from .adamw import (
     init_adamw,
     schedule_lr,
 )
-from .diloco import DilocoConfig, DilocoState, init_diloco, outer_step
+from .diloco import DilocoConfig, DilocoState, init_diloco, outer_step, outer_step_group
 
 __all__ = [
     "AdamWConfig",
@@ -20,5 +20,6 @@ __all__ = [
     "init_adamw",
     "init_diloco",
     "outer_step",
+    "outer_step_group",
     "schedule_lr",
 ]

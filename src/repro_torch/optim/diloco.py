@@ -9,6 +9,11 @@ inside ``shard_map`` over a manual ``"pod"`` axis; here, as in
 of each parameter leaf, ``[npods, ...]``, so ``psum(delta) / npods`` is a
 float32 sum over that dimension divided by its size.  The anchor and the
 momentum are the same on every pod and are kept once.
+
+:func:`outer_step_group` is the form for one rank per pod
+(:mod:`repro_torch.distributed.pod_group`): each rank keeps its own
+parameters and AdamW moments between outer steps, and the ``all_reduce``
+of the float32 deltas is its only transfer.
 """
 
 from __future__ import annotations
@@ -63,4 +68,20 @@ def outer_step(cfg: DilocoConfig, params, state: DilocoState) -> Tuple[Any, Dilo
         return new_p.to(p.dtype).expand(n, *new_p.shape).contiguous(), new_p, new_mom
 
     out = tree_map(one, state.anchor, params, state.momentum)  # (p, anchor, mom) at each leaf
+    return _field(out, 0), DilocoState(anchor=_field(out, 1), momentum=_field(out, 2))
+
+
+def outer_step_group(cfg: DilocoConfig, params, state: DilocoState, group) -> Tuple[Any, DilocoState]:
+    """:func:`outer_step` with the rank's own parameters (no pod dimension):
+    d_mean = all_reduce(anchor - params) / npods; the rest as above, the
+    same on every rank."""
+
+    def one(anchor, p, mom):
+        d_mean = group.all_reduce(anchor - p.float()) / group.size
+        new_mom = cfg.outer_momentum * mom + d_mean
+        step = cfg.outer_momentum * new_mom + d_mean  # Nesterov look-ahead
+        new_p = anchor - cfg.outer_lr * step
+        return new_p.to(p.dtype), new_p, new_mom
+
+    out = tree_map(one, state.anchor, params, state.momentum)
     return _field(out, 0), DilocoState(anchor=_field(out, 1), momentum=_field(out, 2))

@@ -1,4 +1,4 @@
-"""GeoTrainer: the geo-distributed training loop on one device.
+"""GeoTrainer: the geo-distributed training loop.
 
 Port of ``repro.runtime.trainer``: each step takes the next batch of the
 synthetic loader, runs the train step (per-pod loss and gradients,
@@ -26,8 +26,22 @@ workload names a strategy), its options price the sync (jitter off), and
 its event script (link flaps, brownouts, tenant churn) is replayed through
 the scenario runner at step boundaries, before the step's batch and outside
 its timed window.  Straggler events scale modelled compute only, so the
-trainer, which measures its compute, skips them.  The pod count stays
-``TrainerConfig.npods``.
+trainer, which measures its compute, skips them.
+
+The pods come from one source: a ``mesh``'s ``"pod"`` size
+(:mod:`repro_torch.launch.mesh`), or with ``scenario=`` the spec's
+``topology.num_pods``, or else ``TrainerConfig.npods`` (default 1); a
+``TrainerConfig.npods`` or mesh that disagrees with another source raises.
+Without a mesh, or on a ``LocalMesh``, the pods run in this process.  On a
+group mesh every rank runs the trainer: the loader, seeded the same on
+every rank, gives each the same global batch, of which the step takes the
+rank's rows.  Rank 0 alone logs and writes checkpoints; the per-pod leaves
+(:func:`~repro_torch.distributed.steps.map_pod_leaves`) are gathered to it,
+so a group run writes the one-process layout, and on restore each rank
+takes its own slice.  The monitors get every pod's own measured step time,
+all-gathered; the step time the checkpoint cadence and recovery plans use
+is the slowest pod's, the same on every rank.  Each row also holds the
+rank's seconds in WAN collectives (``collective_s``, 0 in one process).
 """
 
 from __future__ import annotations
@@ -42,7 +56,8 @@ from ..checkpoint import AsyncCheckpointer, CheckpointStore
 from ..core import GeoFabric, SyncOptions
 from ..data import loader_for_model
 from ..device import DeviceLike, resolve_device
-from ..distributed import init_pod_params, init_train_state, make_train_step
+from ..distributed import PodGroup, init_pod_params, init_train_state, make_train_step, map_pod_leaves
+from ..launch.mesh import is_group_mesh, num_pods, pod_process_group
 from ..models import init_params
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, DilocoConfig
@@ -57,7 +72,7 @@ class TrainerConfig:
     global_batch: int = 8
     steps: int = 100
     strategy: str = "hier"
-    npods: int = 1
+    npods: Optional[int] = None  # None: the mesh's or the scenario's pods, else 1
     num_channels: int = 4
     checkpoint_every: Optional[int] = None  # None -> Young/Daly auto
     checkpoint_keep: int = 3
@@ -72,6 +87,7 @@ class GeoTrainer:
     def __init__(
         self,
         cfg: ModelConfig,
+        mesh=None,
         *,
         trainer_cfg: TrainerConfig,
         checkpoint_dir: str,
@@ -84,6 +100,8 @@ class GeoTrainer:
         self.device = resolve_device(device)
         self.sync_options = SyncOptions(jitter=False)
         self.scenario = scenario
+        self.mesh = mesh
+        self.tc = dataclasses.replace(self.tc, npods=self._pod_count(mesh, scenario, trainer_cfg.npods))
         if scenario is not None:
             # the spec supplies the deployment, the strategy and cadence, the
             # step budget and the costing options; the fields the trainer
@@ -103,6 +121,8 @@ class GeoTrainer:
         tc = self.tc
         # one pod stands for a mesh without a pod axis, which the JAX trainer prices as 2
         self.geo = geo or GeoFabric(num_pods=tc.npods if tc.npods > 1 else 2)
+        self.group = PodGroup(pod_process_group(mesh), device=self.device) if is_group_mesh(mesh) else None
+        self.rank = self.group.rank if self.group is not None else 0
         self.store = CheckpointStore(checkpoint_dir, keep=tc.checkpoint_keep)
         self.ckpt = AsyncCheckpointer(self.store)
         pods = [f"pod{i}" for i in range(tc.npods)]
@@ -110,7 +130,7 @@ class GeoTrainer:
         self.stragglers = StragglerMonitor(pods)
         self.loader = loader_for_model(cfg, seq_len=tc.seq_len, global_batch=tc.global_batch, seed=tc.seed)
         self.step_fn = make_train_step(
-            cfg, npods=tc.npods, strategy=tc.strategy, num_channels=tc.num_channels,
+            cfg, mesh=mesh, npods=tc.npods, strategy=tc.strategy, num_channels=tc.num_channels,
             opt_cfg=tc.opt, diloco_cfg=tc.diloco, device=self.device,
         )
         self.grad_bytes = sum(t.numel() * 4 for t in tree_leaves(init_params(cfg, device="meta")))
@@ -119,29 +139,70 @@ class GeoTrainer:
         self.params: Any = None
         self.state: Any = None
 
+    @staticmethod
+    def _pod_count(mesh, scenario, npods: Optional[int]) -> int:
+        sources = {}
+        if mesh is not None:
+            sources["the mesh"] = num_pods(mesh)
+        if scenario is not None:
+            sources["the scenario's topology.num_pods"] = scenario.topology.num_pods
+        if npods is not None:
+            sources["TrainerConfig.npods"] = npods
+        if len(set(sources.values())) > 1:
+            raise ValueError(f"pod counts disagree: {sources}")
+        return next(iter(sources.values()), 1)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _pod_leaves(self, fn, params, state):
+        return map_pod_leaves(fn, params, state, strategy=self.tc.strategy, npods=self.tc.npods)
+
     def init_state(self):
-        """Fresh parameters from the seed and their train state."""
+        """Fresh parameters from the seed and their train state (on a group
+        mesh, the rank's own)."""
         tc = self.tc
         gen = torch.Generator(device=self.device).manual_seed(tc.seed)
         params = init_params(self.cfg, generator=gen, device=self.device)
-        state = init_train_state(params, tc.opt, strategy=tc.strategy, npods=tc.npods)
-        return init_pod_params(params, strategy=tc.strategy, npods=tc.npods), state
+        state = init_train_state(params, tc.opt, strategy=tc.strategy, npods=tc.npods, mesh=self.mesh)
+        return init_pod_params(params, strategy=tc.strategy, npods=tc.npods, mesh=self.mesh), state
 
     def init_or_restore(self):
         """The newest checkpoint if there is one (the loader seeks to its
-        data step), else :meth:`init_state`."""
+        data step), else :meth:`init_state`.  On a group mesh each rank
+        reads the one-process layout and keeps its own slice."""
         params, state = self.init_state()
         start_step = 0
         latest = self.store.latest_step()
         if latest is not None:
-            (params, state), meta = self.store.restore(latest, (params, state))
+            if self.group is None:
+                (params, state), meta = self.store.restore(latest, (params, state))
+            else:
+                n, rank = self.tc.npods, self.rank
+                like = self._pod_leaves(lambda t: t.expand(n, *t.shape), params, state)
+                whole, meta = self.store.restore(latest, like)
+                params, state = self._pod_leaves(lambda t: t[rank].clone(), *whole)
             start_step = int(meta.get("data_step", latest))
             self.loader.step = start_step
         return params, state, start_step
+
+    def _save(self, step: int, params, state) -> None:
+        """Checkpoint ``step``; on a group mesh every rank hands its per-pod
+        leaves to rank 0, which writes the one-process layout."""
+        tree = (params, state)
+        if self.group is not None:
+            tree = self._pod_leaves(self.group.gather_to_root, params, state)
+            if self.rank != 0:
+                return
+        self.ckpt.save(step, tree, metadata={"data_step": step})
+
+    def _pod_step_s(self, dt: float) -> List[float]:
+        """Every monitored pod's measured step time: in one process the
+        step's, on a group mesh each rank's own, all-gathered."""
+        if self.group is None:
+            return [dt] * len(self.heartbeats.workers)
+        return self.group.all_gather(torch.tensor(dt, dtype=torch.float64), wan=False).tolist()
 
     def next_batch(self) -> Dict[str, torch.Tensor]:
         """The loader's next batch, on the device."""
@@ -193,14 +254,16 @@ class GeoTrainer:
             params, state, metrics = self.step_fn(params, state, batch)
             self._sync()
             dt = time.perf_counter() - t0
-            t_step_ewma = dt if t_step_ewma is None else 0.8 * t_step_ewma + 0.2 * dt
+            pod_dt = self._pod_step_s(dt)
+            slowest = max(pod_dt)
+            t_step_ewma = slowest if t_step_ewma is None else 0.8 * t_step_ewma + 0.2 * slowest
 
             sim_ms += interval_ms
-            for pod in self.heartbeats.workers:
+            for pod, pod_s in zip(self.heartbeats.workers, pod_dt):
                 if inject_failure_at is not None and step >= inject_failure_at and pod == "pod1":
                     continue  # pod1 goes silent
                 self.heartbeats.heartbeat(pod, sim_ms)
-                self.stragglers.record(pod, dt)
+                self.stragglers.record(pod, pod_s)
             # +1 ms epsilon: a pod missing detect_mult consecutive beats
             # is declared dead on exactly that step
             dead = self.heartbeats.poll(sim_ms + 1.0)
@@ -208,7 +271,7 @@ class GeoTrainer:
                 plan = plan_recovery(
                     step=step,
                     last_checkpoint_step=last_ckpt,
-                    step_time_s=t_step_ewma or dt,
+                    step_time_s=t_step_ewma or slowest,
                     detect_time_ms=self.heartbeats.detect_time_ms(),
                     checkpoint_bytes=self.grad_bytes * 3,
                 )
@@ -222,20 +285,21 @@ class GeoTrainer:
                 "grad_norm": float(metrics.get("grad_norm", 0.0)),
                 "wan_bytes": int(metrics["wan_bytes"]),
                 "wan_s_est": wan_cost.amortized_seconds,
+                "collective_s": float(metrics.get("collective_s", 0.0)),
             }
             self.metrics_log.append(row)
             if on_step:
                 on_step(step, row)
-            if step % tc.log_every == 0:
+            if step % tc.log_every == 0 and self.rank == 0:
                 print(
                     f"step {step:5d} loss {row['loss']:7.4f} ({dt * 1e3:8.2f} ms, "
                     f"{row['wan_bytes']} WAN bytes/pod, +{row['wan_s_est']:.2f}s WAN est "
                     f"[{tc.strategy}, {tc.npods} pods])",
                     flush=True,
                 )
-            interval = self._ckpt_interval(t_step_ewma or dt)
+            interval = self._ckpt_interval(t_step_ewma or slowest)
             if (step + 1) % max(interval, 1) == 0 or step == tc.steps - 1:
-                self.ckpt.save(step + 1, (params, state), metadata={"data_step": step + 1})
+                self._save(step + 1, params, state)
                 last_ckpt = step + 1
         self.ckpt.wait()
         self.params, self.state = params, state

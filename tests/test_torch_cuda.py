@@ -527,7 +527,7 @@ def test_smoke_scenario_trainer_on_the_card_equals_the_run_without_events(cuda, 
     link flap and a brownout, 2 pods under hier_int8; the events touch the
     modelled fabric only, so the losses equal a run of the same spec without
     them (rtol 1e-6: every kernel on the path is deterministic)."""
-    from repro_torch.examples.train_geo import build_trainer, geo_scenario
+    from repro_torch.examples.train_geo import geo_scenario
     from repro_torch.scenario import ScenarioEvent
 
     cfg = get_smoke_config("distilgpt2-82m")
@@ -540,8 +540,8 @@ def test_smoke_scenario_trainer_on_the_card_equals_the_run_without_events(cuda, 
     )
     runs = {}
     for name, evs in (("events", events), ("none", ())):
-        trainer = build_trainer(cfg, geo_scenario("hier_int8", 4, events=evs), tc,
-                                checkpoint_dir=str(tmp_path / name), device=cuda)
+        trainer = GeoTrainer(cfg, trainer_cfg=tc, scenario=geo_scenario("hier_int8", 4, events=evs),
+                             checkpoint_dir=str(tmp_path / name), device=cuda)
         assert trainer.tc.npods == 2 and trainer.tc.steps == 4
         runs[name] = (trainer.run(), trainer)
     result, trainer = runs["events"]
@@ -581,3 +581,115 @@ def test_serve_geo_ragged_prefill_card_matches_cpu(cuda):
     c_logits, _ = prefill(_tree(params, lambda t: t.cpu()), _tree(batch, lambda t: t.cpu()), cfg,
                           max_len=req.tokens + 8)
     torch.testing.assert_close(g_logits.float().cpu(), c_logits.float(), rtol=5e-2, atol=5e-2)
+
+
+# -- the pod axis as a process group: two ranks on the card -----------------------------
+
+GROUP_STRATEGIES = ("allreduce", "hier", "hier_int8", "ps", "local_sgd")
+
+
+def _group_cfg():
+    """distilgpt2-82m at full width cut to one layer: bf16, head_dim 64 (wgmma)."""
+    return dataclasses.replace(get_config("distilgpt2-82m"), num_layers=1)
+
+
+def _group_batch(cfg):
+    return loader_for_model(cfg, seq_len=128, global_batch=4, seed=2).next_batch()
+
+
+def _group_step(strategy, device, mesh=None):
+    """One step of ``strategy`` from seed 0's weights (sync_every 1: the
+    local_sgd step is an outer step); the rank's or the stacked view."""
+    cfg = _group_cfg()
+    params = init_params(cfg, generator=torch.Generator(device).manual_seed(0), device=device)
+    npods = None if mesh is not None else 2
+    state = init_train_state(params, None, strategy=strategy, npods=npods, mesh=mesh)
+    step = make_train_step(cfg, mesh=mesh, npods=npods, strategy=strategy, diloco_cfg=DilocoConfig(sync_every=1),
+                           device=device)
+    LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
+    BWD_ROUTE_LAUNCHES.clear()
+    new, _, metrics = step(init_pod_params(params, strategy=strategy, npods=npods, mesh=mesh), state,
+                           _group_batch(cfg))
+    torch.cuda.synchronize()
+    counts = (dict(LAUNCHES), dict(ROUTE_LAUNCHES), dict(BWD_ROUTE_LAUNCHES))
+    on_card = all(t.device.type == "cuda" for _, t in tree_items(new))
+    return {"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+            "wan_bytes": metrics["wan_bytes"], "params": {p: t.float().cpu() for p, t in tree_items(new)},
+            "counts": counts, "on_card": on_card}
+
+
+def _card_group_rank(rank):
+    from repro_torch.distributed import PodGroup
+    from repro_torch.launch.mesh import make_host_mesh, pod_process_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(pods=2, device="cuda")
+    out = {s: _group_step(s, torch.device("cuda"), mesh) for s in GROUP_STRATEGIES}
+    group = PodGroup(pod_process_group(mesh), device="cuda")
+    gloo = {}
+    for dtype in (torch.float32, torch.int8):
+        x = torch.full((300,), rank + 1, dtype=dtype, device="cuda")
+        done = {"all_reduce": group.all_reduce(x.clone()), "all_gather": group.all_gather(x),
+                "broadcast": group.broadcast(x.clone())}
+        gloo[str(dtype)] = {op: (t.device.type, t.dtype == dtype, t.float().sum().item()) for op, t in done.items()}
+    out["gloo"] = gloo
+    return out
+
+
+@pytest.fixture(scope="module")
+def card_group():
+    """Two ranks of one gloo group on the card, one step of each strategy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.distributed import spawn
+
+    ranks = spawn(_card_group_rank, 2, device="cuda", join_timeout_s=300)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one = {s: _group_step(s, torch.device("cuda")) for s in GROUP_STRATEGIES}
+    return ranks, one
+
+
+@pytest.mark.parametrize("strategy", GROUP_STRATEGIES)
+def test_two_ranks_on_the_card_equal_the_one_process_card_step(card_group, strategy):
+    """Loss, grad norm, WAN bytes and every parameter leaf, bit for bit:
+    each rank runs its pod's half of the one-process step's work."""
+    ranks, one = card_group
+    want = one[strategy]
+    for r, rank in enumerate(ranks):
+        got = rank[strategy]
+        assert got["on_card"]
+        assert (got["loss"], got["grad_norm"], got["wan_bytes"]) == (want["loss"], want["grad_norm"],
+                                                                     want["wan_bytes"])
+        for path, w in want["params"].items():
+            w = w[r] if strategy == "local_sgd" else w  # after the outer step every pod holds the same
+            assert torch.equal(got["params"][path], w), (r, path)
+
+
+def test_gloo_takes_cuda_tensors_for_the_three_collectives(card_group):
+    """all_reduce, all_gather and broadcast of float32 and int8 CUDA
+    tensors: gloo moves them through host memory itself, so no op is
+    staged by the port (PodGroup has no staging path)."""
+    ranks, _ = card_group
+    for r, rank in enumerate(ranks):
+        for dtype, ops in rank["gloo"].items():
+            assert ops == {"all_reduce": ("cuda", True, 900.0), "all_gather": ("cuda", True, 900.0),
+                           "broadcast": ("cuda", True, 300.0)}, (r, dtype)
+
+
+@pytest.mark.parametrize("strategy", GROUP_STRATEGIES)
+def test_group_ranks_launch_the_kernels_on_wgmma(card_group, strategy):
+    """One flash forward and backward a layer on each rank, all on wgmma;
+    under hier_int8 one wan_quant and one wan_dequant a leaf."""
+    ranks, one = card_group
+    cfg = _group_cfg()
+    leaves = len(one[strategy]["params"])
+    for rank in ranks:
+        launches, routes, bwd_routes = rank[strategy]["counts"]
+        want = {"flash_attention_fwd": cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
+        if strategy == "hier_int8":
+            want.update(wan_quant=leaves, wan_dequant=leaves)
+        assert launches == want
+        assert routes == {"wgmma": cfg.num_layers} and bwd_routes == {"wgmma": cfg.num_layers}

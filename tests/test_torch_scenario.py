@@ -272,7 +272,8 @@ def test_trainer_honors_spec_and_replays_events(tmp_path):
     assert result["scenario_evpn_resyncs"] == 2  # fail + restore
     assert trainer.geo.fabric.link_up("d1s1", "d2s1")  # the flapped link healed
     assert [(e["step"], e["kind"]) for e in trainer.event_s] == [(1, "fail_link"), (2, "restore_link")]
-    plain = _port_trainer(tmp_path / "plain", strategy="hier", steps=3).run()
+    assert trainer.tc.npods == 2  # the spec's topology.num_pods
+    plain = _port_trainer(tmp_path / "plain", strategy="hier", steps=3, npods=2).run()
     assert [r["loss"] for r in result["metrics"]] == [r["loss"] for r in plain["metrics"]]
     assert plain["scenario_recoveries"] == [] and plain["scenario_evpn_resyncs"] == 0
 

@@ -44,6 +44,22 @@ Phases, each printing one JSON line on stdout:
    the ranks handed to the collectives give each strategy's analytic WAN
    bytes on every step.  Per rank: the losses, step and collective
    milliseconds, counted bytes, launches and routes.
+   ``train_mesh``: intra-pod placement: 4 ranks on the card over gloo,
+   GeoTrainer at full width on the 16 x 1024 global batch over a
+   ``(pod 2, data 2)`` mesh (``hier_int8`` 6 steps, ``allreduce`` 3: FSDP
+   over data, the WAN strategy over pod on each rank's pieces) and a
+   ``(data 2, model 2)`` mesh (FSDP and tensor parallelism, 3 steps).
+   Losses fall and agree with the one-process runs of the same rows and
+   weights (first step rtol 1e-3, later 5e-3), the WAN bytes summed over a
+   pod's ranks equal the analytic ones, every flash launch is on
+   ``wgmma`` (the rank's rows and, over model, its 6 heads), ``wan_quant``
+   / ``wan_dequant`` run once a non-empty piece; per rank the median step,
+   WAN and LAN host seconds and bytes, launches and peak memory.
+   ``serve_mesh``: ``(data 2, model 2)``, 4 ranks, the serve phase's
+   weights and 8 x 1024 prompts: prefill and 4 decode steps fed the
+   one-process run's greedy tokens, held to it at rtol = atol = 5e-2, the
+   greedy tokens equal but on near-ties (the one-process top two within
+   the tolerance), 6 flash launches a rank on ``wgmma``.
    ``train_scenario``: the scenario path, a ``repro_torch.scenario.Scenario``
    (``repro_torch.examples.train_geo``'s spec: 2 DCs, ``hier_int8``, 12
    steps) whose event script (a BFD-detected link flap at steps 3-6, a
@@ -1210,6 +1226,332 @@ def phase_train_group(torch, one_process_losses, train_step_ms):
     return {s: [r["launches"] for r in v["ranks"]] for s, v in summary.items()}
 
 
+# train_mesh: (pod, data, model) meshes of 4 ranks on the card, their
+# strategies and steps.  Each run is held to a one-process run of the same
+# rows, weights and steps: its losses at rtol MESH_LOSS_RTOL, and the
+# parameters after its last step by the norm of their difference over the
+# norm of the one-process run's change from the initial weights, at most
+# MESH_PARAM_RTOL (bf16 sums over data ranks and tensor-parallel halves
+# round apart, and AdamW's first steps are near sign(g), so a gradient near
+# 0 may step the other way; a rank that trains on half its rows moves them
+# by far more: tests/test_torch_mesh.py)
+MESH_RANKS = 4
+MESH_PLAN = [((2, 2, 1), ("pod", "data", "model"), "hier_int8", 6),
+             ((2, 2, 1), ("pod", "data", "model"), "allreduce", 3),
+             ((2, 2), ("data", "model"), "allreduce", 3)]
+MESH_LOSS_RTOL = 1e-3
+MESH_PARAM_RTOL = 0.1
+MESH_TIMEOUT_S = 600
+
+
+def mesh_reference_path(strategy, steps):
+    return ROOT / "build" / "chip_smoke_checkpoints" / f"train_mesh_reference_{strategy}_{steps}.pt"
+
+
+def param_distances(torch, cfg, params, reference):
+    """(norm of ``params`` minus the seed-0 initial weights, norm of
+    ``params`` minus ``reference``), over every leaf, in float64."""
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_items
+
+    init = dict(tree_items(init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")))
+    change = diff = 0.0
+    for path, p in tree_items(params):
+        p = p.double()
+        change += float((p - init[path].double()).square().sum())
+        diff += float((p - reference[path].to(p.device).double()).square().sum())
+    return math.sqrt(change), math.sqrt(diff)
+
+
+def train_mesh_rank(rank, plan):
+    """One rank of train_mesh: GeoTrainer on each mesh of ``plan``, the
+    counts zeroed just before each run and read just after; then its
+    parameters gathered and measured against the one-process run's."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.placement import full_tree
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import GeoTrainer
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("distilgpt2-82m")
+    out = []
+    for shape, axes, strategy, steps in plan:
+        mesh = make_mesh(shape, axes, device="cuda")
+        directory = ROOT / "build" / "chip_smoke_checkpoints" / f"train_mesh_{len(out)}"
+        trainer = GeoTrainer(cfg, mesh, device="cuda", checkpoint_dir=str(directory),
+                             trainer_cfg=train_config(strategy, steps, checkpoint_every=10 ** 6))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        ROUTE_LAUNCHES.clear()
+        BWD_ROUTE_LAUNCHES.clear()
+        result = trainer.run()
+        launches, routes, bwd_routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES), dict(BWD_ROUTE_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        local = [t.to_local() for t in tree_leaves(trainer.params)]
+        lan = trainer.step_fn.lan
+        with lan, lan.uncounted():
+            whole = full_tree(trainer.params)
+        reference = torch.load(mesh_reference_path(strategy, steps), map_location="cuda")
+        change, diff = param_distances(torch, cfg, whole, reference)
+        del whole, reference
+        out.append({
+            "rows": result["metrics"], "launches": launches, "routes": routes, "bwd_routes": bwd_routes,
+            "peak_memory_bytes": peak, "param_change_norm": change, "param_diff_norm": diff,
+            "devices": sorted({t.device.type for t in local}),
+            "local_param_bytes": sum(t.numel() * t.element_size() for t in local),
+            "coordinate": list(mesh.get_coordinate()),
+            "lan_calls": dict(trainer.step_fn.lan.calls), "wan_calls": dict(trainer.step_fn.group.calls)
+            if trainer.step_fn.group is not None else {},
+        })
+        del trainer
+        torch.cuda.empty_cache()
+        if rank == 0:
+            shutil.rmtree(directory, ignore_errors=True)
+    return {"device": torch.cuda.get_device_name(torch.cuda.current_device()), "runs": out}
+
+
+def piece_rows(n0: int, splits) -> int:
+    """Rows of a leaf's dim 0 on a rank whose WAN piece splits it over the
+    pod's mesh dims in order, ``splits`` = [(size, rank's index)], as
+    ``torch.chunk`` (DTensor's Shard) cuts each level."""
+    rows = n0
+    for size, idx in splits:
+        per = -(-rows // size)
+        rows = max(0, min(per, rows - per * idx))
+    return rows
+
+
+def phase_train_mesh(torch):
+    """The training path with intra-pod placement: 4 ranks share the card
+    over gloo, distilgpt2-82m at full width, global batch 16 x 1024, on a
+    (pod 2, data 2) mesh (the paper's 2 DCs x 2 workers: FSDP over data,
+    the WAN strategy over pod on each rank's pieces) and a (data 2, model
+    2) mesh (FSDP and tensor parallelism, no WAN).  Losses fall and agree
+    with one-process runs of the same rows, weights and steps made here,
+    and so do the parameters after the last step; the WAN bytes summed
+    over a pod's ranks equal the analytic value, every flash launch runs on
+    the wgmma route on the rank's local heads, wan_quant and wan_dequant on
+    its pieces."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spawn
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_items, tree_leaves
+
+    cfg = get_config("distilgpt2-82m")
+    shapes = [tuple(t.shape) for t in tree_leaves(init_params(cfg, device="meta"))]
+    values = sum(math.prod(shp) for shp in shapes)
+    analytic = {"hier_int8": (NPODS - 1) * int8_payload_bytes(shapes), "allreduce": 2 * (NPODS - 1) * 4 * values // NPODS}
+    references = {}  # (strategy, steps) -> (losses, norm of the parameters' change)
+    for _, _, strategy, steps in MESH_PLAN:
+        if (strategy, steps) in references:
+            continue
+        directory = ckpt_dir(f"train_mesh_{strategy}_{steps}_one_process")
+        trainer, result, *_ = train_main_path(torch, strategy, directory, steps=steps)
+        params = dict(tree_items(trainer.params))
+        torch.save(params, mesh_reference_path(strategy, steps))
+        change, _ = param_distances(torch, cfg, params, params)
+        references[strategy, steps] = ([r["loss"] for r in result["metrics"]], change)
+        del trainer, params
+        shutil.rmtree(directory)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(train_mesh_rank, MESH_RANKS, MESH_PLAN, device="cuda", join_timeout_s=MESH_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    for strategy, steps in references:
+        mesh_reference_path(strategy, steps).unlink()
+    runs = []
+    for i, (shape, axes, strategy, steps) in enumerate(MESH_PLAN):
+        sizes = dict(zip(axes, shape))
+        pods = sizes.get("pod", 1)
+        want, want_change = references[strategy, steps]
+        per_rank = []
+        for r, rank in enumerate(ranks):
+            got = rank["runs"][i]
+            rows = got["rows"]
+            label = f"train_mesh {sizes} {strategy} rank {r}"
+            losses = falling_losses(label, rows)
+            if len(losses) != len(want) or any(abs(a - b) > MESH_LOSS_RTOL * abs(b) for a, b in zip(losses, want)):
+                raise AssertionError(f"{label}: losses {losses} vs one-process {want}, rtol {MESH_LOSS_RTOL}")
+            param_rel = got["param_diff_norm"] / want_change
+            if not param_rel <= MESH_PARAM_RTOL:
+                raise AssertionError(f"{label}: parameters after the last step {got['param_diff_norm']} from the "
+                                     f"one-process run's, {param_rel} of its change {want_change}; "
+                                     f"at most {MESH_PARAM_RTOL}")
+            if got["devices"] != ["cuda"]:
+                raise AssertionError(f"{label}: parameters on {got['devices']}")
+            wan = [row["wan_bytes"] for row in rows]
+            want_wan = analytic[strategy] if pods > 1 else 0
+            if any(abs(w - want_wan) > 0.01 * want_wan for w in wan) or (pods == 1 and any(wan)):
+                raise AssertionError(f"{label}: WAN bytes a pod {wan}, analytic {want_wan}")
+            coord = dict(zip(axes, got["coordinate"]))
+            per_step = {"flash_attention_fwd": cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
+            if strategy == "hier_int8":
+                # the rank's non-empty WAN pieces: dim 0 split over the pod's
+                # ranks, a rank-0/1 leaf whole on the pod's first rank
+                splits = [(sizes[a], coord[a]) for a in ("data", "model") if a in sizes]
+                first = all(i == 0 for _, i in splits)
+                pieces = sum(1 for shp in shapes
+                             if (len(shp) >= 2 and piece_rows(shp[0], splits) > 0) or (len(shp) < 2 and first))
+                per_step.update(wan_quant=pieces, wan_dequant=pieces)
+            expected = {k: steps * v for k, v in per_step.items()}
+            if got["launches"] != expected or got["routes"] != {"wgmma": expected["flash_attention_fwd"]} \
+                    or got["bwd_routes"] != {"wgmma": expected["flash_attention_bwd"]}:
+                raise AssertionError(f"{label}: launches {got['launches']}, routes {got['routes']} / "
+                                     f"{got['bwd_routes']}; expected {expected}, all on wgmma")
+            timed = rows[WARMUP:] if steps > WARMUP + 1 else rows[1:]
+            per_rank.append({
+                "coordinate": coord, "losses": losses, "loss_rel_err_max": max(abs(a - b) / abs(b) for a, b in zip(losses, want)),
+                "param_change_norm": got["param_change_norm"], "param_diff_norm": got["param_diff_norm"],
+                "param_diff_share_of_change": param_rel, "step_ms": [row["step_s"] * 1e3 for row in rows],
+                "step_ms_median": statistics.median(row["step_s"] * 1e3 for row in timed),
+                "wan_s_median": statistics.median(row["collective_s"] for row in timed),
+                "lan_s_median": statistics.median(row["lan_s"] for row in timed),
+                "wan_bytes_rank": [row["wan_bytes_rank"] for row in rows], "wan_bytes_pod": wan,
+                "lan_bytes": [row["lan_bytes"] for row in rows],
+                "launches": got["launches"], "fwd_routes": got["routes"], "bwd_routes": got["bwd_routes"],
+                "peak_gb": got["peak_memory_bytes"] / 1e9, "local_param_bytes": got["local_param_bytes"],
+                "lan_calls": got["lan_calls"], "wan_calls": got["wan_calls"],
+            })
+        runs.append({"mesh": sizes, "strategy": strategy, "steps": steps, "one_process_losses": want,
+                     "one_process_param_change_norm": want_change,
+                     "analytic_wan_bytes_per_pod": analytic[strategy] if pods > 1 else 0, "ranks": per_rank})
+    emit({
+        "phase": "train_mesh", "arch": cfg.name, "dtype": cfg.dtype, "ranks": MESH_RANKS, "backend": "gloo",
+        "global_batch": B_TRAIN, "seq_len": SEQ_TRAIN, "warmup_steps_untimed": WARMUP, "spawn_s": spawn_s,
+        "loss_rtol": MESH_LOSS_RTOL, "param_rtol": MESH_PARAM_RTOL, "device": ranks[0]["device"],
+        "step_ms_is": "each rank's host clock around its step, ending in torch.cuda.synchronize()",
+        "wan_s_is": "the rank's host seconds in gloo's WAN collectives over pod, device synchronised around each",
+        "lan_s_is": "the rank's host seconds in DTensor's intra-pod collectives (plain gloo calls), "
+                    "device synchronised around each",
+        "runs": runs,
+    })
+    return [[r["launches"] for r in run["ranks"]] for run in runs]
+
+
+SERVE_MESH = ((2, 2), ("data", "model"))
+SERVE_MESH_STEPS = 4
+
+
+def serve_mesh_rank(rank, fed):
+    """One rank of serve_mesh: prefill and a decode step for each of the
+    one-process run's greedy tokens ``fed`` on the (data 2, model 2) mesh,
+    the serve phase's weights and prompts (seed 0); its launches and routes."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import init_pod_params, make_decode_step, make_prefill_step
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.launch.batches import synthetic_prompt_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("distilgpt2-82m")
+    mesh = make_mesh(*SERVE_MESH, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_pod_params(init_params(cfg, generator=gen, device="cuda"), mesh=mesh)
+    batch = synthetic_prompt_batch(cfg, gen, B_SERVE, PROMPT)
+    prefill_step, placements = make_prefill_step(cfg, mesh, device="cuda")
+    decode, _ = make_decode_step(cfg, mesh, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, batch, max_len=PROMPT + GEN)
+    torch.cuda.synchronize()
+    prefill_ms, lan = (time.perf_counter() - t0) * 1e3, prefill_step.lan.lan_bytes
+    out, steps_ms = [logits.float().cpu()], []
+    for i, tokens in enumerate(fed):
+        t0 = time.perf_counter()
+        logits, cache = decode(params, tokens.to("cuda"), cache, PROMPT + i)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.float().cpu())
+    return {"logits": out, "launches": dict(LAUNCHES), "routes": dict(ROUTE_LAUNCHES), "prefill_ms": prefill_ms,
+            "decode_ms": steps_ms, "prefill_lan_bytes": lan, "decode_lan_bytes": decode.lan.lan_bytes,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "cache_placements": str(placements["cache"])}
+
+
+def greedy_disagreements(got, want):
+    """Rows whose argmax differs between ``got`` and ``want`` logits where
+    ``want``'s top two are more than SERVE_TOL x (1 + |top|) apart: a
+    near-tie at bf16 rounding is no disagreement.  Returns (rows that
+    disagree, rows that disagree on a near-tie)."""
+    top2 = want.topk(2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= SERVE_TOL * (1 + top2[:, 0].abs())
+    differ = got.argmax(-1) != want.argmax(-1)
+    return int((differ & ~tie).sum()), int((differ & tie).sum())
+
+
+def phase_serve_mesh(torch):
+    """The serving path with intra-pod placement: 4 ranks on the card, the
+    (data 2, model 2) mesh, distilgpt2-82m at full width, the serve phase's
+    8 x 1024 prompts and weights: prefill and 4 decode steps fed the
+    one-process run's greedy tokens, each logits held to the one-process
+    run's at rtol = atol = SERVE_TOL and its greedy tokens equal (but on
+    near-ties, counted); 6 flash launches a rank, all on wgmma."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import spawn
+    from repro_torch.launch.batches import synthetic_prompt_batch
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_config("distilgpt2-82m")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, generator=gen, device="cuda")
+    batch = synthetic_prompt_batch(cfg, gen, B_SERVE, PROMPT)
+    logits, cache = prefill(params, batch, cfg, max_len=PROMPT + GEN)
+    want, fed = [logits.float().cpu()], []
+    for i in range(SERVE_MESH_STEPS):
+        fed.append(logits.argmax(-1).cpu())
+        logits, cache = decode_step(params, fed[-1].to("cuda"), cache, cfg, PROMPT + i)
+        want.append(logits.float().cpu())
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn(serve_mesh_rank, MESH_RANKS, fed, device="cuda", join_timeout_s=MESH_TIMEOUT_S)
+    per_rank = []
+    for r, rank in enumerate(ranks):
+        label = f"serve_mesh rank {r}"
+        diffs = [_logit_diff(g, w) for g, w in zip(rank["logits"], want)]
+        if not all(share <= 1 for _, share in diffs):
+            raise AssertionError(f"{label}: logits vs one process outside rtol=atol={SERVE_TOL}: {diffs}")
+        greedy = [greedy_disagreements(g, w) for g, w in zip(rank["logits"], want)]
+        if any(d for d, _ in greedy):
+            raise AssertionError(f"{label}: greedy tokens differ beyond near-ties: {greedy}")
+        if rank["launches"] != {"flash_attention_fwd": cfg.num_layers} or \
+                rank["routes"] != {"wgmma": cfg.num_layers}:
+            raise AssertionError(f"{label}: launches {rank['launches']}, routes {rank['routes']}; "
+                                 f"expected {cfg.num_layers} flash forwards on wgmma")
+        per_rank.append({"max_abs_err": [d for d, _ in diffs], "worst_share_of_tol": [s for _, s in diffs],
+                         "greedy_near_tie_rows": [t for _, t in greedy],
+                         "launches": rank["launches"], "fwd_routes": rank["routes"],
+                         "prefill_ms": rank["prefill_ms"], "decode_ms": rank["decode_ms"],
+                         "prefill_lan_bytes": rank["prefill_lan_bytes"],
+                         "last_decode_lan_bytes": rank["decode_lan_bytes"],
+                         "peak_gb": rank["peak_memory_bytes"] / 1e9})
+    emit({
+        "phase": "serve_mesh", "arch": cfg.name, "dtype": cfg.dtype, "mesh": dict(zip(SERVE_MESH[1], SERVE_MESH[0])),
+        "batch": B_SERVE, "prompt": PROMPT, "decode_steps": SERVE_MESH_STEPS, "tol": SERVE_TOL,
+        "decode_fed": "the one-process run's greedy tokens", "cache_placements": ranks[0]["cache_placements"],
+        "ranks": per_rank,
+    })
+    return [r["launches"] for r in per_rank]
+
+
 # train_scenario's event script: a BFD-detected flap of one WAN link and a
 # brownout of the DC pair's fiber, each lifted later
 SCENARIO_LINK = ("d1s1", "d2s1")
@@ -1465,6 +1807,12 @@ def main() -> int:
     group = phase_train_group(torch, one_process_losses, train_step_ms)
     gc.collect()
     torch.cuda.empty_cache()
+    mesh_train = phase_train_mesh(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_serve = phase_serve_mesh(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     scenario = phase_train_scenario(torch, train_losses, train_step_ms)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1488,6 +1836,9 @@ def main() -> int:
             "launches_checkpoint": ckpt.get(name, 0), "launches_train_scenario": scenario.get(name, 0),
             "launches_serve_geo": serve_geo.get(name, 0),
             "launches_train_group_per_rank": {s: [r.get(name, 0) for r in ranks] for s, ranks in group.items()},
+            "launches_train_mesh_per_rank": {f"{dict(zip(axes, shape))} {strategy}": [r.get(name, 0) for r in ranks]
+                                             for (shape, axes, strategy, _), ranks in zip(MESH_PLAN, mesh_train)},
+            "launches_serve_mesh_per_rank": [r.get(name, 0) for r in mesh_serve],
             **more,
         }
 

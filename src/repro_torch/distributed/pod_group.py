@@ -1,6 +1,6 @@
-"""The pod axis as a ``torch.distributed`` process group: one rank per data center.
+"""The pod axis as a ``torch.distributed`` process group: the ranks of the data centers.
 
-:func:`spawn` starts one process per pod in ``spawn`` mode (a fork after
+:func:`spawn` starts one process per rank in ``spawn`` mode (a fork after
 CUDA is initialised fails), after building the CUDA kernels once in the
 parent so that the ranks do not race on the build directory.  Each rank
 joins a gloo group through a ``FileStore`` with an explicit timeout, so a
@@ -20,6 +20,13 @@ times for the monitors, checkpoint gathers) pass ``wan=False`` and are
 neither counted nor timed.  Gloo takes CUDA tensors of these three ops
 (float32, bfloat16 and int8 alike) and moves them through host memory
 itself, so no tensor is staged by the port.
+
+With ``data`` or ``model`` axes a pod is several ranks and ``spawn`` takes
+``pods x data x model`` of them; a rank's :class:`PodGroup` is the ``pod``
+sub-group of its ``(data, model)`` coordinate, so its counted collectives
+carry the rank's piece of each leaf.  The collectives between the ranks
+of one pod are LAN traffic, counted apart by
+:class:`~repro_torch.distributed.lan.LanCollectives`, never as WAN bytes.
 """
 
 from __future__ import annotations

@@ -33,26 +33,48 @@ all-reduce of two terms commutes; with more pods its order is its own).
 :func:`map_pod_leaves` names the per-pod leaves, which the trainer stacks
 into the one-process layout for its checkpoints.
 
-Intra-pod sharding (FSDP / tensor parallelism over ``data`` and ``model``)
-is not ported yet (ROADMAP queue 1, item 16): a mesh with those axes larger
-than 1 raises.
+On a group mesh whose ``data`` or ``model`` axis is larger than 1
+(the same step, :func:`_make_group_step`), each pod is itself a ``(data, model)`` mesh of
+ranks: parameters, optimizer state and batch are DTensors placed by
+:mod:`.sharding`'s rules, the forward and backward run on those
+placements (FSDP over ``data``: a parameter all-gathered for use, its
+gradient reduce-scattered; tensor parallelism over ``model``), and the WAN
+strategies run over ``pod`` on each rank's pieces of the gradients
+(:mod:`.placement`), the intra-pod collectives counted apart as LAN
+traffic (:mod:`.lan`).  Summing a gradient over ``data`` adds in another
+order than one process does, so that step agrees with the one-process
+step to float32 rounding, not bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..launch.mesh import PLACEMENT_TODO, is_group_mesh, mesh_shape, num_pods, pod_process_group
+from ..launch.mesh import (
+    data_process_group,
+    intra_pod_mesh,
+    is_group_mesh,
+    mesh_shape,
+    model_process_group,
+    num_pods,
+    pod_index,
+    pod_process_group,
+)
 from ..models import decode_step as model_decode_step
-from ..models import loss_fn, prefill
+from ..models import init_params, loss_fn, prefill
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamWConfig, AdamWState, adamw_update, init_adamw
-from ..optim.diloco import DilocoConfig, init_diloco, outer_step, outer_step_group
-from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..optim.diloco import DilocoConfig, DilocoState, init_diloco, outer_step, outer_step_group
+from ..tree import tree_items, tree_leaves, tree_map, tree_unflatten
+from .act_sharding import activation_sharding
+from .lan import LanCollectives
+from .placement import drop_pod, from_piece, full, is_dtensor, place_tree, to_piece
 from .pod_group import PodGroup
+from .sharding import batch_placements, cache_placements, map_specs, params_placements, params_pspecs
 from .sync import (
     STRATEGIES,
     full_precision_bytes,
@@ -95,28 +117,73 @@ def _pods(mesh, npods: Optional[int]) -> int:
     """The pod count: the mesh's, which ``npods`` may repeat; 1 with neither."""
     if mesh is None:
         return 1 if npods is None else npods
-    wide = {a: n for a, n in mesh_shape(mesh).items() if a != "pod" and n > 1}
-    if wide:
-        raise NotImplementedError(f"mesh axes {wide} larger than 1: {PLACEMENT_TODO}")
     pods = num_pods(mesh)
     if npods is not None and npods != pods:
         raise ValueError(f"npods={npods} disagrees with the mesh's {pods} pods")
     return pods
 
 
+def intra_placements(placements_tree, mesh):
+    """A tree of full-mesh placements with each leaf's ``pod`` entry
+    dropped: where the leaf lives on the rank's pod mesh."""
+    axes = tuple(mesh_shape(mesh))
+    return map_specs(lambda pl: drop_pod(pl, axes), placements_tree)
+
+
+def _state_like(tree, step, strategy: str) -> TrainState:
+    """A :class:`TrainState` of ``tree`` (one per parameter) and ``step``."""
+    return TrainState(
+        adam=AdamWState(step=step, m=tree, v=tree),
+        ef=tree if strategy == "hier_int8" else (),
+        diloco=DilocoState(anchor=tree, momentum=tree) if strategy == "local_sgd" else (),
+    )
+
+
+def state_pspecs(params_shapes, mesh, *, strategy: str = "hier") -> TrainState:
+    """Port of the JAX ``state_pspecs``: AdamW ``m`` and ``v``, the error
+    feedback and the DiLoCo anchor and momentum specified as the
+    parameters are; the step counter ``()``."""
+    return _state_like(params_pspecs(params_shapes, mesh), (), strategy)
+
+
+def state_placements(params_shapes, mesh, *, strategy: str = "hier") -> TrainState:
+    """:func:`state_pspecs` as DTensor placements; the step counter replicated."""
+    from torch.distributed.tensor import Replicate
+
+    return _state_like(params_placements(params_shapes, mesh), (Replicate(),) * len(mesh_shape(mesh)), strategy)
+
+
+def place_train_state(state: TrainState, mesh, *, strategy: str) -> TrainState:
+    """The rank's shards of a one-pod :class:`TrainState` of full tensors
+    (a restored checkpoint), placed as :func:`state_placements` says."""
+    intra = intra_pod_mesh(mesh)
+    pl = intra_placements(params_placements(state.adam.m, mesh), mesh)  # each state tree is placed as the parameters
+    place = lambda tree: place_tree(tree, intra, pl)  # noqa: E731
+    adam = AdamWState(step=state.adam.step, m=place(state.adam.m), v=place(state.adam.v))
+    ef = place(state.ef) if strategy == "hier_int8" else state.ef
+    diloco = state.diloco
+    if strategy == "local_sgd":
+        diloco = DilocoState(anchor=place(diloco.anchor), momentum=place(diloco.momentum))
+    return TrainState(adam, ef, diloco)
+
+
 def init_train_state(
     params, opt_cfg: AdamWConfig, *, strategy: str = "hier", npods: Optional[int] = None, mesh=None
 ) -> TrainState:
     """From the model's parameters (one copy, no pod dimension).  On a group
-    mesh, the rank's own state: no pod dimension anywhere."""
+    mesh, the rank's own state: no pod dimension anywhere; on a pod of
+    several ranks, DTensors placed as the parameters are
+    (:func:`state_placements`)."""
     _check_strategy(strategy)
-    npods = 1 if is_group_mesh(mesh) else _pods(mesh, npods)
+    npods = _pods(mesh, npods)
+    if is_group_mesh(mesh):
+        params, npods = init_pod_params(params, strategy=strategy, mesh=mesh), 1
     ef = ()
     if strategy == "hier_int8":
-        lead = () if is_group_mesh(mesh) else (npods,)
-        ef = tree_map(
-            lambda p: torch.zeros((*lead, *p.shape), dtype=torch.float32, device=p.device), params
-        )
+        if is_group_mesh(mesh):
+            ef = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        else:
+            ef = tree_map(lambda p: torch.zeros((npods, *p.shape), dtype=torch.float32, device=p.device), params)
     adam = init_adamw(params)
     if _per_pod(strategy, npods):
         adam = AdamWState(step=adam.step, m=_stack(adam.m, npods), v=_stack(adam.v, npods))
@@ -126,11 +193,16 @@ def init_train_state(
 
 def init_pod_params(params, *, strategy: str = "hier", npods: Optional[int] = None, mesh=None):
     """The parameters the step takes: for ``local_sgd`` on more than one pod
-    in one process one replica per pod, ``[npods, ...]`` leaves; otherwise
-    (a group mesh included: the rank's own) ``params``."""
+    in one process one replica per pod, ``[npods, ...]`` leaves; on a pod
+    of several ranks the rank's shards of ``params`` (full tensors, the
+    same on every rank), placed by the rules; otherwise (a group mesh
+    included: the rank's own) ``params``."""
     _check_strategy(strategy)
     if is_group_mesh(mesh):
-        return params
+        intra = intra_pod_mesh(mesh)
+        if intra is None or is_dtensor(tree_leaves(params)[0]):
+            return params
+        return place_tree(params, intra, intra_placements(params_placements(params, mesh), mesh))
     npods = _pods(mesh, npods)
     return _stack(params, npods) if _per_pod(strategy, npods) else params
 
@@ -244,8 +316,7 @@ def make_train_step(
     opt_cfg = opt_cfg or AdamWConfig()
     diloco_cfg = diloco_cfg or DilocoConfig()
     if is_group_mesh(mesh):
-        group = PodGroup(pod_process_group(mesh), device=device)
-        return _make_group_step(cfg, group, strategy, num_channels, opt_cfg, diloco_cfg, device)
+        return _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, device)
 
     def step(params, state: TrainState, batch):
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -281,87 +352,313 @@ def make_train_step(
     return step
 
 
-def _make_group_step(cfg, group: PodGroup, strategy, num_channels, opt_cfg, diloco_cfg, device):
-    """The step of one rank of a group mesh: its pod's rows of the global
-    batch, the strategy as collectives, AdamW on its own state.  ``ps``:
-    the pushed gradients' mean, one AdamW update, rank 0's parameters
-    pulled.  ``local_sgd``: the rank's own AdamW step, then the DiLoCo
-    outer step on multiples of ``sync_every``; ``grad_norm`` and ``lr``
-    are rank 0's, as the stacked step reports pod 0's."""
-    n = group.size
+def _scalar(x) -> torch.Tensor:
+    """A metric's value on this rank: a DTensor reduced over its mesh."""
+    return full(x).detach().reshape(())
+
+
+def place_batch(batch: Dict[str, torch.Tensor], mesh):
+    """The rank's pod's rows of a global batch, as DTensors on its pod mesh
+    placed by ``batch_pspecs`` (rows over ``data`` where they divide)."""
+    rows = _rows(batch, num_pods(mesh), pod_index(mesh))
+    return place_tree(rows, intra_pod_mesh(mesh), intra_placements(batch_placements(batch, mesh), mesh))
+
+
+def _fsdp_gather(p):
+    """A parameter as the forward uses it: all-gathered over ``data``
+    (FSDP; the gradient flows back reduce-scattered), its ``model`` shard
+    kept on a matrix dim (tensor parallelism) and gathered on a layer-stack
+    dim, which the forward indexes layer by layer (the stacked dense FFN's
+    ``[L, D, F]`` puts L on ``model``: the JAX rule's MoE quirk)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def use(axis, pl):  # a strided shard (the few-expert width) is gathered too
+        keep = axis == "model" and type(pl) is Shard and pl.dim >= p.ndim - 2
+        return pl if keep else Replicate()
+
+    want = tuple(use(a, pl) for a, pl in zip(p.device_mesh.mesh_dim_names, p.placements))
+    return p if want == tuple(p.placements) else p.redistribute(p.device_mesh, want)
+
+
+# The activation context of the mesh steps: rows over ``data``.  The JAX
+# step also shards the residual's sequence dim over ``model`` between
+# blocks; the port keeps it whole (:mod:`.act_sharding`).
+ACT_AXES = "data"
+
+
+def _mesh_grads(params, batch, cfg: ModelConfig):
+    """The pod's loss, metrics and float32 gradients on its rows, the model
+    run on DTensors: every parameter FSDP-gathered, activations placed by
+    the active context, gradients placed as their parameters."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    with implicit_replication(), activation_sharding(ACT_AXES):
+        used = tree_unflatten(params, [_fsdp_gather(x) for x in leaves])
+        loss, m = loss_fn(used, batch, cfg)
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = []
+    for x, g in zip(leaves, got):
+        if g is None:
+            g = torch.zeros_like(x, dtype=torch.float32)
+        elif tuple(g.placements) != tuple(x.placements):  # a partial sum over data reduce-scatters here
+            g = g.redistribute(x.device_mesh, x.placements)
+        grads.append(g.float())
+    return _scalar(loss), {k: _scalar(v) for k, v in m.items()}, tree_unflatten(params, grads)
+
+
+def _pieces(tree):
+    """Each DTensor leaf's WAN piece (:func:`.placement.to_piece`), as a
+    flat dict by path, with the empty pieces left out (the pod group's
+    ranks share a coordinate, so they leave out the same ones)."""
+    return {k: v for k, v in ((k, to_piece(t)) for k, t in tree_items(tree)) if v.numel()}
+
+
+def _unpieces(pieces, like):
+    """A tree placed as ``like`` from its pieces (missing: empty)."""
+    leaves = []
+    for k, t in tree_items(like):
+        piece = pieces.get(k)
+        if piece is None:
+            piece = torch.empty((0, *t.shape[1:]) if t.ndim >= 2 else (0,), dtype=t.dtype, device=t.to_local().device)
+        leaves.append(from_piece(piece.to(t.dtype), t))
+    return tree_unflatten(like, leaves)
+
+
+def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, device):
+    """The step of one rank of a group mesh.
+
+    The rank's pod computes the loss, metrics and gradients on its rows of
+    the global batch: with one rank a pod, that rank on whole leaves
+    (:func:`_one_pod`); on a pod of several ranks, the model run on
+    DTensors (:func:`_mesh_grads`), every intra-pod collective through
+    :class:`.lan.LanCollectives` (``lan_bytes``, ``lan_s``: what this rank
+    handed them this step, its host seconds in them).  With more than one
+    pod the strategy runs over the pod group on the rank's pieces of the
+    gradients (and, for ``ps`` and ``local_sgd``, of the parameters and
+    DiLoCo state): its whole leaves with one rank a pod, else
+    :func:`_pieces`, rebuilt into their placements after.  AdamW updates
+    the rank's own leaves or local shards.  ``ps``: the pushed gradients'
+    mean, one AdamW update, the pod group's rank 0's parameters pulled.
+    ``local_sgd``: the rank's own AdamW step, then the DiLoCo outer step on
+    multiples of ``sync_every``; ``grad_norm`` and ``lr`` are the pod
+    group's rank 0's, as the stacked step reports pod 0's.  ``wan_bytes``
+    is what the rank's pod sends, summed over the pod's ranks, and
+    ``collective_s`` the rank's host seconds in WAN collectives; on a pod of
+    several ranks ``wan_bytes_rank`` is the rank's share of ``wan_bytes``.
+    """
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    intra, n = intra_pod_mesh(mesh), num_pods(mesh)
+    group = PodGroup(pod_process_group(mesh), device=device) if n > 1 else None
+    if intra is None:
+        lan, pieces, unpieces = None, (lambda tree: tree), (lambda got, like: got)
+
+        def grads_of(params, batch):
+            loss, metrics, grads = _one_pod(params, _rows(batch, n, pod_index(mesh)), cfg)
+            return loss, metrics, tree_unflatten(params, grads)
+    else:
+        lan, pieces, unpieces = LanCollectives(device), _pieces, _unpieces
+
+        def grads_of(params, batch):
+            return _mesh_grads(params, place_batch(batch, mesh), cfg)
+
+    def wan_sync(grads, ef):
+        """The strategy over the pod group -> (synced grads, new error
+        feedback); ``local_sgd`` sends no gradients."""
+        if strategy == "local_sgd":
+            return grads, ef
+        if strategy == "hier_int8":
+            synced, new_ef = sync_hier_int8_group(pieces(grads), pieces(ef), group)
+            return unpieces(synced, grads), unpieces(new_ef, ef)
+        if strategy == "allreduce":
+            synced = sync_allreduce_group(pieces(grads), group)
+        elif strategy == "hier":
+            synced = sync_hier_group(pieces(grads), group, num_channels=num_channels)
+        else:  # ps: the push
+            synced = sync_ps_group(pieces(grads), group)
+        return unpieces(synced, grads), ef
+
+    shapes = init_params(cfg, device="meta")
+    placements = {
+        "params": params_placements(shapes, mesh),
+        "state": state_placements(shapes, mesh, strategy=strategy),
+        "batch": None,  # from the first batch's shapes
+    }
 
     def step(params, state: TrainState, batch):
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        group.reset()
-        loss, metrics, grads = _one_pod(params, _rows(batch, n, group.rank), cfg)
-        grads = tree_unflatten(params, grads)
-        loss = group.mean_in_rank_order(loss)
-        metrics = {k: group.mean_in_rank_order(v) for k, v in metrics.items()}
-        new_ef, new_diloco = state.ef, state.diloco
-        if strategy == "allreduce":
-            grads = sync_allreduce_group(grads, group)
-        elif strategy == "hier":
-            grads = sync_hier_group(grads, group, num_channels=num_channels)
-        elif strategy == "hier_int8":
-            grads, new_ef = sync_hier_int8_group(grads, state.ef, group)
-        elif strategy == "ps":
-            grads = sync_ps_group(grads, group)
-        new_params, new_adam, opt_metrics = adamw_update(opt_cfg, grads, state.adam, params)
-        if strategy == "ps":
-            new_params = pull_params_group(new_params, group)
-        if strategy == "local_sgd":
-            opt_metrics = {k: group.broadcast(v.clone(), wan=False) for k, v in opt_metrics.items()}
-            if int(new_adam.step) % diloco_cfg.sync_every == 0:
-                new_params, new_diloco = outer_step_group(diloco_cfg, new_params, state.diloco, group)
-        metrics = dict(metrics, loss=loss, wan_bytes=group_wan_bytes(strategy, group.handed, n),
-                       collective_s=group.wan_seconds, **opt_metrics)
+        if placements["batch"] is None:
+            placements["batch"] = batch_placements({k: v.to("meta") for k, v in batch.items()}, mesh)
+        if lan is not None:
+            lan.reset()
+        if group is not None:
+            group.reset()
+        with lan if lan is not None else contextlib.nullcontext():
+            loss, metrics, grads = grads_of(params, batch)
+            new_ef, new_diloco = state.ef, state.diloco
+            if group is not None:
+                loss = group.mean_in_rank_order(loss)
+                metrics = {k: group.mean_in_rank_order(v) for k, v in metrics.items()}
+                grads, new_ef = wan_sync(grads, state.ef)
+            with implicit_replication():
+                new_params, new_adam, opt_metrics = adamw_update(opt_cfg, grads, state.adam, params)
+            if group is not None and strategy == "ps":
+                new_params = unpieces(pull_params_group(pieces(new_params), group), new_params)
+            if group is not None and strategy == "local_sgd":
+                opt_metrics = {k: group.broadcast(v.clone(), wan=False) for k, v in opt_metrics.items()}
+                if int(new_adam.step) % diloco_cfg.sync_every == 0:
+                    d = state.diloco
+                    p, dil = outer_step_group(
+                        diloco_cfg, pieces(new_params),
+                        DilocoState(anchor=pieces(d.anchor), momentum=pieces(d.momentum)), group,
+                    )
+                    new_params = unpieces(p, new_params)
+                    new_diloco = DilocoState(anchor=unpieces(dil.anchor, d.anchor),
+                                             momentum=unpieces(dil.momentum, d.momentum))
+        wan_rank = group_wan_bytes(strategy, group.handed, n) if group is not None else 0
+        metrics = dict(metrics, loss=loss, wan_bytes=_pod_sum(wan_rank, mesh),
+                       collective_s=group.wan_seconds if group is not None else 0.0, **opt_metrics)
+        if lan is not None:
+            metrics.update(wan_bytes_rank=wan_rank, lan_bytes=lan.lan_bytes, lan_s=lan.lan_seconds)
         return new_params, TrainState(new_adam, new_ef, new_diloco), metrics
 
-    step.group = group
+    step.group, step.lan, step.placements = group, lan, placements
     return step
 
 
-def _placements(mesh):
-    """Where a serving step's tensors live on ``mesh``'s pod dimension:
-    the parameters replicated, the batch, cache and logits split by rows
-    over the pods of a group mesh; in one process, everything whole on the
-    device."""
-    from torch.distributed.tensor import Replicate, Shard
+def _pod_sum(x: int, mesh) -> int:
+    """The sum of an integer each rank holds over the rank's pod: its
+    ``data`` and ``model`` peers (``x`` itself with one rank a pod)."""
+    t = torch.tensor(x, dtype=torch.int64)
+    for group in (data_process_group(mesh), model_process_group(mesh)):
+        if group is not None:
+            torch.distributed.all_reduce(t, group=group)
+    return int(t)
 
-    rows = (Shard(0),) if is_group_mesh(mesh) else (Replicate(),)
-    return {"params": (Replicate(),), "batch": rows, "cache": rows, "logits": rows}
+
+def _meta(tree):
+    return tree_map(lambda t: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta"), tree)
+
+
+def _note(placements, key, fn, tree, mesh):
+    """Fill ``placements[key]`` once, from ``tree``'s shapes: by the rules
+    (``fn``) on a group mesh; every leaf ``Replicate()`` in one process,
+    where the device holds everything whole."""
+    from torch.distributed.tensor import Replicate
+
+    if key in placements:
+        return
+    if is_group_mesh(mesh):
+        placements[key] = fn(_meta(tree), mesh)
+    else:
+        axes = len(mesh_shape(mesh)) if mesh is not None else 1
+        placements[key] = tree_map(lambda _: (Replicate(),) * axes, tree)
+
+
+def _serve_placements(cfg: ModelConfig, mesh):
+    """A serving step's placements: ``"params"`` now, the batch (or
+    tokens) and cache filled at the first call."""
+    placements = {}
+    _note(placements, "params", params_placements, init_params(cfg, device="meta"), mesh)
+    return placements
+
+
+def _mesh_serving(mesh, device):
+    """(intra-pod mesh, its LanCollectives) of a pod of several ranks, else (None, None)."""
+    intra = intra_pod_mesh(mesh)
+    return intra, None if intra is None else LanCollectives(device)
+
+
+def _on_mesh(fn, lan):
+    """``fn()`` with the model on DTensors: parameters FSDP-gathered by the
+    caller, activations placed by ``ACT_AXES``, the intra-pod collectives
+    through ``lan``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    lan.reset()
+    with lan, implicit_replication(), activation_sharding(ACT_AXES):
+        return fn()
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, *, device: DeviceLike = "cuda"):
     """Inference prefill over ``mesh``: step(params, batch, max_len=None)
     -> (last-position logits, cache) on ``device``.  On a group mesh each
-    rank prefills its pod's rows of the global batch.  Returns (step,
-    placements)."""
+    rank prefills its pod's rows of the global batch and gets their logits
+    whole; on a pod of several ranks the parameters (full tensors, which
+    :func:`init_pod_params` places, or their shards) and the batch are
+    DTensors placed by the rules, and the cache comes back as DTensors
+    placed by ``cache_pspecs``.  Returns (step, placements): ``{"params",
+    "batch", "cache"}``."""
     npods, device = _pods(mesh, None), resolve_device(device)
     group = is_group_mesh(mesh)
-    rank = torch.distributed.get_rank(pod_process_group(mesh)) if group else 0
+    rank = pod_index(mesh)
+    intra, lan = _mesh_serving(mesh, device)
+    placements = _serve_placements(cfg, mesh)
 
     def step(params, batch, max_len: Optional[int] = None):
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        return prefill(params, _rows(batch, npods, rank) if group else batch, cfg, max_len=max_len)
+        _note(placements, "batch", batch_placements, batch, mesh)
+        if intra is None:
+            logits, cache = prefill(params, _rows(batch, npods, rank) if group else batch, cfg, max_len=max_len)
+            _note(placements, "cache", cache_placements, cache, mesh)
+            return logits, cache
 
-    return step, _placements(mesh)
+        def run():
+            used = tree_map(_fsdp_gather, init_pod_params(params, mesh=mesh))
+            logits, cache = prefill(used, place_batch(batch, mesh), cfg, max_len=max_len)
+            _note(placements, "cache", cache_placements, cache, mesh)
+            want = intra_placements(placements["cache"], mesh)
+            cache = _redistribute_tree(cache, want)
+            return full(logits), cache
+
+        return _on_mesh(run, lan)
+
+    step.lan = lan
+    return step, placements
+
+
+def _redistribute_tree(tree, placements_tree):
+    if isinstance(tree, dict):
+        return {k: _redistribute_tree(v, placements_tree[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_redistribute_tree(v, p) for v, p in zip(tree, placements_tree)]
+    if tuple(tree.placements) == tuple(placements_tree):
+        return tree
+    return tree.redistribute(tree.device_mesh, placements_tree)
 
 
 def make_decode_step(cfg: ModelConfig, mesh, *, device: DeviceLike = "cuda"):
     """One decode step over ``mesh``: step(params, tokens_t, cache,
     position) -> (logits, cache).  ``tokens_t`` holds the global batch's
     tokens; on a group mesh each rank decodes its pod's rows against its
-    own cache (from :func:`make_prefill_step`).  Returns (step,
-    placements)."""
+    own cache (from :func:`make_prefill_step`), its shard of it on a pod
+    of several ranks, written in place.  Returns (step, placements):
+    ``{"params", "cache", "tokens"}``."""
     npods, device = _pods(mesh, None), resolve_device(device)
     group = is_group_mesh(mesh)
-    rank = torch.distributed.get_rank(pod_process_group(mesh)) if group else 0
+    rank = pod_index(mesh)
+    intra, lan = _mesh_serving(mesh, device)
+    placements = _serve_placements(cfg, mesh)
 
     def step(params, tokens_t, cache, position: int):
         tokens_t = torch.as_tensor(tokens_t, device=device)
-        if group:
-            tokens_t = _rows({"t": tokens_t}, npods, rank)["t"]
-        return model_decode_step(params, tokens_t, cache, cfg, position)
+        if "tokens" not in placements:
+            _note(placements, "tokens", batch_placements, {"t": tokens_t}, mesh)
+            placements["tokens"] = placements["tokens"]["t"]
+        _note(placements, "cache", cache_placements, cache, mesh)
+        if intra is None:
+            if group:
+                tokens_t = _rows({"t": tokens_t}, npods, rank)["t"]
+            return model_decode_step(params, tokens_t, cache, cfg, position)
 
-    return step, _placements(mesh)
+        def run():
+            used = tree_map(_fsdp_gather, init_pod_params(params, mesh=mesh))
+            tokens = place_batch({"t": tokens_t}, mesh)["t"]
+            logits, new_cache = model_decode_step(used, tokens, cache, cfg, position)
+            return full(logits), new_cache
+
+        return _on_mesh(run, lan)
+
+    step.lan = lan
+    return step, placements

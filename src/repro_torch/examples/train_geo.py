@@ -9,9 +9,10 @@ training curve.
 
 The experiment is one declarative ``repro_torch.scenario.Scenario``
 (topology + workload + costing options) handed to the trainer; the CLI
-flags are spec edits.  The spec's ``topology.num_pods`` is the pod count:
-one rank per DC, each a process of one gloo group, with the WAN strategy
-as real collectives between them.  Default is a few hundred steps of the
+flags are spec edits.  The spec's ``topology.num_pods`` is the pod count
+and ``--data`` the ranks of each DC: ``pods x data`` processes of one gloo
+group, FSDP over each DC's ranks, the WAN strategy as real collectives
+between the DCs.  Default is a few hundred steps of the
 reduced config; ``--paper-scale`` trains the real 82M model.  It runs on
 the card (``--device cuda``, the default) or, when asked, on the CPU.
 
@@ -20,6 +21,7 @@ Run:  PYTHONPATH=src python -m repro_torch.examples.train_geo --steps 200
       PYTHONPATH=src python -m repro_torch.examples.train_geo --strategy hier_int8
       PYTHONPATH=src python -m repro_torch.examples.train_geo --inject-failure-at 50
       PYTHONPATH=src python -m repro_torch.examples.train_geo --device cpu --steps 4
+      PYTHONPATH=src python -m repro_torch.examples.train_geo --device cpu --steps 4 --data 2
 """
 
 from __future__ import annotations
@@ -45,13 +47,13 @@ def geo_scenario(strategy: str, steps: int, *, pods: int = 2, events=()) -> Scen
 
 
 def group_rank(rank: int, args, scenario: Scenario):
-    """One DC's rank: the trainer on a pod mesh of the spec's DCs."""
+    """One rank of a DC: the trainer on a (pod, data) mesh of the spec's DCs."""
     from ..configs import get_config, get_smoke_config
     from ..launch.mesh import make_host_mesh
     from ..optim import AdamWConfig
     from ..runtime import GeoTrainer, TrainerConfig
 
-    mesh = make_host_mesh(pods=scenario.topology.num_pods, device=args.device)
+    mesh = make_host_mesh(pods=scenario.topology.num_pods, data=args.data, device=args.device)
     cfg = get_config("distilgpt2-82m") if args.paper_scale else get_smoke_config("distilgpt2-82m")
     trainer = GeoTrainer(
         cfg, mesh,
@@ -80,7 +82,8 @@ def main(argv=None) -> None:
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--inject-failure-at", type=int, default=None)
     ap.add_argument("--checkpoint-dir", default=None, help="default: a new temporary directory")
-    ap.add_argument("--pods", type=int, default=2, help="DCs, one rank each (the spec's num_pods)")
+    ap.add_argument("--pods", type=int, default=2, help="DCs (the spec's num_pods)")
+    ap.add_argument("--data", type=int, default=1, help="ranks of each DC (FSDP over them)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -90,7 +93,7 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     args.checkpoint_dir = args.checkpoint_dir or tempfile.mkdtemp(prefix="repro_torch_train_geo_")
     scenario = geo_scenario(args.strategy, args.steps, pods=args.pods)
-    result = spawn(group_rank, scenario.topology.num_pods, args, scenario, device=device)[0]
+    result = spawn(group_rank, scenario.topology.num_pods * args.data, args, scenario, device=device)[0]
     losses = [m["loss"] for m in result["metrics"]]
     wan = result["metrics"][-1]["wan_s_est"]
     print(f"\nloss: {losses[0]:.3f} -> {losses[-1]:.3f}")

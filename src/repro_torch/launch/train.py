@@ -4,10 +4,14 @@ The port of ``repro.launch.train``: runs :class:`~repro_torch.runtime.GeoTrainer
 on the chosen architecture (smoke-scale unless ``--full-config``) over
 ``--pods`` pods with a WAN sync strategy.  ``--mesh host`` (the default)
 emulates the pods in this process on one device; ``--mesh group`` starts
-one rank per pod, each a process of one gloo group on the same device,
-and the strategy runs as real collectives between them
-(:mod:`repro_torch.distributed.pod_group`); ``single`` and ``multi`` (the
-production meshes) raise, naming the ROADMAP item that places them.
+``pods x data x model`` ranks, each a process of one gloo group on the
+same device: each pod's ranks hold its parameters FSDP-sharded over
+``--data`` and tensor-parallel over ``--model``, and the strategy runs as
+real collectives between the pods
+(:mod:`repro_torch.distributed.pod_group`); ``single`` and ``multi`` are
+the production meshes (16 x 16 and 2 x 16 x 16 ranks), which need a
+started process group of that size and otherwise fail with the world-size
+``ValueError``.
 Runs on the card (``--device cuda``, the default) or, when asked, on the
 CPU through the plain PyTorch path.  ``--profile`` (card, one process
 only) runs one more step under ``torch.profiler`` and prints the device's
@@ -56,10 +60,10 @@ def _summary(trainer, result):
 
 
 def group_rank(rank: int, args):
-    """One pod's rank of ``--mesh group``: the trainer on the pod mesh."""
+    """One rank of ``--mesh group``: the trainer on the (pod, data, model) mesh."""
     from repro_torch.launch.mesh import make_host_mesh
 
-    trainer = _trainer(args, make_host_mesh(pods=args.pods, device=args.device))
+    trainer = _trainer(args, make_host_mesh(pods=args.pods, data=args.data, model=args.model, device=args.device))
     return _summary(trainer, trainer.run(inject_failure_at=args.inject_failure_at))
 
 
@@ -76,9 +80,11 @@ def main(argv=None) -> None:
     ap.add_argument("--strategy", default="hier",
                     choices=["allreduce", "ps", "hier", "hier_int8", "local_sgd"])
     ap.add_argument("--mesh", default="host", choices=["host", "group", "single", "multi"],
-                    help="host: the pods emulated in this process; group: one rank per pod over gloo; "
-                         "single/multi: the production meshes (not placed yet)")
+                    help="host: the pods emulated in this process; group: pods x data x model ranks over gloo; "
+                         "single/multi: the production meshes (a world of 256 / 512 ranks)")
     ap.add_argument("--pods", type=int, default=1, help="pods (the WAN's ends)")
+    ap.add_argument("--data", type=int, default=1, help="--mesh group: ranks of a pod's FSDP axis")
+    ap.add_argument("--model", type=int, default=1, help="--mesh group: ranks of a pod's tensor-parallel axis")
     ap.add_argument("--num-channels", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -96,7 +102,9 @@ def main(argv=None) -> None:
     from repro_torch.launch.shapes import SHAPES
 
     if args.mesh in ("single", "multi"):
-        make_production_mesh(multi_pod=args.mesh == "multi")
+        make_production_mesh(multi_pod=args.mesh == "multi", device=args.device)
+    if args.mesh != "group" and (args.data, args.model) != (1, 1):
+        raise ValueError("--data and --model place a pod over ranks: use --mesh group")
     device = resolve_device(args.device)
     if args.profile and (device.type != "cuda" or args.mesh != "host"):
         raise ValueError("--profile traces the card in one process: use --device cuda --mesh host")
@@ -105,7 +113,7 @@ def main(argv=None) -> None:
         args.seq_len, args.global_batch = spec.seq_len, spec.global_batch
     args.checkpoint_dir = args.checkpoint_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     if args.mesh == "group":
-        ranks = spawn(group_rank, args.pods, args, device=device)
+        ranks = spawn(group_rank, args.pods * args.data * args.model, args, device=device)
         summary, trainer = ranks[0], None
     else:
         trainer = _trainer(args, None)
@@ -120,8 +128,11 @@ def main(argv=None) -> None:
     if args.mesh == "group":
         for r, rank in enumerate(ranks):
             last = rank["result"]["metrics"][-1]
+            lan = (f", {last['lan_s'] * 1e3:.2f} ms in LAN collectives, {last['lan_bytes']} LAN bytes"
+                   if "lan_bytes" in last else "")
             print(f"rank {r}: last step {last['step_s'] * 1e3:.2f} ms, "
-                  f"{last['collective_s'] * 1e3:.2f} ms in WAN collectives, {last['wan_bytes']} WAN bytes")
+                  f"{last['collective_s'] * 1e3:.2f} ms in WAN collectives, "
+                  f"{last.get('wan_bytes_rank', last['wan_bytes'])} WAN bytes{lan}")
     print(f"WAN sync estimate [{args.strategy}]: {rows[-1]['wan_s_est']:.3f} s/step "
           f"(emulated fabric: {summary['dcs']} DCs)")
     print(f"sync efficiency: {result['sync_efficiency']:.2f}; "

@@ -121,17 +121,27 @@ def attention_forward(
         positions = torch.arange(S, device=x.device)
     elif not torch.equal(positions, torch.arange(S, device=positions.device)):
         raise ValueError("attention_forward's flash path needs positions == arange(S)")
+    from ..distributed.act_sharding import on_local_shards
+
     q, k, v = _project_qkv(params, x, cfg)
     q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
-    out = flash_attention(
-        q, k, v, causal=True, window=window, logit_softcap=cfg.attn_logit_softcap
+    # on a mesh the kernel runs on the rank's rows and heads
+    heads = ((0, 2),) * 3
+    out = on_local_shards(
+        lambda q, k, v: flash_attention(q, k, v, causal=True, window=window, logit_softcap=cfg.attn_logit_softcap),
+        (q, k, v), heads, heads[:1],
     )
     y = _out_proj(params, out, cfg)
     if not return_cache:
         return y, None
-    cache = make_cache_from_prefill(k, v, positions, window=window, max_len=cache_len or S)
-    return y, cache
+
+    def cache_of(k, v):
+        c = make_cache_from_prefill(k, v, positions, window=window, max_len=cache_len or S)
+        return c["k"], c["v"], c["pos"]
+
+    ck, cv, cpos = on_local_shards(cache_of, (k, v), heads[:2], (*heads[:2], (None, None)))
+    return y, {"k": ck, "v": cv, "pos": cpos}
 
 
 # -- KV cache ------------------------------------------------------------------
@@ -196,18 +206,28 @@ def attention_decode(
     into ``cache``'s tensors in place (a copy of the whole cache per step
     would move its every byte) and returns the same dict.
     """
+    from ..distributed.act_sharding import on_local_shards
+
     q, k_new, v_new = _project_qkv(params, x_t, cfg)
     pos_arr = torch.full((1,), position, dtype=torch.int32, device=x_t.device)
     q = apply_rope(q, pos_arr, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     k_new = apply_rope(k_new, pos_arr, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     size = cache["k"].shape[1]
     slot = position % size  # rolling for windows; affine for full caches
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
-    cache["pos"][slot] = position
-    out = sdpa(
-        q, cache["k"], cache["v"],
-        q_positions=pos_arr, k_positions=cache["pos"],
-        window=window, logit_softcap=cfg.attn_logit_softcap,
+
+    def attend(q, k_new, v_new, ck, cv, cpos):
+        ck[:, slot] = k_new[:, 0]
+        cv[:, slot] = v_new[:, 0]
+        cpos[slot] = position
+        return sdpa(
+            q, ck, cv, q_positions=pos_arr, k_positions=cpos,
+            window=window, logit_softcap=cfg.attn_logit_softcap,
+        )
+
+    # on a mesh: the rank's rows and heads, its cache shard written in place
+    heads = (0, 2)
+    out = on_local_shards(
+        attend, (q, k_new, v_new, cache["k"], cache["v"], cache["pos"]),
+        (heads,) * 5 + ((None, None),), (heads,), in_place=(3, 4, 5),
     )
     return _out_proj(params, out, cfg), cache

@@ -125,6 +125,8 @@ def time_mix(
     ``wkv_out``, if given, receives the new WKV state (it may be
     ``wkv_state`` itself).
     """
+    from ..distributed.act_sharding import on_local_shards
+
     b, t, d = x.shape
     n = cfg.rwkv_head_dim
     h = d // n
@@ -147,7 +149,14 @@ def time_mix(
     log_neg = params["decay_w0"].reshape(1, 1, h, n) + dd.reshape(b, t, h, n)
     w = torch.exp(-torch.exp(log_neg))  # in (0, 1)
 
-    out, new_wkv = _wkv_with_initial_state(r, k, v, w, params["bonus"], wkv_state, state_out=wkv_out)
+    # on a mesh the kernel runs on the rank's rows and heads (the state
+    # written in place when ``wkv_out`` is given)
+    heads, state = (0, 2), (0, 1)
+    out, new_wkv = on_local_shards(
+        lambda r, k, v, w, u, s0, so: _wkv_with_initial_state(r, k, v, w, u, s0, state_out=so),
+        (r, k, v, w, params["bonus"], wkv_state, wkv_out), (heads,) * 4 + ((None, 0), state, state),
+        (heads, state), in_place=(6,),
+    )
     out = _group_norm(out.reshape(b, t, d).to(dt), params["gn_scale"], h, n)
     y = (out * g) @ params["wo"].to(dt)
     return y, new_shift, new_wkv

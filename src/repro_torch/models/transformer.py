@@ -213,16 +213,27 @@ def _index(tree, i: int):
 
 def embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """Token + stub-frontend embedding -> (x [B, S, D], positions [S])."""
+    from ..distributed.act_sharding import shard_activations
+
     dt = cfg.compute_dtype
     if cfg.frontend == "frame":
         x = batch["frame_embeds"].to(dt) @ params["frontend_proj"].to(dt)
     else:
-        x = params["embed"].to(dt)[batch["tokens"]]
+        x = _lookup(params["embed"].to(dt), batch["tokens"])
         if cfg.frontend == "patch":
             patches = batch["patch_embeds"].to(dt) @ params["frontend_proj"].to(dt)
             x = torch.cat([patches, x], dim=1)
+    x = shard_activations(x)  # on a mesh: batch over data (and pod), per the active context
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
+
+
+def _lookup(table, tokens):
+    """``table[tokens]``; on a mesh on each rank's rows of ``tokens`` with
+    the whole table (DTensor has no sharding rule for the index backward)."""
+    from ..distributed.act_sharding import on_local_shards
+
+    return on_local_shards(lambda t, i: t[i], (table, tokens), ((None, None), (0, None)), ((0, None),))
 
 
 def unembed(params: Params, x, cfg: ModelConfig):
@@ -240,12 +251,15 @@ def unembed(params: Params, x, cfg: ModelConfig):
 
 def _run_stack(params: Params, x, cfg: ModelConfig, positions, cache_len):
     """Every layer in order; the per-layer caches stacked like the JAX scan's."""
+    from ..distributed.act_sharding import shard_activations
 
     def group_body(x, group):
         slots = {}
         for s, kind in enumerate(cfg.pattern):
             x, slots[f"slot{s}"] = _block(group[f"slot{s}"], x, kind, cfg, positions, cache_len)
-        return x, slots
+        # sequence-parallel boundary: between blocks the residual lives
+        # sharded over (batch, seq) on a mesh
+        return shard_activations(x), slots
 
     remat = cfg.remat in ("full", "dots") and cache_len is None and torch.is_grad_enabled()
     caches = []
@@ -287,6 +301,8 @@ def loss_fn(params: Params, batch, cfg: ModelConfig):
     masked mean of logsumexp^2, and the MoE router's aux term.
     Returns (total, {"ce", "aux", "tokens"}).
     """
+    from ..distributed.act_sharding import reduce_partial
+
     logits, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     logits = logits[:, : labels.shape[1], :].float()  # logits[t] predicts labels[t]
@@ -295,11 +311,11 @@ def loss_fn(params: Params, batch, cfg: ModelConfig):
     logp = torch.log_softmax(logits, dim=-1)
     token_ll = logp.gather(-1, safe_labels[..., None])[..., 0]
     denom = mask.sum().clamp_min(1.0)
-    ce = -(token_ll * mask).sum() / denom
+    ce = reduce_partial(-(token_ll * mask).sum() / denom)  # on a mesh: summed over the rows' ranks
     total = ce
     if cfg.z_loss:
         logz = torch.logsumexp(logits, dim=-1)
-        total = total + cfg.z_loss * torch.mean(logz.square() * mask)
+        total = total + cfg.z_loss * reduce_partial(torch.mean(logz.square() * mask))
     if cfg.moe is not None:
         total = total + cfg.moe.router_aux_coef * aux
     return total, {"ce": ce, "aux": aux, "tokens": denom}
@@ -351,11 +367,14 @@ def decode_step(params: Params, tokens_t, cache: Params, cfg: ModelConfig, posit
     "frame" stub); position: absolute position of the new token.
     Returns (logits [B, V], cache); the cache's tensors are updated in place.
     """
+    from ..distributed.act_sharding import shard_activations
+
     dt = cfg.compute_dtype
     if cfg.frontend == "frame":
         x_t = tokens_t.to(dt) @ params["frontend_proj"].to(dt)
     else:
-        x_t = params["embed"].to(dt)[tokens_t][:, None, :]
+        x_t = _lookup(params["embed"].to(dt), tokens_t)[:, None, :]
+    x_t = shard_activations(x_t)
     for i in range(cfg.num_groups):
         group = _index(params["groups"], i)
         group_cache = _index(cache["groups"], i)

@@ -41,7 +41,7 @@ class AdamWState(NamedTuple):
 
 def init_adamw(params) -> AdamWState:
     device = tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731  (placed as p on a mesh)
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
         m=tree_map(zeros, params),
@@ -62,15 +62,46 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _square_sum(g) -> torch.Tensor:
+    """The sum of squares of a leaf: over every shard for a DTensor (its
+    ``full_tensor()`` reduces the partial sums), a plain 0-d tensor."""
+    s = torch.sum(torch.square(g.float()))
+    return s.full_tensor() if _is_dtensor(s) else s
+
+
+def on_local(fn, *leaves):
+    """``fn`` on the local tensors of ``leaves``; for DTensor leaves each
+    output comes back as a DTensor placed as ``leaves[0]`` is (a tuple of
+    outputs, each so).  Plain tensors go straight through."""
+    if not _is_dtensor(leaves[0]):
+        return fn(*leaves)
+    from torch.distributed.tensor import DTensor
+
+    like = leaves[0]
+    out = fn(*(t.to_local() if _is_dtensor(t) else t for t in leaves))
+
+    def wrap(t):
+        return DTensor.from_local(t, like.device_mesh, like.placements, run_check=False,
+                                  shape=like.shape, stride=like.stride())
+
+    return tuple(wrap(t) for t in out) if isinstance(out, tuple) else wrap(out)
+
+
 def global_norm(tree) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree))
+    sq = sum(_square_sum(g) for g in tree_leaves(tree))
     return torch.sqrt(sq)
 
 
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+    return tree_map(lambda g: on_local(lambda x: x * scale.to(x.dtype), g), grads), norm
 
 
 def adamw_update(
@@ -96,7 +127,7 @@ def adamw_update(
             delta = delta + cfg.weight_decay * p.float()
         return (p.float() - lr * delta).to(p.dtype), m, v
 
-    out = tree_map(upd, params, grads, state.m, state.v)  # (p, m, v) at each leaf
+    out = tree_map(lambda *t: on_local(upd, *t), params, grads, state.m, state.v)  # (p, m, v) at each leaf
     new_state = AdamWState(step=step, m=_field(out, 1), v=_field(out, 2))
     return _field(out, 0), new_state, metrics
 

@@ -13,7 +13,9 @@ momentum are the same on every pod and are kept once.
 :func:`outer_step_group` is the form for one rank per pod
 (:mod:`repro_torch.distributed.pod_group`): each rank keeps its own
 parameters and AdamW moments between outer steps, and the ``all_reduce``
-of the float32 deltas is its only transfer.
+of the float32 deltas is its only transfer.  On a pod of several ranks the
+step hands it each rank's pieces of the parameters and state
+(:mod:`repro_torch.distributed.placement`).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def init_diloco(params) -> DilocoState:
     """From one pod's parameters (no pod dimension)."""
     return DilocoState(
         anchor=tree_map(lambda p: p.detach().float().clone(), params),
-        momentum=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params),
+        momentum=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
     )
 
 

@@ -1,24 +1,19 @@
 """Elastic re-meshing: survive pod loss, absorb pod joins.
 
-Port of ``repro.runtime.elastic``'s planning half, as plain Python: when the
-failure detector kills a pod, :func:`plan_remesh` picks the new mesh (drop
-the pod axis or shrink it), and :class:`ElasticCoordinator` tracks pod
-membership and records each plan.  Parameters are pod-replicated, so any
-surviving pod holds a complete model copy: re-meshing is a resharding,
-never a data loss.  Building the mesh and re-placing a tree on it need a
-``DeviceMesh`` / DTensor placement, which is not ported yet (ROADMAP
-queue 1, item 16): :meth:`MeshPlan.build` and :func:`reshard_tree` raise.
+Port of ``repro.runtime.elastic``: when the failure detector kills a pod,
+:func:`plan_remesh` picks the new mesh (drop the pod axis or shrink it),
+:meth:`MeshPlan.build` makes it over the ranks that survive, and
+:func:`reshard_tree` re-places the restored checkpoint on it by the
+sharding rules.  :class:`ElasticCoordinator` tracks pod membership and
+records each plan.  Parameters are pod-replicated, so any surviving pod
+holds a complete model copy: re-meshing is a resharding, never a data
+loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
-
-PLACEMENT_NOT_PORTED = (
-    "device meshes and resharding are not ported to repro_torch yet "
-    "(ROADMAP queue 1, item 16: a DeviceMesh and DTensor placements)"
-)
+from typing import List, Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,8 +23,23 @@ class MeshPlan:
     npods: int
     note: str
 
-    def build(self):
-        raise NotImplementedError(PLACEMENT_NOT_PORTED)
+    def build(self, *, ranks: Optional[Sequence[int]] = None, device="cuda"):
+        """The planned mesh (:func:`repro_torch.launch.mesh.make_mesh`).  In a
+        started process group every rank of the old world calls this, as
+        making the new groups needs: the mesh spans ``ranks`` (by default
+        the first ranks of the world, pod-major: the pods kept are the
+        first ones), and a rank outside them, whose pod was lost, gets None
+        and leaves.  In one process, a ``LocalMesh``."""
+        import torch.distributed as dist
+
+        from ..launch.mesh import make_mesh
+
+        if ranks is None and dist.is_available() and dist.is_initialized():
+            size = 1
+            for s in self.shape:
+                size *= s
+            ranks = range(size)
+        return make_mesh(self.shape, self.axes, device=device, ranks=ranks)
 
     def to_dict(self) -> dict:
         return {
@@ -69,7 +79,27 @@ def plan_remesh(
 
 
 def reshard_tree(tree, new_mesh):
-    raise NotImplementedError(PLACEMENT_NOT_PORTED)
+    """Re-place a parameter tree onto ``new_mesh`` by the rules
+    (:func:`repro_torch.distributed.sharding.params_placements`): its
+    leaves are full tensors (as restored from a checkpoint) or DTensors on
+    the old mesh, which are gathered over their own pod first.  On a mesh
+    whose pods are single ranks, or in one process, the leaves come back
+    whole."""
+    from ..distributed.lan import LanCollectives
+    from ..distributed.placement import full, is_dtensor, place_tree
+    from ..distributed.sharding import params_placements
+    from ..distributed.steps import intra_placements
+    from ..launch.mesh import intra_pod_mesh
+    from ..tree import tree_leaves, tree_map
+
+    placed = [t for t in tree_leaves(tree) if is_dtensor(t)]
+    if placed:
+        with LanCollectives(placed[0].to_local().device):
+            tree = tree_map(full, tree)
+    intra = intra_pod_mesh(new_mesh)
+    if intra is None:
+        return tree
+    return place_tree(tree, intra, intra_placements(params_placements(tree, new_mesh), new_mesh))
 
 
 @dataclasses.dataclass

@@ -42,6 +42,12 @@ takes its own slice.  The monitors get every pod's own measured step time,
 all-gathered; the step time the checkpoint cadence and recovery plans use
 is the slowest pod's, the same on every rank.  Each row also holds the
 rank's seconds in WAN collectives (``collective_s``, 0 in one process).
+On a mesh whose pods are several ranks (``data`` or ``model`` above 1)
+the parameters and state are DTensors placed by the sharding rules; a
+checkpoint gathers each sharded leaf over its pod before rank 0 writes
+the one-process layout, a restore places each rank's shard of it, and
+each row adds the rank's WAN share and its LAN bytes and seconds
+(``wan_bytes_rank``, ``lan_bytes``, ``lan_s``).
 """
 
 from __future__ import annotations
@@ -57,7 +63,9 @@ from ..core import GeoFabric, SyncOptions
 from ..data import loader_for_model
 from ..device import DeviceLike, resolve_device
 from ..distributed import PodGroup, init_pod_params, init_train_state, make_train_step, map_pod_leaves
-from ..launch.mesh import is_group_mesh, num_pods, pod_process_group
+from ..distributed.placement import full_tree
+from ..distributed.steps import place_train_state
+from ..launch.mesh import intra_pod_mesh, is_group_mesh, num_pods, pod_index, pod_process_group
 from ..models import init_params
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, DilocoConfig
@@ -121,8 +129,11 @@ class GeoTrainer:
         tc = self.tc
         # one pod stands for a mesh without a pod axis, which the JAX trainer prices as 2
         self.geo = geo or GeoFabric(num_pods=tc.npods if tc.npods > 1 else 2)
-        self.group = PodGroup(pod_process_group(mesh), device=self.device) if is_group_mesh(mesh) else None
-        self.rank = self.group.rank if self.group is not None else 0
+        pod_group = pod_process_group(mesh)
+        self.group = PodGroup(pod_group, device=self.device) if pod_group is not None else None
+        self.rank = torch.distributed.get_rank() if is_group_mesh(mesh) else 0
+        self.pod = pod_index(mesh)
+        self.intra = intra_pod_mesh(mesh)
         self.store = CheckpointStore(checkpoint_dir, keep=tc.checkpoint_keep)
         self.ckpt = AsyncCheckpointer(self.store)
         pods = [f"pod{i}" for i in range(tc.npods)]
@@ -176,23 +187,38 @@ class GeoTrainer:
         start_step = 0
         latest = self.store.latest_step()
         if latest is not None:
-            if self.group is None:
+            if not is_group_mesh(self.mesh):
                 (params, state), meta = self.store.restore(latest, (params, state))
             else:
-                n, rank = self.tc.npods, self.rank
-                like = self._pod_leaves(lambda t: t.expand(n, *t.shape), params, state)
+                n, pod = self.tc.npods, self.pod
+                own = self._own_layout(params, state)
+                like = self._pod_leaves(lambda t: t.expand(n, *t.shape), *own)
                 whole, meta = self.store.restore(latest, like)
-                params, state = self._pod_leaves(lambda t: t[rank].clone(), *whole)
+                params, state = self._pod_leaves(lambda t: t[pod].clone(), *whole)
+                if self.intra is not None:  # each rank keeps its shard
+                    params = init_pod_params(params, strategy=self.tc.strategy, mesh=self.mesh)
+                    state = place_train_state(state, self.mesh, strategy=self.tc.strategy)
             start_step = int(meta.get("data_step", latest))
             self.loader.step = start_step
         return params, state, start_step
 
+    def _own_layout(self, params, state):
+        """A rank's (params, state) as one pod's whole tensors: its shards
+        gathered over its pod on a pod of several ranks."""
+        if self.intra is None:
+            return params, state
+        lan = self.step_fn.lan
+        with lan, lan.uncounted():
+            return full_tree(params), full_tree(state)
+
     def _save(self, step: int, params, state) -> None:
-        """Checkpoint ``step``; on a group mesh every rank hands its per-pod
-        leaves to rank 0, which writes the one-process layout."""
-        tree = (params, state)
-        if self.group is not None:
-            tree = self._pod_leaves(self.group.gather_to_root, params, state)
+        """Checkpoint ``step``; on a group mesh the sharded leaves are
+        gathered over each pod, every rank hands its per-pod leaves to rank
+        0, which writes the one-process layout."""
+        tree = self._own_layout(params, state)
+        if is_group_mesh(self.mesh):
+            stack = self.group.gather_to_root if self.group is not None else (lambda t: t.unsqueeze(0))
+            tree = self._pod_leaves(stack, *tree)
             if self.rank != 0:
                 return
         self.ckpt.save(step, tree, metadata={"data_step": step})
@@ -287,6 +313,9 @@ class GeoTrainer:
                 "wan_s_est": wan_cost.amortized_seconds,
                 "collective_s": float(metrics.get("collective_s", 0.0)),
             }
+            if self.intra is not None:
+                row.update(wan_bytes_rank=int(metrics["wan_bytes_rank"]), lan_bytes=int(metrics["lan_bytes"]),
+                           lan_s=float(metrics["lan_s"]))
             self.metrics_log.append(row)
             if on_step:
                 on_step(step, row)

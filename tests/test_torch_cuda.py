@@ -693,3 +693,140 @@ def test_group_ranks_launch_the_kernels_on_wgmma(card_group, strategy):
             want.update(wan_quant=leaves, wan_dequant=leaves)
         assert launches == want
         assert routes == {"wgmma": cfg.num_layers} and bwd_routes == {"wgmma": cfg.num_layers}
+
+
+# -- intra-pod placement on the card: 4 ranks, (pod 2, data 2) and (data 2, model 2) --------
+
+MESH_LOSS_RTOL = 1e-3  # bf16: sums over data ranks and tensor-parallel halves round apart (train_mesh's bar)
+
+
+def _mesh_step(strategy, mesh):
+    """One step on ``mesh`` from seed 0's weights: the rank's view, with
+    its launches, routes and LAN / WAN counts."""
+    from repro_torch.distributed.placement import full_tree
+
+    cfg = _group_cfg()
+    params = init_params(cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+    state = init_train_state(params, None, strategy=strategy, mesh=mesh)
+    step = make_train_step(cfg, mesh=mesh, strategy=strategy, device="cuda")
+    LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
+    BWD_ROUTE_LAUNCHES.clear()
+    new, _, metrics = step(init_pod_params(params, strategy=strategy, mesh=mesh), state, _group_batch(cfg))
+    torch.cuda.synchronize()
+    counts = (dict(LAUNCHES), dict(ROUTE_LAUNCHES), dict(BWD_ROUTE_LAUNCHES))
+    on_card = all(t.to_local().device.type == "cuda" for _, t in tree_items(new))
+    with step.lan:
+        whole = {p: t.float().cpu() for p, t in tree_items(full_tree(new))}
+    return {"loss": metrics["loss"].item(), "wan_bytes": metrics["wan_bytes"], "lan_bytes": metrics["lan_bytes"],
+            "lan_calls": dict(step.lan.calls), "params": whole, "counts": counts, "on_card": on_card}
+
+
+def _mesh_serve(mesh, device, fed=None):
+    """Prefill and 3 decode steps, fed ``fed`` (default: this run's own
+    greedy tokens, which it returns)."""
+    cfg = _group_cfg()
+    params = init_params(cfg, generator=torch.Generator(device).manual_seed(0), device=device)
+    batch = synthetic_prompt_batch(cfg, torch.Generator(device).manual_seed(1), 4, 128)
+    if mesh is None:
+        logits, cache = prefill(params, batch, cfg, max_len=131)
+    else:
+        from repro_torch.distributed import make_decode_step, make_prefill_step
+
+        prefill_step, _ = make_prefill_step(cfg, mesh, device=device)
+        decode, _ = make_decode_step(cfg, mesh, device=device)
+        LAUNCHES.clear()
+        ROUTE_LAUNCHES.clear()
+        logits, cache = prefill_step(params, batch, max_len=131)
+    out, tokens = [logits.float().cpu()], []
+    for i in range(3):
+        tokens.append(logits.argmax(-1).cpu() if fed is None else fed[i])
+        if mesh is None:
+            logits, cache = decode_step(params, tokens[-1].to(device), cache, cfg, 128 + i)
+        else:
+            logits, cache = decode(params, tokens[-1].to(device), cache, 128 + i)
+        out.append(logits.float().cpu())
+    return out, tokens, (dict(LAUNCHES), dict(ROUTE_LAUNCHES))
+
+
+def _card_mesh_rank(rank, fed):
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pod_data = make_mesh((2, 2, 1), ("pod", "data", "model"), device="cuda")
+    data_model = make_mesh((2, 2), ("data", "model"), device="cuda")
+    return {
+        "coordinate": list(pod_data.get_coordinate()),
+        "pod_data": _mesh_step("hier_int8", pod_data),
+        "data_model": _mesh_step("allreduce", data_model),
+        "serve": _mesh_serve(data_model, "cuda", fed),
+    }
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """Four ranks of one gloo group on the card: one step on each mesh, and
+    a prefill with 3 decode steps on (data 2, model 2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.distributed import spawn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    served, fed, _ = _mesh_serve(None, "cuda")
+    ranks = spawn(_card_mesh_rank, 4, fed, device="cuda", join_timeout_s=400)
+    one = {s: _group_step(s, torch.device("cuda")) for s in ("hier_int8", "allreduce")}
+    return ranks, one, served
+
+
+def test_mesh_steps_on_the_card_match_the_one_process_step(card_mesh):
+    """The (pod 2, data 2) hier_int8 step and the (data 2, model 2) step:
+    loss within MESH_LOSS_RTOL of the one-process card step, every leaf on
+    the card, WAN bytes a pod equal to the one-process step's (none on a
+    mesh without pods), LAN bytes counted."""
+    ranks, one, _ = card_mesh
+    for r, rank in enumerate(ranks):
+        for key, strategy in (("pod_data", "hier_int8"), ("data_model", "allreduce")):
+            got, want = rank[key], one[strategy]
+            assert got["on_card"], (r, key)
+            assert abs(got["loss"] - want["loss"]) <= MESH_LOSS_RTOL * abs(want["loss"]), (r, key)
+            assert got["wan_bytes"] == (want["wan_bytes"] if key == "pod_data" else 0), (r, key)
+            assert got["lan_bytes"] > 0 and got["lan_calls"], (r, key)
+
+
+def test_mesh_ranks_launch_the_kernels_on_local_shards_on_wgmma(card_mesh):
+    """One flash forward and backward a layer on every rank, on wgmma
+    (the rank's rows, and over model its 6 heads of 64); under hier_int8
+    one wan_quant and one wan_dequant a non-empty WAN piece."""
+    ranks, one, _ = card_mesh
+    cfg = _group_cfg()
+    leaves = [p for p in one["hier_int8"]["params"]]
+    for r, rank in enumerate(ranks):
+        for key in ("pod_data", "data_model"):
+            launches, routes, bwd_routes = rank[key]["counts"]
+            assert launches["flash_attention_fwd"] == launches["flash_attention_bwd"] == cfg.num_layers, (r, key)
+            assert routes == {"wgmma": cfg.num_layers} and bwd_routes == {"wgmma": cfg.num_layers}, (r, key)
+        launches = rank["pod_data"]["counts"][0]
+        first = rank["coordinate"][1] == 0  # data index 0: the pod's first rank owns the rank-0/1 leaves
+        assert launches["wan_quant"] == launches["wan_dequant"] <= len(leaves), r
+        assert (launches["wan_quant"] == len(leaves)) == first, r
+        assert "wan_quant" not in rank["data_model"]["counts"][0], r
+
+
+def test_mesh_serving_on_the_card_matches_one_process(card_mesh):
+    """Prefill and 3 decode steps on (data 2, model 2), fed the one-process
+    card run's greedy tokens, against that run: bf16 rtol = atol = 5e-2,
+    the greedy tokens equal but where the one-process top two logits are
+    within the tolerance (a near-tie at bf16 rounding), one flash forward a
+    layer a rank on wgmma."""
+    ranks, _, want = card_mesh
+    cfg = _group_cfg()
+    for r, rank in enumerate(ranks):
+        got, _, (launches, routes) = rank["serve"]
+        assert launches == {"flash_attention_fwd": cfg.num_layers} and routes == {"wgmma": cfg.num_layers}, r
+        for i, (g, w) in enumerate(zip(got, want)):
+            torch.testing.assert_close(g, w, rtol=5e-2, atol=5e-2, msg=f"rank {r} call {i}")
+            top2 = w.topk(2, dim=-1).values
+            tie = (top2[:, 0] - top2[:, 1]) <= 5e-2 * (1 + top2[:, 0].abs())
+            assert not ((g.argmax(-1) != w.argmax(-1)) & ~tie).any(), (r, i)

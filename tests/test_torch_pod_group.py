@@ -38,7 +38,8 @@ The parent holds what the ranks return:
 4. the mesh helpers against the JAX package's on meshes of the same shape;
 5. ``make_prefill_step`` / ``make_decode_step`` against JAX ``prefill`` /
    ``decode_step`` (float32 1e-4, test_torch_serve.py's bar);
-6. wide ``data``/``model`` axes and the production mesh raising;
+6. a mesh the world cannot hold (wide ``data``/``model`` axes, the
+   production meshes, in one process) raising the world-size ``ValueError``;
 
 and, on 2 ranks, checkpoints written by a group run resumed by the
 one-process trainer and the reverse, losses equal to the uninterrupted
@@ -198,7 +199,21 @@ def _serve(mesh, params_np, tokens, decode_tokens):
     for i, t in enumerate(decode_tokens):
         logits, cache = decode(params, t, cache, PROMPT + i)
         out.append(logits.numpy().copy())
-    return out, {k: [type(p).__name__ for p in v] for k, v in placements.items()}
+    return out, {k: _pod_entries(v) for k, v in placements.items()}
+
+
+def _placement_leaves(tree):
+    """The placement tuples of a placements tree (dicts and lists are its nodes)."""
+    if isinstance(tree, dict):
+        return [p for v in tree.values() for p in _placement_leaves(v)]
+    if isinstance(tree, list):
+        return [p for v in tree for p in _placement_leaves(v)]
+    return [tree]
+
+
+def _pod_entries(tree):
+    """The distinct names of the placements over the pod dimension (the first)."""
+    return sorted({type(pl[0]).__name__ for pl in _placement_leaves(tree)})
 
 
 def _tc(strategy, steps, **more):
@@ -606,7 +621,9 @@ def test_prefill_and_decode_steps_match_jax(run):
     per = run["tokens"].shape[0] // world
     for r, rank in enumerate(run["ranks"]):
         got, placements = rank["serve"]
-        assert placements == {"params": ["Replicate"], "batch": ["Shard"], "cache": ["Shard"], "logits": ["Shard"]}
+        # by the rules: parameters and caches replicated over pod (each pod
+        # serves its own rows with its own cache), the batch split over it
+        assert placements == {"params": ["Replicate"], "batch": ["Shard"], "cache": ["Replicate"]}
         for i, (g, w) in enumerate(zip(got, want)):
             np.testing.assert_allclose(g, w[r * per : (r + 1) * per], rtol=1e-4, atol=1e-4,
                                        err_msg=f"rank {r} call {i}")
@@ -621,29 +638,35 @@ def test_prefill_step_on_a_local_mesh_runs_the_whole_batch():
 
     logits, _ = step(params, {"tokens": tokens})
     assert torch.equal(logits, prefill(params, {"tokens": tokens}, cfg)[0])
-    assert all(type(p).__name__ == "Replicate" for v in placements.values() for p in v)
+    assert set(placements) == {"params", "batch", "cache"}
+    assert all(type(p).__name__ == "Replicate" for v in placements.values() for pl in _placement_leaves(v) for p in pl)
 
 
-# -- 6. what is not placed yet raises ----------------------------------------------------
+# -- 6. a mesh the world cannot hold raises ---------------------------------------------
 
 
-@pytest.mark.parametrize("make", [
-    lambda: tmesh.make_host_mesh(pods=2, data=2, device="cpu"),
-    lambda: tmesh.make_host_mesh(pods=1, model=2, device="cpu"),
-    lambda: tmesh.make_mesh((2, 4), ("pod", "data"), device="cpu"),
-    lambda: tmesh.make_production_mesh(),
-    lambda: tmesh.make_production_mesh(multi_pod=True),
+@pytest.mark.parametrize("make,size", [
+    (lambda: tmesh.make_host_mesh(pods=2, data=2, device="cpu"), 4),
+    (lambda: tmesh.make_host_mesh(pods=1, model=2, device="cpu"), 2),
+    (lambda: tmesh.make_mesh((2, 4), ("pod", "data"), device="cpu"), 8),
+    (lambda: tmesh.make_production_mesh(), 256),
+    (lambda: tmesh.make_production_mesh(multi_pod=True), 512),
 ], ids=["data2", "model2", "make_mesh_data4", "production", "production_multi_pod"])
-def test_intra_pod_axes_raise_naming_item_16(make):
-    with pytest.raises(NotImplementedError, match="item 16"):
+def test_intra_pod_axes_raise_naming_item_16(make, size):
+    """Intra-pod axes are placed now (ROADMAP item 16 is done): in one
+    process a mesh with data or model above 1 needs a world of its size,
+    and says so, naming both numbers."""
+    with pytest.raises(ValueError, match=f"a mesh of {size} devices .* in a world of 1 ranks"):
         make()
 
 
-@pytest.mark.parametrize("mesh", ["single", "multi"])
-def test_train_cli_production_meshes_raise_naming_item_16(mesh):
+@pytest.mark.parametrize("mesh,size", [("single", 256), ("multi", 512)])
+def test_train_cli_production_meshes_raise_naming_item_16(mesh, size):
+    """The production meshes build under a world of their size; here, in
+    one process, the launcher fails with the world-size ``ValueError``."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match=f"a mesh of {size} devices .* in a world of 1 ranks"):
         train.main(["--device", "cpu", "--mesh", mesh])
 
 

@@ -37,6 +37,7 @@ from repro_torch import scenario as tsc
 from repro_torch import serving as tsv
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.launch.mesh import LocalMesh
 from repro_torch.models import prefill
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import ElasticCoordinator, GeoTrainer, MeshPlan, TrainerConfig, plan_remesh, reshard_tree
@@ -184,9 +185,13 @@ def test_elastic_plans_equal_jax():
     ]
     with pytest.raises(ValueError, match="no survivors"):
         plan_remesh(1, 0, data=1, model=1)
-    for call in (lambda: MeshPlan((1,), ("data",), 1, "").build(), lambda: reshard_tree({}, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
-            call()
+    # building and re-placing are ported (ROADMAP item 16): in one process a
+    # plan without wide intra-pod axes builds a LocalMesh, on which a tree
+    # stays whole
+    mesh = MeshPlan((1,), ("data",), 1, "").build(device="cpu")
+    assert isinstance(mesh, LocalMesh) and mesh.shape == {"data": 1}
+    tree = {"w": torch.ones(2, 3)}
+    assert reshard_tree(tree, mesh) is tree
 
 
 # -- request_batch and a traced request's prefill -----------------------------

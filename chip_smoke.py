@@ -10,8 +10,14 @@ Phases, each printing one JSON line on stdout:
    (one ``nvcc`` per source, all started together).
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and the variants below, with times: the flash
-   forward and backward, the WAN int8 quantiser and dequantiser, and the
-   RWKV6 WKV recurrence.
+   forward and backward, the WAN int8 quantiser and dequantiser, the RWKV6
+   WKV recurrence and its backward (``wkv6_bwd``: dr, dk, dv, dw, du and
+   dstate0 against ``wkv6_bwd_ref`` at N 16, 64, 128, bf16 and float32, T
+   from 1 to 4096 across the 16-step stage and the 256-step chunk, w down
+   to 1e-30 in one case; ``wkv6`` under grad against autograd through
+   ``wkv6_ref``; timed at 4 x 4096 and 2 x 4096, with the forward's
+   serving instance and its training instance, which also saves the
+   state every 256 steps).
 4. ``serve``: the serving path, distilgpt2-82m at full width (random
    weights from a seed): prefill of 8 x 1024 tokens, then 32 greedy decode
    steps, with the kernel launch counts of that run; then the card against
@@ -88,6 +94,23 @@ Phases, each printing one JSON line on stdout:
    steps), and the state carried from a 4096-token prefill through one
    decode step against a 4097-token prefill.  It runs after the train
    phases' tensors are released.
+7. ``train_rwkv``: rwkv6-7b at full width (d_model 4096, 64 heads of 64,
+   d_ff 14336, vocab 65536), its depth cut to 4 of 32 layers (1.41 B
+   parameters), through ``GeoTrainer``: 2 pods, ``hier_int8``, global
+   batch 4 x 4096, bf16 compute, float32 parameters, AdamW, 2 untimed and
+   4 timed steps, no checkpoint written.  Losses finite and falling; per
+   step 8 ``wkv6_fwd`` and 8 ``wkv6_bwd`` launches (pods x layers: the
+   rematerialised forward replays the first one's WKV outputs) and a
+   ``wan_quant`` / ``wan_dequant`` a leaf; WAN bytes a pod a step within 1%
+   of ``wan_bytes_per_step``.  Then one step of a 2-layer cut on one
+   768-token sequence (three 256-step chunks) on the card against the CPU:
+   the loss and each leaf's gradient (relative norm) at 5e-2, or at 1.5 x
+   the CPU bf16 gradient's own distance from the card's float32 one where
+   bf16 resolves a leaf no better (the bonus u).
+8. ``quickstart``: ``repro_torch.examples.quickstart`` on the CPU, then on
+   the card, each in a fresh checkpoint directory: the fabric, port and
+   cost lines (numpy) equal, the card's 20 losses falling, 2 flash
+   launches a step each way.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` prints them, and, last, ``{"ok": true, "device": ...}``.
@@ -175,6 +198,25 @@ WKV_CASES = [
     ("n32", 4, 1024, 128, 32, "bfloat16", "float32", False),
 ]
 WKV_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # TestWkv6's, by the r/k/v dtype
+# (label, B, T, H, N, r/k/v dtype, w dtype, w down to 1e-30): the backward
+# at the rwkv6-7b 4 x 4096 shape and train_rwkv's per-pod 2 x 4096 (both
+# timed), then T across the kernel's 16-step stage and the 256-step chunk
+# (1, 17, 256 + 5, 3 x 256) at N 16, 64, 128 in bf16 and float32
+WKV_BWD_CASES = [
+    ("path_4x4096", 4, 4096, 64, 64, "bfloat16", "float32", False),
+    ("train_pod_2x4096", 2, 4096, 64, 64, "bfloat16", "float32", False),
+    ("t1_n64", 2, 1, 64, 64, "bfloat16", "float32", False),
+    ("t17_n16_f32", 2, 17, 16, 16, "float32", "float32", False),
+    ("t261_n128", 1, 261, 32, 128, "bfloat16", "float32", False),
+    ("t261_n64_f32", 2, 261, 64, 64, "float32", "float32", False),
+    ("t768_n16_w_bf16", 2, 768, 16, 16, "bfloat16", "bfloat16", False),
+    ("t768_n128_f32", 1, 768, 32, 128, "float32", "float32", False),
+    ("w_to_1e-30_t300_n64", 2, 300, 16, 64, "bfloat16", "float32", True),
+]
+WKV_BWD_TIMED = 2  # the first cases, timed
+# train_rwkv: rwkv6-7b at full width, depth cut from 32 layers
+RWKV_TRAIN_LAYERS, B_RWKV_TRAIN, SEQ_RWKV_TRAIN, RWKV_TRAIN_STEPS = 4, 4, 4096, 6
+RWKV_CHECK_LAYERS, RWKV_CHECK_SEQ = 2, 768  # card against CPU: 3 chunks of 256
 B_SERVE, PROMPT, GEN = 8, 1024, 32
 B_RWKV, PROMPT_RWKV, GEN_RWKV = 4, 4096, 32
 RWKV_PARAMS, RWKV_LEAVES = 7_534_682_112, 27  # jax.eval_shape of init_params
@@ -287,6 +329,18 @@ def wkv_bound(b, t, h, n, rkv_dtype, w_dtype):
     elems = b * t * h * n
     nbytes = elems * (3 * isz[rkv_dtype] + isz[w_dtype] + 4) + h * n * 4 + 2 * b * h * n * n * 4
     return bound(nbytes, 4 * n * n * b * t * h, "float32")
+
+
+def wkv_bwd_bound(b, t, h, n, rkv_dtype, w_dtype, chunk):
+    """Each input read once (r, k, v, w; dy float32; u; the saved states and
+    dstate), each output written once (dr, dk, dv in r's type, dw in w's; du;
+    dstate0); 15 N^2 float32 operations per (b, t, h): the recomputed
+    forward (3), dr (2), H (2), dk (2), dv (1), dw (2), G (3)."""
+    isz = {"bfloat16": 2, "float32": 4}
+    elems = b * t * h * n
+    states = (b * -(-t // chunk) + 2 * b) * h * n * n * 4
+    nbytes = elems * (2 * (3 * isz[rkv_dtype] + isz[w_dtype]) + 4) + 2 * h * n * 4 + states
+    return bound(nbytes, 15 * n * n * b * t * h, "float32")
 
 
 def phase_env(torch):
@@ -585,6 +639,95 @@ def phase_kernels_wkv(torch):
         })
         del r, k, v, w, u, s0, state, out, final, again, again_final, plain_out, plain_state
     emit({"phase": "kernels", "kernel": "wkv6_fwd", "checks": checks})
+    return checks
+
+
+def phase_kernels_wkv_bwd(torch):
+    """wkv6_bwd from the forward kernel's saved states against wkv6_bwd_ref
+    from the plain forward's (dr, dk, dv, dw, du, dstate0, with a nonzero
+    state0 and dstate), twice for equal bits, finite with w down to 1e-30;
+    the saved states against the plain ones; wkv6 under grad against
+    autograd through wkv6_ref; times at the two path shapes, with the
+    forward's serving and training instances beside them."""
+    from repro_torch.kernels.rwkv6_wkv import GRAD_CHUNK, wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_fwd, wkv6_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def draw(shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale + shift
+
+    names = ("dr", "dk", "dv", "dw", "du", "dstate0")
+    checks = []
+    for i, (label, b, t, h, n, rkv_dtype, w_dtype, tiny) in enumerate(WKV_BWD_CASES):
+        r, k, v = (draw((b, t, h, n), 0.5).to(getattr(torch, rkv_dtype)) for _ in range(3))
+        w = torch.sigmoid(draw((b, t, h, n), 1.0, 2.0))
+        if tiny:
+            w = torch.where(torch.rand(w.shape, generator=gen, device="cuda") < 0.25, torch.full_like(w, 1e-30), w)
+        w = w.to(getattr(torch, w_dtype))
+        u, s0 = draw((h, n), 0.1), draw((b, h, n, n), 0.1)
+        dout, dstate = draw((b, t, h, n)), draw((b, h, n, n), 0.5)
+        bounds = torch.empty((b, -(-t // GRAD_CHUNK), h, n, n), device="cuda")
+        final = torch.empty_like(s0)
+        wkv6_fwd(r, k, v, w, u, s0, final, bounds=bounds, chunk=GRAD_CHUNK)
+        _, plain_final, plain_bounds = wkv6_ref(r, k, v, w, u, s0, chunk=GRAD_CHUNK)
+        got = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, GRAD_CHUNK)
+        again = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, GRAD_CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = wkv6_bwd_ref(r, k, v, w, u, plain_bounds, dout, dstate, GRAD_CHUNK)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        tol, errs = WKV_TOL[rkv_dtype], {}
+        pairs = list(zip(names, got, want)) + [("bounds", bounds, plain_bounds), ("final", final, plain_final)]
+        for name, g, p in pairs:
+            diff = (g.float() - p.float()).abs()
+            errs[name] = diff.max().item()
+            if g.dtype != p.dtype or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"wkv6_bwd {label} {name}: dtype {g.dtype} vs {p.dtype}, or not finite")
+            if not bool((diff <= tol + tol * p.float().abs()).all()):
+                raise AssertionError(f"wkv6_bwd {label} {name}: max_abs_err {errs[name]}, rtol=atol={tol}")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"wkv6_bwd {label}: two calls on the same inputs differ")
+        row = {
+            "label": label, "shape": {"B": b, "T": t, "H": h, "N": n, "chunk": GRAD_CHUNK}, "rkv_dtype": rkv_dtype,
+            "w_dtype": w_dtype, "w_down_to_1e-30": tiny, "two_calls_equal": True,
+            "max_abs_err": max(errs[nm] for nm in names), "max_abs_err_by_output": errs, "tol": tol,
+        }
+        if i < WKV_BWD_TIMED:
+            def kernel():
+                return wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, GRAD_CHUNK)
+
+            bound_ms, bound_by = wkv_bwd_bound(b, t, h, n, rkv_dtype, w_dtype, GRAD_CHUNK)
+            row.update({
+                "ms": device_ms(kernel, calls=3, replays=3), "call_ms": time_ms(kernel, runs=5, warmup=1),
+                "plain_ms": plain_ms,
+                "plain_ms_is": "one call of wkv6_bwd_ref at this shape (the check's), host clock around it",
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "fwd_serving_instance_ms": device_ms(lambda: wkv6_fwd(r, k, v, w, u, s0, final)),
+                "fwd_training_instance_ms": device_ms(
+                    lambda: wkv6_fwd(r, k, v, w, u, s0, final, bounds=bounds, chunk=GRAD_CHUNK)),
+            })
+        checks.append(row)
+        del r, k, v, w, u, s0, dout, dstate, bounds, final, got, again, want, plain_bounds, plain_final
+    torch.cuda.empty_cache()
+
+    # wkv6 under grad (both kernels) against autograd through the plain loop
+    b, t, h, n = 2, 300, 4, 64
+    xs = [draw((b, t, h, n), 0.5), draw((b, t, h, n), 0.5), draw((b, t, h, n), 0.5),
+          torch.sigmoid(draw((b, t, h, n), 1.0, 2.0)), draw((h, n), 0.1), draw((b, h, n, n), 0.1)]
+    xs = [x.requires_grad_(True) for x in xs]
+    dout, dstate = draw((b, t, h, n)), draw((b, h, n, n), 0.5)
+    out, fin = wkv6(*xs)
+    got = torch.autograd.grad((out * dout).sum() + (fin * dstate).sum(), xs)
+    pout, pfin = wkv6_ref(*xs)
+    want = torch.autograd.grad((pout * dout).sum() + (pfin * dstate).sum(), xs)
+    auto = {name: (g - p).abs().max().item() for name, g, p in zip(("r", "k", "v", "w", "u", "state0"), got, want)}
+    tol = WKV_TOL["float32"]
+    if not all(bool(((g - p).abs() <= tol + tol * p.abs()).all()) for g, p in zip(got, want)):
+        raise AssertionError(f"wkv6 under grad vs autograd through wkv6_ref: {auto}, rtol=atol={tol}")
+    emit({"phase": "kernels", "kernel": "wkv6_bwd", "checks": checks,
+          "vs_autograd_through_wkv6_ref": {"shape": [b, t, h, n], "dtype": "float32", "max_abs_err": auto,
+                                           "tol": tol}})
     return checks
 
 
@@ -1780,6 +1923,187 @@ def phase_checkpoint(torch):
     return launches
 
 
+def rwkv_card_vs_cpu_step(torch, full):
+    """One sequence of RWKV_CHECK_SEQ tokens through a RWKV_CHECK_LAYERS-layer
+    cut at full width, from the same weights on the card and on the CPU,
+    both in bf16: the loss at rtol TRAIN_TOL, each leaf's gradient by its
+    relative norm at TRAIN_TOL, or, where bf16 itself resolves the leaf no
+    better, at 1.5 x the CPU bf16 gradient's own distance from the float32
+    one (the card's float32 run).  Measured: the bonus u, whose gradient
+    sums r k (v . dy) over the sequence with cancelling signs, is 7.0% from
+    float32 on the CPU in bf16 and 5.8% from the card; every other leaf
+    within 1.8% of the CPU."""
+    import dataclasses
+
+    from repro_torch.data import loader_for_model
+    from repro_torch.distributed import pod_grads
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
+
+    cut = dataclasses.replace(full, num_layers=RWKV_CHECK_LAYERS)
+    params = init_params(cut, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    batch = loader_for_model(cut, seq_len=RWKV_CHECK_SEQ, global_batch=1, seed=1).next_batch()
+    sides, launches, cpu_s = {}, {}, None
+    runs = (("card", params, cut), ("card_f32", params, dataclasses.replace(cut, dtype="float32")),
+            ("cpu", tree_map(lambda t: t.cpu(), params), cut))
+    for name, p, cfg in runs:
+        dev = "cpu" if name == "cpu" else "cuda"
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        loss, _, grads = pod_grads(p, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg, 1)
+        sides[name] = (loss.item(), tree_map(lambda g: g[0].float().cpu(), grads))
+        if name == "card":
+            launches = dict(LAUNCHES)
+        elif name == "cpu":
+            cpu_s = time.perf_counter() - t0
+        del grads
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+
+    def rel(a, b):
+        return {path: ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+                for (path, x), (_, y) in zip(tree_items(sides[a][1]), tree_items(sides[b][1]))}
+
+    leaf_err, bf16_floor = rel("card", "cpu"), rel("cpu", "card_f32")
+    bar = {path: max(TRAIN_TOL, 1.5 * bf16_floor[path]) for path in leaf_err}
+    g_loss, c_loss = sides["card"][0], sides["cpu"][0]
+    want = {"wkv6_fwd": RWKV_CHECK_LAYERS, "wkv6_bwd": RWKV_CHECK_LAYERS}
+    if (abs(g_loss - c_loss) > TRAIN_TOL * abs(c_loss) or any(leaf_err[k] > bar[k] for k in bar)
+            or launches != want):
+        raise AssertionError(f"train_rwkv card vs CPU: loss {g_loss} / {c_loss}, leaf relative errors {leaf_err}, "
+                             f"bars {bar}; card launches {launches}, expected {want}")
+    return {"layers": RWKV_CHECK_LAYERS, "params": n_params, "batch": [1, RWKV_CHECK_SEQ],
+            "loss": [g_loss, c_loss], "loss_f32_card": sides["card_f32"][0],
+            "leaf_rel_err_max": max(leaf_err.values()), "leaf_rel_err_worst": max(leaf_err, key=leaf_err.get),
+            "tol": TRAIN_TOL, "leaves_beyond_tol": {k: {"card_vs_cpu": leaf_err[k], "cpu_bf16_vs_f32": bf16_floor[k],
+                                                         "bar": bar[k]} for k in bar if leaf_err[k] > TRAIN_TOL},
+            "cpu_bf16_vs_f32_max": max(bf16_floor.values()), "card_launches": launches, "cpu_s": cpu_s}
+
+
+def phase_train_rwkv(torch):
+    """rwkv6-7b at full width, RWKV_TRAIN_LAYERS of its 32 layers, through
+    GeoTrainer: 2 pods, hier_int8, global batch 4 x 4096, AdamW, 2 untimed
+    and 4 timed steps; then one step of a 2-layer cut on the card against
+    the CPU."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import wan_bytes_per_step
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import GeoTrainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    class NoCheckpointTrainer(GeoTrainer):
+        """Writes no checkpoint: at the last step this run's would hold 28 GB
+        (1.41 B float32 parameters, AdamW's two moments and the two pods'
+        int8 error feedback).  The checkpoint path is the train and
+        checkpoint phases'."""
+
+        def _save(self, step, params, state):
+            pass
+
+    full = get_config("rwkv6-7b")
+    cfg = dataclasses.replace(full, num_layers=RWKV_TRAIN_LAYERS)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=WARMUP, total_steps=RWKV_TRAIN_STEPS)
+    tc = TrainerConfig(seq_len=SEQ_RWKV_TRAIN, global_batch=B_RWKV_TRAIN, steps=RWKV_TRAIN_STEPS,
+                       strategy="hier_int8", npods=NPODS, log_every=RWKV_TRAIN_STEPS, seed=0, opt=opt)
+    directory = ckpt_dir("train_rwkv")
+    trainer = NoCheckpointTrainer(cfg, device="cuda", checkpoint_dir=str(directory), trainer_cfg=tc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    result = trainer.run()
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rows = result["metrics"]
+    leaves = tree_leaves(trainer.params)
+    n_leaves, n_params = len(leaves), sum(t.numel() for t in leaves)
+    del leaves
+    per_step = {"wkv6_fwd": NPODS * cfg.num_layers, "wkv6_bwd": NPODS * cfg.num_layers,
+                "wan_quant": n_leaves, "wan_dequant": n_leaves}
+    expected = {k: RWKV_TRAIN_STEPS * n for k, n in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"train_rwkv: launches {launches} over {RWKV_TRAIN_STEPS} steps, expected {expected}")
+    losses = falling_losses("train_rwkv", rows)
+    analytic = wan_bytes_per_step(n_params * 4, "hier_int8", npods=NPODS)
+    wan = [r["wan_bytes"] for r in rows]
+    if any(abs(x - analytic) > 0.01 * analytic for x in wan):
+        raise AssertionError(f"train_rwkv: WAN payload {wan} B/pod/step vs wan_bytes_per_step {analytic}")
+    timed = [r["step_s"] * 1e3 for r in rows[WARMUP:]]
+    step_ms = statistics.median(timed)
+    del trainer, result
+    shutil.rmtree(directory, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "train_rwkv", "arch": full.name, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+        "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
+        "d_model": cfg.d_model, "heads": cfg.d_model // cfg.rwkv_head_dim, "head_dim": cfg.rwkv_head_dim,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "remat": cfg.remat, "params": n_params, "leaves": n_leaves,
+        "pods": NPODS, "strategy": "hier_int8", "global_batch": B_RWKV_TRAIN, "seq_len": SEQ_RWKV_TRAIN,
+        "steps": RWKV_TRAIN_STEPS, "warmup_steps_untimed": WARMUP, "checkpoint": "none written (see NoCheckpointTrainer)",
+        "adamw": {"lr": opt.lr, "warmup_steps": opt.warmup_steps, "total_steps": opt.total_steps},
+        "step_ms_median": step_ms, "step_ms": timed,
+        "tokens_per_s": B_RWKV_TRAIN * SEQ_RWKV_TRAIN / (step_ms / 1e3),
+        "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+        "grad_norm_last": rows[-1]["grad_norm"], "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9,
+        "wan_bytes_per_pod_step": wan[-1], "wan_bytes_per_step_analytic": analytic,
+        "launches_main_path": launches, "launches_per_step": per_step,
+        "card_vs_cpu": rwkv_card_vs_cpu_step(torch, full),
+    })
+    return launches
+
+
+def phase_quickstart(torch):
+    """``repro_torch.examples.quickstart`` on the CPU, then on the card, each
+    in a fresh checkpoint directory: the fabric, port and cost lines (the
+    numpy cost model) equal, the card's 20 losses finite and falling, its
+    flash launches 2 x layers a step."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import LAUNCHES
+
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        directory = ckpt_dir(f"quickstart_{dev}")
+        out = io.StringIO()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = quickstart.main(["--device", dev, "--checkpoint-dir", str(directory)])
+        runs[dev] = (res, out.getvalue(), time.perf_counter() - t0, dict(LAUNCHES))
+        shutil.rmtree(directory, ignore_errors=True)
+
+    def numpy_lines(text):
+        return [ln for ln in text.splitlines() if ln.startswith(("[fabric]", "[ports]", "[sync]", " " * 8))]
+
+    card, cpu = runs["cuda"], runs["cpu"]
+    if numpy_lines(card[1]) != numpy_lines(cpu[1]) or len(numpy_lines(card[1])) != 4 + len(card[0]["costs"]):
+        raise AssertionError(f"quickstart: cost-model lines differ:\n{card[1]}\n---\n{cpu[1]}")
+    losses = card[0]["losses"]
+    if len(losses) != quickstart.QUICKSTART.workload.steps:
+        raise AssertionError(f"quickstart: {len(losses)} steps, expected {quickstart.QUICKSTART.workload.steps}")
+    falling_losses("quickstart", [{"loss": x} for x in losses])
+    layers = get_smoke_config(quickstart.ARCH).num_layers
+    want = {"flash_attention_fwd": layers * len(losses), "flash_attention_bwd": layers * len(losses)}
+    if card[3] != want:
+        raise AssertionError(f"quickstart: launches {card[3]}, expected {want}")
+    emit({
+        "phase": "quickstart", "command": "python -m repro_torch.examples.quickstart --device cuda",
+        "numpy_lines_equal_cpu_run": True, "lines": numpy_lines(card[1]),
+        "losses": losses, "cpu_losses": cpu[0]["losses"], "seconds": card[2], "cpu_seconds": cpu[2],
+        "step_ms": [m["step_s"] * 1e3 for m in card[0]["result"]["metrics"]], "launches_main_path": card[3],
+    })
+    return card[3]
+
+
 def main() -> int:
     import torch
 
@@ -1795,6 +2119,7 @@ def main() -> int:
     bwd = phase_kernels_bwd(torch)
     wan, wan_step = phase_kernels_wan(torch)
     wkv = phase_kernels_wkv(torch)
+    wkv_bwd = phase_kernels_wkv_bwd(torch)
     serve = phase_serve(torch)
     train, train_losses, train_step_ms = phase_train(torch)
     trains, one_process_losses = {}, {"hier_int8": train_losses}
@@ -1823,6 +2148,10 @@ def main() -> int:
     gc.collect()  # the train phases' ~16 GB go before rwkv6-7b's ~31 GB
     torch.cuda.empty_cache()
     rwkv, rwkv_per_step = phase_serve_rwkv(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rwkv = phase_train_rwkv(torch)
+    quick = phase_quickstart(torch)
 
     def entry(name, source, replaces, check, **more):
         return {
@@ -1839,6 +2168,7 @@ def main() -> int:
             "launches_train_mesh_per_rank": {f"{dict(zip(axes, shape))} {strategy}": [r.get(name, 0) for r in ranks]
                                              for (shape, axes, strategy, _), ranks in zip(MESH_PLAN, mesh_train)},
             "launches_serve_mesh_per_rank": [r.get(name, 0) for r in mesh_serve],
+            "launches_train_rwkv": train_rwkv.get(name, 0), "launches_quickstart": quick.get(name, 0),
             **more,
         }
 
@@ -1873,7 +2203,17 @@ def main() -> int:
                    "src/repro/kernels/rwkv6_wkv/kernel.py:78", wkv[0],
                    library_why="no single PyTorch call computes the WKV6 recurrence", shapes=wkv),
              launches=rwkv["wkv6_fwd"], launches_per_prefill=rwkv_per_step,
-             launches_per_decode_step=rwkv_per_step, launches_per_train_step=0),
+             launches_per_decode_step=rwkv_per_step, launches_per_train_step=0,
+             launches_per_train_rwkv_step=train_rwkv["wkv6_fwd"] // RWKV_TRAIN_STEPS,
+             training_instance_ms=wkv_bwd[0]["fwd_training_instance_ms"],
+             serving_instance_ms_beside_it=wkv_bwd[0]["fwd_serving_instance_ms"]),
+        dict(entry("wkv6_bwd", "src/repro_torch/kernels/rwkv6_wkv/csrc/wkv6_bwd.cu",
+                   "none: the JAX package trains RWKV6 through jax.grad of the checkpointed lax.scan "
+                   "(src/repro/models/rwkv6.py:165, _wkv_with_initial_state; no Pallas backward)", wkv_bwd[0],
+                   library_why="no single PyTorch call computes the WKV6 recurrence's gradient",
+                   plain_ms_is=wkv_bwd[0]["plain_ms_is"], shapes=wkv_bwd),
+             launches=train_rwkv["wkv6_bwd"], launches_per_train_step=0,
+             launches_per_train_rwkv_step=train_rwkv["wkv6_bwd"] // RWKV_TRAIN_STEPS),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

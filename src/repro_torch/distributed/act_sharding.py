@@ -87,9 +87,15 @@ def on_local_shards(fn, args, dims, out_dims, *, in_place=()):
     tensors, or one tensor when ``out_dims`` has one entry).  Every DTensor
     argument is redistributed onto ``Shard(batch dim)`` over ``data`` (when
     every batch size divides it) and ``Shard(head dim)`` over ``model``
-    (when every head count divides it), ``Replicate()`` elsewhere; the
-    arguments listed in ``in_place`` must already be so placed, since
-    ``fn`` writes into their local tensors.  A plain tensor argument with
+    (when every head count divides it), ``Replicate()`` elsewhere;
+    ``Shard`` on a mesh axis of size 1 holds the whole tensor and counts as
+    ``Replicate()`` there.  ``fn`` writes into the local tensors of the
+    arguments listed in ``in_place``: one placed otherwise only where the
+    target is ``Replicate()`` (a decode cache whose head_dim is over
+    ``model`` because its kv heads do not divide it, as ``cache_pspecs``
+    lays it out) is gathered there for ``fn``, and the rank's slice of the
+    result written back into its local tensor; any other placement
+    raises.  A plain tensor argument with
     dims is taken as replicated (the same on every rank, as a zero initial
     state is).  The outputs come back as
     DTensors on those placements.  Without a DTensor argument this is
@@ -114,6 +120,9 @@ def on_local_shards(fn, args, dims, out_dims, *, in_place=()):
 
     split = {"data": divides("data", 0), "model": divides("model", 1)}
 
+    def same(have, want):  # equal but where an axis of size 1 holds the whole tensor either way
+        return all(h == w or size[a] == 1 for a, h, w in zip(names, have, want))
+
     def placements(batch_dim, head_dim):
         out = []
         for a in names:
@@ -125,7 +134,7 @@ def on_local_shards(fn, args, dims, out_dims, *, in_place=()):
                 out.append(Replicate())
         return tuple(out)
 
-    local = []
+    local, write_back = [], []
     for i, (a, (b, h)) in enumerate(zip(args, dims)):
         if a is None or (not isinstance(a, DTensor) and b is None and h is None):
             local.append(a)
@@ -133,19 +142,26 @@ def on_local_shards(fn, args, dims, out_dims, *, in_place=()):
         if not isinstance(a, DTensor):  # a plain tensor is the same on every rank: replicated
             a = DTensor.from_local(a, mesh, (Replicate(),) * len(names), run_check=False)
         want = placements(b, h)
-        if tuple(a.placements) != want:
+        if not same(a.placements, want):
             if i in in_place:
-                raise ValueError(f"argument {i} is written in place but placed {a.placements}, not {want}")
-            a = a.redistribute(mesh, want)
+                if any(p != w and w != Replicate() for p, w in zip(a.placements, want)):
+                    raise ValueError(f"argument {i} is written in place but placed {a.placements}, not {want}")
+                gathered = a.redistribute(mesh, want)
+                write_back.append((a, DTensor.from_local(gathered.to_local(), mesh, want, run_check=False)))
+                a = gathered
+            else:
+                a = a.redistribute(mesh, want)
         # an argument whole on the ranks that split the work between them
         # (rows over data, heads over model) gets a partial gradient from each
         grad = tuple(
             Partial() if (ax == "data" and split["data"] and b is None) or (ax == "model" and split["model"] and h is None)
-            else p for ax, p in zip(names, want)
+            else p for ax, p in zip(names, a.placements)
         )
         a = a.to_local(grad_placements=grad)
         local.append(a if i in in_place else a.contiguous())
     out = fn(*local)
+    for target, written in write_back:  # the rank's slice of what fn wrote: no data moves
+        target.to_local().copy_(written.redistribute(mesh, target.placements).to_local())
     single = len(out_dims) == 1
     outs = (out,) if single else out
     wrapped = tuple(

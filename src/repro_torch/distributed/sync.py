@@ -42,7 +42,7 @@ from .compression import (
     int8_decompress,
     residual,
 )
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 STRATEGIES = ("allreduce", "ps", "hier", "hier_int8", "local_sgd")
 
@@ -104,21 +104,18 @@ def sync_hier_int8(grads, ef):
     each pod's new ef is g' minus its own slice.
     Returns (synced grads, new ef [npods, ...], WAN bytes each pod sends:
     its int8 payload and float32 scales to each of the npods - 1 others).
+    A leaf at a time: g' and its dequantised copy live for one leaf only.
     """
-    boosted = apply_error_feedback(grads, ef)
-    payload = 0
-
-    def one(g):
-        nonlocal payload
-        n = g.shape[0]
-        c = int8_compress(g.reshape(n, 1) if g.dim() == 1 else g)  # a 0-d leaf is one lane
-        deq = int8_decompress(c).reshape(g.shape)
+    payload, synced, new_ef = 0, [], []
+    for (_, g), (_, e) in zip(tree_items(grads), tree_items(ef)):
+        boosted = g.float() + e  # apply_error_feedback, one leaf
+        n = boosted.shape[0]
+        c = int8_compress(boosted.reshape(n, 1) if boosted.dim() == 1 else boosted)  # a 0-d leaf is one lane
+        deq = int8_decompress(c).reshape(boosted.shape)
         payload += compressed_bytes(c) // n * (n - 1)
-        return deq
-
-    transmitted = tree_map(one, boosted)
-    synced = tree_map(lambda d: d.sum(0) / d.shape[0], transmitted)
-    return synced, residual(boosted, transmitted), payload
+        synced.append(deq.sum(0) / n)
+        new_ef.append(boosted - deq.float())  # residual, one leaf
+    return tree_unflatten(grads, synced), tree_unflatten(ef, new_ef), payload
 
 
 # -- group forms: one rank per pod --------------------------------------------------

@@ -31,6 +31,7 @@ SOURCES: Dict[str, Path] = {
     "flash_bwd": _PKG / "flash_attention" / "csrc" / "flash_bwd.cu",
     "wan_quant": _PKG / "wan_quant" / "csrc" / "wan_quant.cu",
     "wkv6": _PKG / "rwkv6_wkv" / "csrc" / "wkv6.cu",
+    "wkv6_bwd": _PKG / "rwkv6_wkv" / "csrc" / "wkv6_bwd.cu",
 }
 
 NVCC_FLAGS = (

@@ -62,7 +62,11 @@
 // after the loop.  The inputs come in through element strides for batch,
 // time and head (the last dimension contiguous), with no copy; narrower
 // strides take 8-, 4- or 2-byte copies.  T = 1 (a decode step) takes
-// wkv6_step_kernel below, where the state is the traffic.
+// wkv6_step_kernel below, where the state is the traffic.  For training
+// the kernel's kBounds instance also writes the state before every
+// `bchunk` steps (the consumers hold it in registers at each chunk's
+// start) for the backward, wkv6_bwd.cu; serving and decode launch the
+// instance without it, unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,6 +89,8 @@ struct Args {
   int T, H;
   int unit;      // bytes per copy: 16, 8, 4 or 2
   int step_vec;  // s0 and sout 16-byte aligned: T = 1 may take the step kernel
+  float* bounds;  // [B, ceil(T / bchunk), H, N, N]: the state before every bchunk steps, or null
+  int bchunk;     // a multiple of Shape<N>::L
 };
 
 template <int N>
@@ -163,7 +169,7 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-template <int N, typename TI, typename TW>
+template <int N, typename TI, typename TW, bool kBounds>
 __global__ void __launch_bounds__(Shape<N>::kThreads, Shape<N>::kMinBlocks) wkv6_kernel(const Args a) {
   using Sh = Shape<N>;
   using Sm = Smem<N, TI, TW>;
@@ -307,6 +313,16 @@ __global__ void __launch_bounds__(Shape<N>::kThreads, Shape<N>::kMinBlocks) wkv6
     const float* vb = v_of(c);
     const float* ruk = ruk_of(c);
     float* yb = y_of(c);
+    if constexpr (kBounds) {  // training: the state before every bchunk steps, for the backward
+      if ((c * L) % a.bchunk == 0) {
+        const long long nb = (T + a.bchunk - 1) / a.bchunk;
+        float* bo = a.bounds + ((b * nb + (c * L) / a.bchunk) * a.H + h) * N * N;
+#pragma unroll
+        for (int cc = 0; cc < C; ++cc)
+#pragma unroll
+          for (int r = 0; r < R; ++r) bo[(i0 + r) * N + Sh::col(jc, cc)] = S[cc][r];
+      }
+    }
     bar_sync(kBarFull + (c & 1), kThreads);  // chunk c is widened
 
 #pragma unroll 2
@@ -432,11 +448,11 @@ __global__ void __launch_bounds__(Step<N>::kThreads) wkv6_step_kernel(const Args
 
 template <int N, typename TI, typename TW>
 cudaError_t launch_w(const Args& a, int B, cudaStream_t st) {
-  if (a.T == 1 && a.step_vec) {
+  if (a.T == 1 && a.step_vec && !a.bounds) {
     wkv6_step_kernel<N, TI, TW><<<dim3(a.H, B), Step<N>::kThreads, 0, st>>>(a);
     return cudaGetLastError();
   }
-  auto kernel = wkv6_kernel<N, TI, TW>;
+  auto kernel = a.bounds ? wkv6_kernel<N, TI, TW, true> : wkv6_kernel<N, TI, TW, false>;
   constexpr size_t smem = Smem<N, TI, TW>::kTotal;
   // all of the SM's unified memory as shared memory, so two blocks fit
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -474,10 +490,14 @@ extern "C" {
 // `stream`.  r, k, v are float32 (rkv_bf16 = 0) or bf16, w likewise
 // (w_bf16); `strides` holds 12 element strides (batch, time, head of r, k,
 // v, w; the last dimension contiguous).  N is one of 8, 16, 32, 64, 128.
-// Returns cudaGetLastError() of the launch (0 on success).
+// bounds, if not null, receives the state before every `chunk` steps
+// ([B, ceil(T / chunk), H, N, N] float32, entry 0 = s0; chunk a multiple
+// of 16) for the backward, wkv6_bwd.cu.  Returns cudaGetLastError() of the
+// launch (0 on success).
 int repro_wkv6_fwd(int device, int rkv_bf16, int w_bf16, int N, const void* r, const void* k,
                    const void* v, const void* w, const void* u, const void* s0, void* out,
-                   void* sout, const long long* strides, int B, int T, int H, void* stream) {
+                   void* sout, const long long* strides, int B, int T, int H, void* stream,
+                   void* bounds, int chunk) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   Args a;
@@ -497,6 +517,9 @@ int repro_wkv6_fwd(int device, int rkv_bf16, int w_bf16, int N, const void* r, c
   }
   a.T = T;
   a.H = H;
+  a.bounds = static_cast<float*>(bounds);
+  a.bchunk = chunk;
+  if (bounds && (chunk < 16 || chunk % 16 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   // The widest copy every address and byte stride allows.
   const int isz[4] = {rkv_bf16 ? 2 : 4, rkv_bf16 ? 2 : 4, rkv_bf16 ? 2 : 4, w_bf16 ? 2 : 4};
   const void* ptrs[4] = {r, k, v, w};

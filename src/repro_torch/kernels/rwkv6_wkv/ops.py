@@ -1,4 +1,4 @@
-"""The RWKV6 WKV recurrence in the model's [B, T, H, N] layout.
+"""The RWKV6 WKV recurrence in the model's [B, T, H, N] layout, with its gradient.
 
 On CUDA tensors :func:`wkv6` launches the hand-written kernel
 ``csrc/wkv6.cu`` (the port of the Pallas TPU kernel
@@ -8,31 +8,44 @@ are ones it cannot take.  On CPU tensors it computes the plain version
 takes the reference when T is not a multiple of its chunk, the kernel takes
 any T >= 1, and it reads r, k, v, w through their strides with no copy.
 
-The kernel is forward-only, as the TPU kernel is: with grad enabled and an
-input that requires grad, :func:`wkv6` raises rather than let autograd
-differentiate a T-step loop.
+Where autograd needs a gradient, :func:`wkv6` goes through :class:`WKV6Fn`:
+its forward also saves the float32 state before every ``chunk`` steps
+(``GRAD_CHUNK``, JAX's ``WKV_CHUNK``, by default), and its backward is the
+hand-written kernel ``csrc/wkv6_bwd.cu`` (the JAX package trains through
+``jax.grad`` of a checkpointed ``lax.scan``; no Pallas kernel), which
+recomputes each chunk's states from the saved one.  On CPU tensors both run
+the plain versions, on the same chunked schedule.
+
+Under the model's rematerialisation (``torch.utils.checkpoint`` with
+:func:`remat_contexts`) the recomputed forward takes the outputs the first
+forward stashed instead of running the recurrence again, so a training step
+launches ``wkv6_fwd`` once and ``wkv6_bwd`` once a layer.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from .. import LAUNCHES, _build
-from .ref import wkv6_ref
+from .ref import wkv6_bwd_ref, wkv6_ref
 
 KERNEL = "wkv6_fwd"
+BWD_KERNEL = "wkv6_bwd"
 HEAD_DIMS = (8, 16, 32, 64, 128)
 #: time steps the kernel stages through shared memory at once (8 at N =
 #: 128; ``csrc/wkv6.cu``, ``Shape::L``); the card tests straddle it
 CHUNK = 16
+#: steps between the states the forward saves for the gradient (JAX's
+#: ``repro.models.rwkv6.WKV_CHUNK``); the backward kernel takes a multiple
+#: of its 16-step stage up to ``MAX_GRAD_CHUNK``
+GRAD_CHUNK = 256
+MAX_GRAD_CHUNK = 256
 _DTYPES = (torch.bfloat16, torch.float32)
-NO_BACKWARD = (
-    "wkv6 has no backward kernel yet: RWKV6 training waits for it "
-    "(ROADMAP queue 1, item 13: the WKV backward kernel)"
-)
 
 
 def _check(r, k, v, w, u, state0) -> None:
@@ -53,8 +66,6 @@ def _check(r, k, v, w, u, state0) -> None:
         raise ValueError(f"devices differ: {[str(x.device) for x in tensors]}")
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"wkv6 runs on cpu or cuda, got {r.device}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise NotImplementedError(NO_BACKWARD)
 
 
 def _check_cuda(r, k, v, w, u, state0, state_out) -> None:
@@ -78,15 +89,28 @@ def _check_cuda(r, k, v, w, u, state0, state_out) -> None:
         raise ValueError(f"state_out must be [B, H, N, N] = {(b, h, n, n)} on {r.device}")
 
 
-def wkv6_fwd(r, k, v, w, u, state0, state_out) -> torch.Tensor:
+def _check_grad_chunk(chunk: int, on_card: bool) -> None:
+    if chunk < 1 or (on_card and (chunk % CHUNK or chunk > MAX_GRAD_CHUNK)):
+        raise ValueError(
+            f"chunk {chunk}: the kernels take a multiple of {CHUNK} up to {MAX_GRAD_CHUNK}"
+            if on_card else f"chunk must be >= 1, got {chunk}"
+        )
+
+
+def wkv6_fwd(r, k, v, w, u, state0, state_out, *, bounds=None, chunk=GRAD_CHUNK) -> torch.Tensor:
     """Launch the kernel: out [B, T, H, N] float32; the final state goes to
-    ``state_out`` (which may be ``state0``)."""
+    ``state_out`` (which may be ``state0``); ``bounds``, if given
+    ([B, ceil(T / chunk), H, N, N] float32), receives the state before
+    every ``chunk`` steps."""
     b, t, h, n = r.shape
     u = u.float().contiguous()
     out = torch.empty((b, t, h, n), dtype=torch.float32, device=r.device)
     lib = _build.load("wkv6")
     fn = lib.repro_wkv6_fwd
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_void_p, ctypes.c_int]
+    )
     fn.restype = ctypes.c_int
     flat = [s for x in (r, k, v, w) for s in x.stride()[:3]]
     strides = (ctypes.c_longlong * len(flat))(*flat)
@@ -95,10 +119,115 @@ def wkv6_fwd(r, k, v, w, u, state0, state_out) -> torch.Tensor:
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         state0.data_ptr(), out.data_ptr(), state_out.data_ptr(), ctypes.addressof(strides),
         b, t, h, torch.cuda.current_stream(r.device).cuda_stream,
+        None if bounds is None else bounds.data_ptr(), chunk,
     )
     _build.check(lib, err, KERNEL)
     LAUNCHES[KERNEL] += 1
     return out
+
+
+def wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk: int = GRAD_CHUNK):
+    """Launch the backward kernel -> (dr, dk, dv, dw in their inputs'
+    dtypes, du [H, N] float32, dstate0 [B, H, N, N] float32): the gradient
+    of :func:`wkv6` given ``dout`` [B, T, H, N] and the final state's
+    ``dstate`` [B, H, N, N] (None: zeros), from the states ``bounds`` the
+    forward saved every ``chunk`` steps."""
+    _check(r, k, v, w, u, None)
+    _check_cuda(r, k, v, w, u, None, None)
+    _check_grad_chunk(chunk, on_card=True)
+    b, t, h, n = r.shape
+    nc = -(-t // chunk)
+    if tuple(bounds.shape) != (b, nc, h, n, n) or bounds.dtype != torch.float32:
+        raise ValueError(f"bounds must be float32 [B, ceil(T / chunk), H, N, N] = {(b, nc, h, n, n)}, "
+                         f"got {bounds.dtype} {tuple(bounds.shape)}")
+    if tuple(dout.shape) != (b, t, h, n) or (dstate is not None and tuple(dstate.shape) != (b, h, n, n)):
+        raise ValueError(f"dout must be [B, T, H, N] and dstate [B, H, N, N], got {tuple(dout.shape)}, "
+                         f"{None if dstate is None else tuple(dstate.shape)}")
+    r, k, v, w = (x.contiguous() for x in (r, k, v, w))
+    u, bounds, dout = u.float().contiguous(), bounds.contiguous(), dout.float().contiguous()
+    dstate = None if dstate is None else dstate.float().contiguous()
+    lib = _build.load("wkv6_bwd")
+    groups = lib.repro_wkv6_bwd_groups
+    groups.argtypes, groups.restype = [ctypes.c_int], ctypes.c_int
+    ng = groups(n)
+    dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
+    du = torch.empty((h, n), dtype=torch.float32, device=r.device)
+    dstate0 = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
+    dv_parts = torch.empty((ng, b, t, h, n), dtype=torch.float32, device=r.device)
+    du_parts = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
+    fn = lib.repro_wkv6_bwd
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(
+        r.device.index, int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), n,
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), bounds.data_ptr(),
+        dout.data_ptr(), None if dstate is None else dstate.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(),
+        dv_parts.data_ptr(), du_parts.data_ptr(),
+        b, t, h, chunk, torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    _build.check(lib, err, BWD_KERNEL)
+    LAUNCHES[BWD_KERNEL] += 1
+    return dr, dk, dv, dw, du, dstate0
+
+
+# -- rematerialisation: the recomputed forward replays the first one's outputs ----
+
+_STASH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_wkv_stash", default=None)
+
+
+@contextlib.contextmanager
+def _stashing(mode: str, entries: list):
+    token = _STASH.set((mode, entries))
+    try:
+        yield
+    finally:
+        _STASH.reset(token)
+
+
+def remat_contexts():
+    """``context_fn`` for ``torch.utils.checkpoint.checkpoint``: under the
+    first context each :class:`WKV6Fn` forward keeps its outputs, under the
+    second (the recomputation) it takes them back in order instead of
+    running the recurrence again."""
+    entries: list = []
+    return _stashing("keep", entries), _stashing("replay", entries)
+
+
+class WKV6Fn(torch.autograd.Function):
+    """The WKV recurrence with the kernel backward (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0, chunk):
+        stash = _STASH.get()
+        if stash is not None and stash[0] == "replay" and stash[1]:
+            out, final, bounds = stash[1].pop(0)
+            out, final = out.detach(), final.detach()
+        elif r.device.type == "cpu":
+            out, final, bounds = wkv6_ref(r, k, v, w, u, state0, chunk=chunk)
+        else:
+            b, t, h, n = r.shape
+            _check_cuda(r, k, v, w, u, state0, None)
+            if state0 is None:
+                state0 = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+            bounds = torch.empty((b, -(-t // chunk), h, n, n), dtype=torch.float32, device=r.device)
+            final = torch.empty_like(state0)
+            out = wkv6_fwd(r, k, v, w, u, state0, final, bounds=bounds, chunk=chunk)
+        if stash is not None and stash[0] == "keep":
+            stash[1].append((out, final, bounds))
+        ctx.save_for_backward(r, k, v, w, u, bounds)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return out, final
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, bounds = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        bwd = wkv6_bwd_ref if r.device.type == "cpu" else wkv6_bwd
+        dr, dk, dv, dw, du, dstate0 = bwd(r, k, v, w, u, bounds, dout, dstate, ctx.chunk)
+        return dr, dk, dv, dw, du.to(u.dtype), dstate0 if ctx.needs_input_grad[5] else None, None
 
 
 def wkv6(
@@ -110,14 +239,23 @@ def wkv6(
     state0: Optional[torch.Tensor] = None,  # [B, H, N, N]; zeros if None
     *,
     state_out: Optional[torch.Tensor] = None,
+    chunk: int = GRAD_CHUNK,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (out [B, T, H, N] float32, final state [B, H, N, N] float32).
 
     ``state_out``, if given, receives the final state and is returned; it
     may be ``state0`` itself, which is then updated in place.  Otherwise a
-    new tensor holds it.
+    new tensor holds it.  Where autograd needs a gradient of an input, the
+    call goes through :class:`WKV6Fn`, saving the state every ``chunk``
+    steps (no ``state_out`` then: a written input has no gradient).
     """
     _check(r, k, v, w, u, state0)
+    inputs = (r, k, v, w, u) + ((state0,) if state0 is not None else ())
+    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
+        if state_out is not None:
+            raise ValueError("state_out (an in-place final state) has no gradient: pass it under no_grad")
+        _check_grad_chunk(chunk, on_card=r.device.type == "cuda")
+        return WKV6Fn.apply(r, k, v, w, u, state0, chunk)
     if r.device.type == "cpu":
         out, final = wkv6_ref(r, k, v, w, u, state0)
         if state_out is None:

@@ -44,6 +44,23 @@ def init_attention(
     return params
 
 
+def _whole_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """A projection ``[B, S, heads * hd]`` laid on whole heads before the
+    reshape to ``[B, S, heads, hd]``: on a mesh whose ``model`` axis shards
+    its last dim (the rule shards whenever the axis divides ``heads * hd``)
+    but does not divide ``heads``, replicated over ``model``, as GSPMD
+    reshards the JAX step; as it is otherwise."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor) or "model" not in (x.device_mesh.mesh_dim_names or ()):
+        return x
+    i = x.device_mesh.mesh_dim_names.index("model")
+    p = x.placements[i]
+    if not (p.is_shard() and p.dim % x.ndim == x.ndim - 1 and heads % x.device_mesh.size(i)):
+        return x
+    return x.redistribute(x.device_mesh, tuple(Replicate() if j == i else q for j, q in enumerate(x.placements)))
+
+
 def _project_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig):
     B, S, _ = x.shape
     dt = cfg.compute_dtype
@@ -54,16 +71,19 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig):
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = _whole_heads(q, cfg.num_heads).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = _whole_heads(k, cfg.num_kv_heads).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = _whole_heads(v, cfg.num_kv_heads).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
 
 
 def _out_proj(params: Params, attn_out: torch.Tensor, cfg: ModelConfig):
-    B, S = attn_out.shape[:2]
+    """``attn_out`` [B, S, H * hd], its heads flattened where the kernel ran
+    (on a mesh: on the rank's local heads, so the gradient the row-parallel
+    ``wo`` hands back, sharded over ``model``, meets no reshape of heads
+    that do not divide the axis)."""
     dt = cfg.compute_dtype
-    y = attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ params["wo"].to(dt)
+    y = attn_out @ params["wo"].to(dt)
     if cfg.use_bias_attn:
         y = y + params["bo"].to(dt)
     return y
@@ -129,7 +149,9 @@ def attention_forward(
     # on a mesh the kernel runs on the rank's rows and heads
     heads = ((0, 2),) * 3
     out = on_local_shards(
-        lambda q, k, v: flash_attention(q, k, v, causal=True, window=window, logit_softcap=cfg.attn_logit_softcap),
+        lambda q, k, v: flash_attention(
+            q, k, v, causal=True, window=window, logit_softcap=cfg.attn_logit_softcap
+        ).flatten(2),
         (q, k, v), heads, heads[:1],
     )
     y = _out_proj(params, out, cfg)
@@ -222,7 +244,7 @@ def attention_decode(
         return sdpa(
             q, ck, cv, q_positions=pos_arr, k_positions=cpos,
             window=window, logit_softcap=cfg.attn_logit_softcap,
-        )
+        ).flatten(2)
 
     # on a mesh: the rank's rows and heads, its cache shard written in place
     heads = (0, 2)

@@ -8,7 +8,8 @@ Port of ``repro.models.rwkv6`` (arXiv:2404.05892).  Per head of dimension
 
 with the decay ``w_t = exp(-exp(w0 + lora(x_t)))`` data-dependent.  The
 recurrence runs in :func:`~repro_torch.kernels.rwkv6_wkv.wkv6`: the
-hand-written CUDA kernel on the card, the plain loop on the CPU.  Casts
+hand-written CUDA kernels on the card (forward, and under grad the
+backward), the plain loops on the CPU.  Casts
 sit where the JAX functions put them: the token-shift lerps in the
 activation dtype, the decay path and the recurrence in float32, the group
 norm's reduction in float32.
@@ -23,7 +24,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels.rwkv6_wkv import wkv6
+from ..kernels.rwkv6_wkv import GRAD_CHUNK, wkv6
 from .config import ModelConfig, torch_dtype
 from .layers import dense_init
 
@@ -101,14 +102,16 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, h: int, n: int, eps: float
     return (normed.reshape(b, t, d) * scale).to(x.dtype)
 
 
-def _wkv_with_initial_state(r, k, v, w, u, state0, *, state_out=None):
+def _wkv_with_initial_state(r, k, v, w, u, state0, *, chunk: int = GRAD_CHUNK, state_out=None):
     """The WKV recurrence from ``state0`` -> (out [B, T, H, N] f32, final state).
 
-    The JAX function cuts long sequences into checkpointed chunks, a memory
-    schedule for autodiff; the port serves only, so one kernel call runs
-    the whole sequence (``state_out`` may be ``state0``: updated in place).
+    One kernel call runs the whole sequence (``state_out`` may be
+    ``state0``: updated in place, under no_grad).  The JAX function's memory
+    schedule for autodiff, checkpointed chunks of ``chunk`` steps, is the
+    kernels': under grad the forward saves the state before every chunk
+    and the backward recomputes each chunk's states from it.
     """
-    return wkv6(r, k, v, w, u, state0, state_out=state_out)
+    return wkv6(r, k, v, w, u, state0, state_out=state_out, chunk=chunk)
 
 
 def time_mix(

@@ -15,16 +15,19 @@ Entry points:
 * :func:`decode_step`  -- one token through the cache
 
 Training takes gradients through autograd; attention's comes from the
-flash backward kernel (:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`).
+flash backward kernel (:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`),
+the WKV recurrence's from the WKV backward kernel
+(:class:`~repro_torch.kernels.rwkv6_wkv.WKV6Fn`).
 ``cfg.remat`` "full" recomputes each group in the backward pass
-(``torch.utils.checkpoint``, as ``jax.checkpoint``); "dots" is treated as
-"full": the JAX policy also saves the matmul outputs, so the two differ in
-memory only, never in values.
+(``torch.utils.checkpoint``, as ``jax.checkpoint``), all but the WKV
+recurrence, whose recomputation takes the first forward's outputs
+(:func:`~repro_torch.kernels.rwkv6_wkv.remat_contexts`); "dots" is treated
+as "full": the JAX policy also saves the matmul outputs, so the two differ
+in memory only, never in values.
 
-RWKV6 layers (rwkv6-7b) serve: prefill and decode run the WKV recurrence
-in the hand-written kernel (:mod:`repro_torch.kernels.rwkv6_wkv`), and
-decode updates their state in place.  Their training waits for a WKV
-backward kernel (ROADMAP queue 1, item 13): a gradient through them raises.
+RWKV6 layers (rwkv6-7b) train and serve: the WKV recurrence runs in the
+hand-written kernels (:mod:`repro_torch.kernels.rwkv6_wkv`), and decode
+updates their state in place.
 Recurrent (RG-LRU) layers and mixture-of-experts FFNs have their
 parameters and decode state (:func:`init_params`, :func:`init_decode_cache`,
 so the sizing hooks of :mod:`repro_torch.launch.shapes` cover every arch),
@@ -40,6 +43,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..kernels.rwkv6_wkv import remat_contexts
 from ..tree import tree_map
 from .attention import attention_decode, attention_forward, init_attention, init_cache
 from .config import ATTN, LOCAL, RECURRENT, RWKV, ModelConfig
@@ -267,7 +271,7 @@ def _run_stack(params: Params, x, cfg: ModelConfig, positions, cache_len):
         group = _index(params["groups"], i)
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                lambda x, g: group_body(x, g)[0], x, group, use_reentrant=False
+                lambda x, g: group_body(x, g)[0], x, group, use_reentrant=False, context_fn=remat_contexts
             )
         else:
             x, slots = group_body(x, group)

@@ -98,9 +98,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: on_local(lambda x: x * scale.to(x.dtype), g), grads), norm
 
 
@@ -110,9 +114,10 @@ def adamw_update(
     """One AdamW step.  Returns (new_params, new_state, metrics)."""
     metrics: Dict[str, torch.Tensor] = {}
     grads = tree_map(lambda g: g.float(), grads)
-    if cfg.clip_norm is not None:
-        grads, norm = clip_by_global_norm(grads, cfg.clip_norm)
-        metrics["grad_norm"] = norm
+    scale = None
+    if cfg.clip_norm is not None:  # clip_by_global_norm, its scaling a leaf at a time in upd
+        metrics["grad_norm"] = global_norm(grads)
+        scale = _clip_scale(metrics["grad_norm"], cfg.clip_norm)
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     metrics["lr"] = lr
@@ -120,6 +125,8 @@ def adamw_update(
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
 
     def upd(p, g, m, v):
+        if scale is not None:
+            g = g * scale.to(g.dtype)
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)

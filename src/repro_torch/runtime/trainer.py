@@ -32,6 +32,8 @@ The pods come from one source: a ``mesh``'s ``"pod"`` size
 (:mod:`repro_torch.launch.mesh`), or with ``scenario=`` the spec's
 ``topology.num_pods``, or else ``TrainerConfig.npods`` (default 1); a
 ``TrainerConfig.npods`` or mesh that disagrees with another source raises.
+A mesh without a ``"pod"`` axis is one pod whatever the scenario says, as
+in the JAX trainer: the spec's fabric then prices its WAN sync.
 Without a mesh, or on a ``LocalMesh``, the pods run in this process.  On a
 group mesh every rank runs the trainer: the loader, seeded the same on
 every rank, gives each the same global batch, of which the step takes the
@@ -65,7 +67,7 @@ from ..device import DeviceLike, resolve_device
 from ..distributed import PodGroup, init_pod_params, init_train_state, make_train_step, map_pod_leaves
 from ..distributed.placement import full_tree
 from ..distributed.steps import place_train_state
-from ..launch.mesh import intra_pod_mesh, is_group_mesh, num_pods, pod_index, pod_process_group
+from ..launch.mesh import intra_pod_mesh, is_group_mesh, mesh_shape, num_pods, pod_index, pod_process_group
 from ..models import init_params
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, DilocoConfig
@@ -155,6 +157,10 @@ class GeoTrainer:
         sources = {}
         if mesh is not None:
             sources["the mesh"] = num_pods(mesh)
+            if "pod" not in mesh_shape(mesh):
+                # as the JAX trainer: a mesh without a pod axis trains one
+                # pod, and the scenario's DCs only price its WAN sync
+                scenario = None
         if scenario is not None:
             sources["the scenario's topology.num_pods"] = scenario.topology.num_pods
         if npods is not None:

@@ -26,7 +26,7 @@ from repro_torch.kernels.flash_attention import (
     fwd_route,
 )
 from repro_torch.kernels.flash_attention.ops import BWD_ROUTE_LAUNCHES, PADDED_LAUNCHES, ROUTE_LAUNCHES
-from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
+from repro_torch.kernels.rwkv6_wkv import GRAD_CHUNK, wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_fwd, wkv6_ref
 from repro_torch.kernels.rwkv6_wkv.ops import CHUNK as WKV_CHUNK
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
 from repro_torch.launch.batches import synthetic_prompt_batch
@@ -487,6 +487,73 @@ def test_wkv6_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         wkv6(r.to(torch.bfloat16), k, v, w, u, s0)
     with pytest.raises(ValueError, match="contiguous float32"):
         wkv6(r, k, v, w, u, s0.transpose(2, 3))
+
+
+# (b, t, h, n, r/k/v dtype, w dtype, chunk, w down to 1e-30): T around the
+# 16-step stage and the chunk (one step, 17, chunk + 5, three chunks)
+WKV_BWD_CASES = [
+    (2, 1, 4, 64, "bfloat16", "float32", GRAD_CHUNK, False),
+    (2, 17, 4, 16, "float32", "float32", GRAD_CHUNK, False),
+    (1, GRAD_CHUNK + 5, 2, 64, "bfloat16", "float32", GRAD_CHUNK, False),
+    (1, 3 * GRAD_CHUNK, 2, 128, "float32", "float32", GRAD_CHUNK, False),
+    (2, 100, 3, 8, "bfloat16", "bfloat16", 32, False),
+    (1, 300, 2, 32, "float32", "float32", 64, True),
+]
+
+
+@pytest.mark.parametrize("case", WKV_BWD_CASES, ids=str)
+def test_wkv6_bwd_kernel_matches_plain(cuda, case):
+    """The backward kernel from the forward kernel's saved states against
+    wkv6_bwd_ref from the plain forward's, with a nonzero state0 and
+    dstate; two calls give the same bits; all finite with w near 0."""
+    b, t, h, n, rkv_dtype, w_dtype, chunk, tiny = case
+    r, k, v, w, u, s0 = _wkv_inputs(t + n, b, t, h, n, rkv_dtype, w_dtype, cuda)
+    if tiny:
+        w = torch.where(torch.rand(w.shape, device=cuda) < 0.25, torch.full_like(w, 1e-30), w)
+    gen = torch.Generator(cuda).manual_seed(t)
+    dout = torch.randn((b, t, h, n), generator=gen, device=cuda)
+    dstate = torch.randn((b, h, n, n), generator=gen, device=cuda) * 0.5
+    nb = -(-t // chunk)
+    bounds, final = torch.empty((b, nb, h, n, n), device=cuda), torch.empty_like(s0)
+    out = wkv6_fwd(r, k, v, w, u, s0, final, bounds=bounds, chunk=chunk)
+    plain_out, plain_final, plain_bounds = wkv6_ref(r, k, v, w, u, s0, chunk=chunk)
+    tol = WKV_TOL[rkv_dtype]
+    torch.testing.assert_close(bounds, plain_bounds, rtol=tol, atol=tol)
+    torch.testing.assert_close(out, plain_out, rtol=tol, atol=tol)
+    before = LAUNCHES["wkv6_bwd"]
+    got = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk)
+    again = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wkv6_bwd"] == before + 2
+    want = wkv6_bwd_ref(r, k, v, w, u, plain_bounds, dout, dstate, chunk)
+    for name, g, a, p in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got, again, want):
+        assert torch.equal(g, a), name
+        assert g.dtype == p.dtype and bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g.float(), p.float(), rtol=tol, atol=tol, msg=name)
+
+
+def test_wkv6_gradient_on_the_card_matches_autograd_through_the_plain_loop(cuda):
+    """wkv6 under grad (the forward and backward kernels) against autograd
+    through wkv6_ref, a loss reading out and the final state."""
+    r, k, v, w, u, s0 = (x.requires_grad_(True) for x in _wkv_inputs(3, 2, 40, 2, 16, "float32", "float32", cuda))
+    dout = torch.randn((2, 40, 2, 16), device=cuda)
+    dstate = torch.randn((2, 2, 16, 16), device=cuda)
+    fwd, bwd = LAUNCHES["wkv6_fwd"], LAUNCHES["wkv6_bwd"]
+    out, final = wkv6(r, k, v, w, u, s0, chunk=16)
+    got = torch.autograd.grad((out * dout).sum() + (final * dstate).sum(), (r, k, v, w, u, s0))
+    assert (LAUNCHES["wkv6_fwd"], LAUNCHES["wkv6_bwd"]) == (fwd + 1, bwd + 1)
+    pout, pfinal = wkv6_ref(r, k, v, w, u, s0)
+    want = torch.autograd.grad((pout * dout).sum() + (pfinal * dstate).sum(), (r, k, v, w, u, s0))
+    for name, g, p in zip(("r", "k", "v", "w", "u", "state0"), got, want):
+        torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def test_wkv6_bwd_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    r, k, v, w, u, s0 = (x.requires_grad_(True) for x in _wkv_inputs(1, 1, 20, 2, 16, "float32", "float32", cuda))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        wkv6(r, k, v, w, u, s0, chunk=8)
+    with pytest.raises(ValueError, match="bounds must be"):
+        wkv6_bwd(r, k, v, w, u, torch.zeros((1, 1, 2, 16, 16), device=cuda), torch.zeros_like(r), None, 16)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

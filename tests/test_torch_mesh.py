@@ -9,7 +9,10 @@ what the ranks return.  Tolerances, each stated with its reason:
     subprocess, as ``tests/test_distributed.py`` runs its meshes), from the
     same JAX weights and batches: losses within rtol 1e-5, every parameter
     leaf within atol 2e-5 (the JAX suite's bar for a mesh step against one
-    device);
+    device); and one step of starcoder2-7b, chatglm3-6b and yi-34b on
+    ``(data 2, model 2)`` and ``(data 1, model 4)``, whose q, kv heads or
+    both do not divide ``model`` (fault F4), against the JAX step on the
+    same mesh at the same bars;
 (b) 4 ranks, ``(pod 2, data 2, model 1)``: two steps of each of the five
     strategies against the port's one-process stacked step (itself held to
     ``jax.vmap`` of the JAX functions in ``test_torch_train.py``): losses
@@ -38,7 +41,12 @@ what the ranks return.  Tolerances, each stated with its reason:
     order of every sum);
 (e) prefill and 4 decode steps on ``(data 2, model 2)`` against the
     one-process ``prefill`` / ``decode_step``, for distilgpt2-82m and
-    rwkv6-7b (heads over ``model``): float32 1e-4, test_torch_serve.py's bar;
+    rwkv6-7b (heads over ``model``), the same on ``(data 1, model 2)``
+    over ranks 0 and 1 (the cache's batch dim on a size-1 ``data``: fault
+    F3), and starcoder2-7b, chatglm3-6b and yi-34b on ``(data 2, model
+    2)`` and ``(data 1, model 4)`` (F4: a head_dim-over-``model`` cache
+    where the kv heads do not divide): float32 1e-4, test_torch_serve.py's
+    bar;
 (f) ``launch.train --mesh group --pods 2 --data 2`` runs, and ``--mesh
     single`` fails with the world-size ``ValueError``;
 (g) ``chip_smoke.py``'s ``train_mesh`` bar on the parameters after the last
@@ -99,6 +107,19 @@ OPT = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=5, clip_norm=0.5, weight_
 DILOCO = DilocoConfig(sync_every=2)
 RTOL, ATOL = 1e-6, 1e-8
 PROMPT, GEN = 12, 4
+#: smoke archs whose q heads (starcoder2-7b: 6, yi-34b: 7) or kv heads
+#: (chatglm3-6b: 2, yi-34b: 1) do not divide a ``model`` axis of 2 or 4
+TP_ARCHS = ("starcoder2-7b", "chatglm3-6b", "yi-34b")
+TP_MESHES = ((2, 2), (1, 4))
+#: (arch, (data, model), steps) trained against the JAX mesh step
+TRAIN_CASES = [(ARCH, (2, 2), 2)] + [(a, m, 1) for a in TP_ARCHS for m in TP_MESHES]
+#: (arch, (data, model)) served against one process; (1, 2) over ranks 0, 1
+SERVE_CASES = ([(ARCH, (2, 2)), ("rwkv6-7b", (2, 2)), (ARCH, (1, 2)), ("rwkv6-7b", (1, 2))]
+               + [(a, m) for a in TP_ARCHS for m in TP_MESHES])
+
+
+def _case_id(arch, shape):
+    return f"{arch}-data{shape[0]}-model{shape[1]}"
 
 
 def _np(tree):
@@ -149,18 +170,24 @@ def _serve(cfg, mesh, params, tokens, decode_tokens):
     return out, {"cache": str(placements["cache"]), "tokens": str(dplace["tokens"])}
 
 
-def _rank_data_model(rank, params_np, batches, serve_in):
-    """(a) and (e) on ``(data 2, model 2)``."""
+def _rank_data_model(rank, train_in, serve_in):
+    """(a) and (e) on ``(data 2, model 2)``, ``(data 1, model 4)`` and, over
+    ranks 0 and 1, ``(data 1, model 2)``."""
     torch.set_num_threads(1)
-    cfg = get_smoke_config(ARCH)
-    mesh = tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
-    params = params_from_numpy(params_np, device="cpu")
-    out = {"train": _train(cfg, "hier", AdamWConfig(warmup_steps=1), batches, mesh=mesh, params=params)}
-    out["one_layer"] = _train(_one_layer(), "hier", OPT, batches[:1], mesh=mesh)
+    meshes = {shape: tmesh.make_mesh(shape, ("data", "model"), device="cpu") for shape in TP_MESHES}
+    meshes[(1, 2)] = tmesh.make_mesh((1, 2), ("data", "model"), device="cpu", ranks=[0, 1])
+    out = {"train": {}, "serve": {}}
+    for (arch, shape, _), (params_np, batches) in zip(TRAIN_CASES, train_in):
+        params = params_from_numpy(params_np, device="cpu")
+        out["train"][_case_id(arch, shape)] = _train(
+            get_smoke_config(arch), "hier", AdamWConfig(warmup_steps=1), batches, mesh=meshes[shape], params=params)
+    mesh = meshes[(2, 2)]
+    out["one_layer"] = _train(_one_layer(), "hier", OPT, train_in[0][1][:1], mesh=mesh)
     out["strided"] = _strided(mesh)
-    out["serve"] = {}
-    for arch, (p_np, tokens, dec) in serve_in.items():
-        out["serve"][arch] = _serve(get_smoke_config(arch), mesh, params_from_numpy(p_np, device="cpu"), tokens, dec)
+    for (arch, shape), (p_np, tokens, dec) in zip(SERVE_CASES, serve_in):
+        if meshes[shape] is not None:
+            out["serve"][_case_id(arch, shape)] = _serve(
+                get_smoke_config(arch), meshes[shape], params_from_numpy(p_np, device="cpu"), tokens, dec)
     return out
 
 
@@ -274,22 +301,25 @@ from repro.launch.mesh import make_mesh
 from repro.launch.shapes import params_specs
 from repro.optim import AdamWConfig
 
-params_np, batches = pickle.load(open(sys.argv[1], "rb"))
-cfg = get_smoke_config("distilgpt2-82m")
-params = jax.tree.map(jnp.asarray, params_np)
+cases = pickle.load(open(sys.argv[1], "rb"))
 opt = AdamWConfig(warmup_steps=1)
-mesh = make_mesh((2, 2), ("data", "model"))
-b_shapes = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), batches[0])
-with mesh:
-    step, _ = make_train_step(cfg, mesh, opt_cfg=opt, strategy="hier", params_shapes=params_specs(cfg),
-                              batch_shapes=b_shapes, donate=False)
-    state = init_train_state(params, opt, strategy="hier")
-    losses = []
-    for b in batches:
-        params, state, m = step(params, state, jax.tree.map(jnp.asarray, b))
-        losses.append(float(m["loss"]))
-pickle.dump({"losses": losses, "params": jax.tree.map(np.asarray, params),
-             "m": jax.tree.map(np.asarray, state.adam.m)}, open(sys.argv[2], "wb"))
+out = {}
+for key, arch, shape, params_np, batches in cases:
+    cfg = get_smoke_config(arch)
+    params = jax.tree.map(jnp.asarray, params_np)
+    mesh = make_mesh(shape, ("data", "model"))
+    b_shapes = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), batches[0])
+    with mesh:
+        step, _ = make_train_step(cfg, mesh, opt_cfg=opt, strategy="hier", params_shapes=params_specs(cfg),
+                                  batch_shapes=b_shapes, donate=False)
+        state = init_train_state(params, opt, strategy="hier")
+        losses = []
+        for b in batches:
+            params, state, m = step(params, state, jax.tree.map(jnp.asarray, b))
+            losses.append(float(m["loss"]))
+    out[key] = {"losses": losses, "params": jax.tree.map(np.asarray, params),
+                "m": jax.tree.map(np.asarray, state.adam.m)}
+pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
 
@@ -302,9 +332,9 @@ def _jax_params_np(arch):
     return jax.tree.map(np.asarray, jax_init_params(jax.random.PRNGKey(0), jax_smoke(arch)))
 
 
-def _start_jax(tmp, params_np, batches):
+def _start_jax(tmp, cases):
     src, dst = tmp / "jax_in.pkl", tmp / "jax_out.pkl"
-    src.write_bytes(pickle.dumps((params_np, batches)))
+    src.write_bytes(pickle.dumps(cases))
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu")
     proc = subprocess.Popen([sys.executable, "-c", textwrap.dedent(_JAX_SCRIPT), str(src), str(dst)],
@@ -323,20 +353,20 @@ def _pod_tree(seed):
 def dm_run(tmp_path_factory):
     """(a) and (e): the JAX mesh step in a subprocess beside a 4-rank spawn."""
     tmp = tmp_path_factory.mktemp("data_model")
-    cfg = get_smoke_config(ARCH)
-    params_np = _jax_params_np(ARCH)
-    batches = _batches(cfg, 2, seed=11)
-    proc, dst = _start_jax(tmp, params_np, batches)
+    train_in = [(_jax_params_np(arch), _batches(get_smoke_config(arch), steps, seed=11))
+                for arch, _, steps in TRAIN_CASES]
+    proc, dst = _start_jax(tmp, [(_case_id(arch, shape), arch, shape, *inputs)
+                                 for (arch, shape, _), inputs in zip(TRAIN_CASES, train_in)])
     rng = np.random.default_rng(6)
-    serve_in = {}
-    for arch in (ARCH, "rwkv6-7b"):
+    serve_in = []
+    for arch, _ in SERVE_CASES:
         c = get_smoke_config(arch)
         tokens = torch.from_numpy(rng.integers(0, c.vocab_size, (4, PROMPT)))
         dec = [torch.from_numpy(rng.integers(0, c.vocab_size, (4,))) for _ in range(GEN)]
-        serve_in[arch] = (_jax_params_np(arch), tokens, dec)
+        serve_in.append((_jax_params_np(arch), tokens, dec))
     try:
-        ranks = spawn(_rank_data_model, 4, params_np, batches, serve_in, device="cpu", join_timeout_s=240)
-        stdout, stderr = proc.communicate(timeout=240)
+        ranks = spawn(_rank_data_model, 4, train_in, serve_in, device="cpu", join_timeout_s=300)
+        stdout, stderr = proc.communicate(timeout=300)
     finally:
         proc.kill()
     assert proc.returncode == 0, stderr[-3000:]
@@ -394,16 +424,42 @@ def _close_but_cancelling_lanes(got, want, lr, what, *, rtol=RTOL, atol=ATOL):
 # -- (a) the JAX mesh step -----------------------------------------------------------
 
 
-def test_data_model_step_matches_jax_mesh_step(dm_run):
-    want = dm_run["jax"]
+@pytest.mark.parametrize("arch,shape", [(a, m) for a, m, _ in TRAIN_CASES],
+                         ids=[_case_id(a, m) for a, m, _ in TRAIN_CASES])
+def test_data_model_step_matches_jax_mesh_step(dm_run, arch, shape):
+    key = _case_id(arch, shape)
+    want = dm_run["jax"][key]
     for r, rank in enumerate(dm_run["ranks"]):
-        rows, states = rank["train"]
+        rows, states = rank["train"][key]
         params = states[-1][0]
         np.testing.assert_allclose([x["loss"] for x in rows], want["losses"], rtol=1e-5, err_msg=f"rank {r}")
         got, ref = _flat(params), _flat(want["params"])
         assert set(got) == set(ref)
-        for k in ref:
-            np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=2e-5, err_msg=f"rank {r} {k}")
+        if arch == ARCH:
+            for k in ref:
+                np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=2e-5, err_msg=f"rank {r} {k}")
+        else:
+            _close_but_eps_lanes(got, ref, _flat(want["m"]), len(rows), f"{key} rank {r}")
+
+
+def _close_but_eps_lanes(got, ref, moment, steps, what, atol=2e-5):
+    """atol 2e-5 but on lanes whose mean gradient (the JAX step's bias-
+    corrected first moment) is below 10 x AdamW's eps: there the first
+    step's g / (|g| + eps) is linear in a gradient at float32 noise level,
+    so its summation order (DTensor's against GSPMD's) moves the parameter
+    by up to lr, which bounds such a lane; fewer than 1e-4 of all values may
+    leave atol (``test_torch_train.py``'s rule; measured: one embed lane of
+    yi-34b on (data 2, model 2), off by 2.12e-5)."""
+    cfg = AdamWConfig()
+    exempt = total = 0
+    for k, want in ref.items():
+        flat = np.abs(moment[k]) / (1 - cfg.b1 ** steps) < 10 * cfg.eps
+        diff = np.abs(got[k] - want)
+        assert (diff[~flat] <= atol).all(), f"{what} {k}: {diff[~flat].max()} > {atol}"
+        assert (diff[flat] <= cfg.lr).all(), f"{what} {k}"
+        exempt += int((diff[flat] > atol).sum())
+        total += want.size
+    assert exempt < 1e-4 * total, f"{what}: {exempt} of {total} values off by more than {atol}"
 
 
 def test_strided_placement_is_model_major(dm_run):
@@ -433,7 +489,7 @@ def test_one_layer_step_with_a_strided_ffn_matches_one_process(dm_run):
 
 def test_data_model_step_counts_lan_not_wan(dm_run):
     for rank in dm_run["ranks"]:
-        rows, _ = rank["train"]
+        rows, _ = rank["train"][_case_id(ARCH, (2, 2))]
         for row in rows:
             assert row["wan_bytes"] == 0 and row["wan_bytes_rank"] == 0
             assert row["lan_bytes"] > 0 and row["lan_s"] > 0
@@ -554,18 +610,22 @@ def test_meshplan_build_in_one_process_is_a_local_mesh():
 # -- (e) serving on the mesh ------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", [ARCH, "rwkv6-7b"])
-def test_mesh_prefill_and_decode_match_one_process(dm_run, arch):
+@pytest.mark.parametrize("case", range(len(SERVE_CASES)),
+                         ids=[a if m == (2, 2) and a in (ARCH, "rwkv6-7b") else _case_id(a, m) for a, m in SERVE_CASES])
+def test_mesh_prefill_and_decode_match_one_process(dm_run, case):
+    arch, shape = SERVE_CASES[case]
     cfg = get_smoke_config(arch)
-    p_np, tokens, dec = dm_run["serve_in"][arch]
+    p_np, tokens, dec = dm_run["serve_in"][case]
     params = params_from_numpy(p_np, device="cpu")
     logits, cache = prefill(params, {"tokens": tokens}, cfg, max_len=PROMPT + GEN)
     want = [logits.numpy().copy()]
     for i, t in enumerate(dec):
         logits, cache = decode_step(params, t, cache, cfg, PROMPT + i)
         want.append(logits.numpy().copy())
-    for r, rank in enumerate(dm_run["ranks"]):
-        got, placements = rank["serve"][arch]
+    ranks = dm_run["ranks"][:2] if shape == (1, 2) else dm_run["ranks"]
+    assert all(_case_id(arch, shape) not in rank["serve"] for rank in dm_run["ranks"][len(ranks):])
+    for r, rank in enumerate(ranks):
+        got, placements = rank["serve"][_case_id(arch, shape)]
         assert "Shard(dim=1)" in placements["cache"] and placements["tokens"] == "(Shard(dim=0), Replicate())"
         for i, (g, w) in enumerate(zip(got, want)):
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=f"rank {r} call {i}")

@@ -730,17 +730,24 @@ def test_disagreeing_pod_counts_raise(tmp_path, case):
         GeoTrainer(get_smoke_config(ARCH), checkpoint_dir=str(tmp_path), device="cpu", **kw)
 
 
-@pytest.mark.parametrize("source", ["scenario", "mesh", "npods", "none"])
+@pytest.mark.parametrize("source", ["scenario", "mesh", "npods", "none", "podless_mesh_and_scenario"])
 def test_pod_count_has_one_source(tmp_path, source):
+    """A mesh without a pod axis is one pod whatever the scenario says (the
+    JAX quickstart's ``GeoTrainer(cfg, make_host_mesh(), scenario=...)``);
+    the scenario's 3 DCs then price its WAN sync."""
     kw = {
         "scenario": dict(trainer_cfg=TrainerConfig(), scenario=_spec(3)),
         "mesh": dict(mesh=tmesh.make_host_mesh(pods=3, device="cpu"), trainer_cfg=TrainerConfig()),
         "npods": dict(trainer_cfg=TrainerConfig(npods=3)),
         "none": dict(trainer_cfg=TrainerConfig()),
+        "podless_mesh_and_scenario": dict(mesh=tmesh.make_host_mesh(device="cpu"), trainer_cfg=TrainerConfig(),
+                                          scenario=_spec(3)),
     }[source]
     trainer = GeoTrainer(get_smoke_config(ARCH), checkpoint_dir=str(tmp_path), device="cpu", **kw)
-    pods = 1 if source == "none" else 3
+    pods = 1 if source in ("none", "podless_mesh_and_scenario") else 3
     assert trainer.tc.npods == pods and list(trainer.heartbeats.workers) == [f"pod{i}" for i in range(pods)]
+    if source == "podless_mesh_and_scenario":
+        assert trainer.geo.num_pods == 3
 
 
 def test_make_train_step_refuses_npods_that_disagree_with_the_mesh():

@@ -29,11 +29,12 @@ from repro.kernels.rwkv6_wkv.ref import wkv6_ref as jax_wkv6_ref
 from repro.models import decode_step as jax_decode_step
 from repro.models import init_decode_cache as jax_init_decode_cache
 from repro.models import init_params as jax_init_params
+from repro.models import loss_fn as jax_loss_fn
 from repro.models import prefill as jax_prefill
 from repro.models import rwkv6 as jr
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import cache_from_numpy, cache_to_numpy, params_from_numpy, params_to_numpy
-from repro_torch.kernels.rwkv6_wkv import wkv6, wkv6_ref
+from repro_torch.kernels.rwkv6_wkv import GRAD_CHUNK, wkv6, wkv6_bwd_ref, wkv6_ref
 from repro_torch.models import DecoderLM, decode_step, init_decode_cache, init_params, loss_fn, prefill
 from repro_torch.models import rwkv6 as tr
 
@@ -48,6 +49,7 @@ SWEEP = [(1, 32, 1, 8, 8), (2, 64, 3, 16, 16), (2, 128, 2, 64, 32)]
 # d_model 128 > LORA_RANK 64: a transposed decay_a / decay_b has the wrong shape
 WIDE = dict(d_model=128, rwkv_head_dim=16, num_heads=8, num_kv_heads=8)
 GEN, BATCH = 8, 2
+RWKV_LEAVES = 27  # embed, final norm, unembed and a group of 19 + 2 x 2 norm leaves
 
 
 def _close(actual, expected, tol, what=""):
@@ -132,18 +134,92 @@ def test_wkv6_stepwise_equals_whole():
     torch.testing.assert_close(state, fin_whole, rtol=1e-5, atol=1e-6)
 
 
-def test_wkv6_refuses_grad_and_bad_shapes():
+def test_wkv6_refuses_bad_shapes():
     r, k, v, w, u, s0 = (torch.from_numpy(a) for a in _wkv_inputs(1, 1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13"):
-        wkv6(r.clone().requires_grad_(True), k, v, w, u, s0)
-    with torch.no_grad():
-        wkv6(r.clone().requires_grad_(True), k, v, w, u, s0)
     with pytest.raises(ValueError, match="shape"):
         wkv6(r, k[:, :3], v, w, u, s0)
     with pytest.raises(ValueError, match="u must be"):
         wkv6(r, k, v, w, u[:1], s0)
     with pytest.raises(ValueError, match="state0 must be"):
         wkv6(r, k, v, w, u, s0[:, :1])
+    with pytest.raises(ValueError, match="state_out .* has no gradient"):
+        wkv6(r.clone().requires_grad_(True), k, v, w, u, s0, state_out=s0.clone())
+    with pytest.raises(ValueError, match="chunk must be >= 1"):
+        wkv6(r.clone().requires_grad_(True), k, v, w, u, s0, chunk=0)
+
+
+# -- the WKV gradient ----------------------------------------------------------------
+
+
+def _grad_inputs(seed, b, t, h, n, *, tiny_w=False):
+    """_wkv_inputs, with w drawn down to 1e-30 on a quarter of the lanes
+    where ``tiny_w``, and the gradients of out and of the final state."""
+    arrays = _wkv_inputs(seed, b, t, h, n)
+    rng = np.random.default_rng(seed + 100)
+    if tiny_w:
+        arrays[3] = np.where(rng.random(arrays[3].shape) < 0.25, np.float32(1e-30), arrays[3])
+    dout = rng.standard_normal((b, t, h, n)).astype(np.float32)
+    dstate = (rng.standard_normal((b, h, n, n)) * 0.5).astype(np.float32)
+    return arrays, dout, dstate
+
+
+def _port_grads(arrays, dout, dstate, chunk, dtype=torch.float32):
+    xs = [torch.from_numpy(a).to(dtype if i < 4 else torch.float32).requires_grad_(True) for i, a in enumerate(arrays)]
+    out, final = tr._wkv_with_initial_state(*xs, chunk=chunk)
+    loss = (out * torch.from_numpy(dout)).sum() + (final * torch.from_numpy(dstate)).sum()
+    return out, final, torch.autograd.grad(loss, xs)
+
+
+# T = 3 chunks (JAX's chunked, checkpointed scan) and 2 chunks + 1 (its
+# plain scan), chunk 4; a ragged last chunk and one step on the port's side
+@pytest.mark.parametrize("t", [12, 9], ids=["jax_chunked", "jax_unchunked"])
+def test_wkv_grad_matches_jax_grad(t):
+    """The port's WKV function, forward and every input's gradient, against
+    ``jax.grad`` of ``repro.models.rwkv6._wkv_with_initial_state`` with the
+    same chunk, through a loss that reads the final state too."""
+    chunk = 4
+    arrays, dout, dstate = _grad_inputs(t, 2, t, 3, 8)
+
+    def jloss(r, k, v, w, u, s0):
+        out, final = jr._wkv_with_initial_state(r, k, v, w, u, s0, chunk=chunk)
+        return jnp.sum(out * dout) + jnp.sum(final * dstate), (out, final)
+
+    (_, (jout, jfinal)), jgrads = jax.value_and_grad(jloss, argnums=tuple(range(6)), has_aux=True)(
+        *(jnp.asarray(a) for a in arrays))
+    out, final, grads = _port_grads(arrays, dout, dstate, chunk)
+    np.testing.assert_allclose(out.detach(), jout, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(final.detach(), jfinal, rtol=1e-4, atol=1e-5)
+    for name, got, want in zip(("r", "k", "v", "w", "u", "state0"), grads, jgrads):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,chunk,tiny_w", [(1, 4, False), (17, 16, False), (21, 4, True), (12, 12, False)])
+def test_wkv6_bwd_ref_matches_autograd_through_wkv6_ref(t, chunk, tiny_w, dtype):
+    """The chunked backward against autograd through the plain forward loop;
+    with w down to 1e-30 every gradient stays finite."""
+    arrays, dout, dstate = _grad_inputs(t + chunk, 2, t, 2, 8, tiny_w=tiny_w)
+    out, final, grads = _port_grads(arrays, dout, dstate, chunk, TDT[dtype])
+    xs = [torch.from_numpy(a).to(TDT[dtype] if i < 4 else torch.float32).requires_grad_(True)
+          for i, a in enumerate(arrays)]
+    pout, pfinal = wkv6_ref(*xs)
+    want = torch.autograd.grad((pout * torch.from_numpy(dout)).sum() + (pfinal * torch.from_numpy(dstate)).sum(), xs)
+    torch.testing.assert_close(out, pout, rtol=0, atol=0)
+    torch.testing.assert_close(final, pfinal, rtol=0, atol=0)
+    for name, got, w in zip(("r", "k", "v", "w", "u", "state0"), grads, want):
+        assert got.dtype == w.dtype and bool(torch.isfinite(got).all()), name
+        torch.testing.assert_close(got.float(), w.float(), rtol=1e-5, atol=1e-5, msg=f"d{name}")
+
+
+def test_wkv6_bwd_ref_takes_no_final_state_gradient():
+    """``dstate=None`` (the loss reads only out) equals a zero ``dstate``."""
+    arrays, dout, _ = _grad_inputs(3, 1, 10, 2, 8)
+    xs = [torch.from_numpy(a) for a in arrays]
+    _, _, bounds = wkv6_ref(*xs, chunk=4)
+    none = wkv6_bwd_ref(*xs[:5], bounds, torch.from_numpy(dout), None, 4)
+    zero = wkv6_bwd_ref(*xs[:5], bounds, torch.from_numpy(dout), torch.zeros_like(xs[5]), 4)
+    for a, b in zip(none, zero):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 # -- the blocks ------------------------------------------------------------------
@@ -329,18 +405,55 @@ def test_full_config_meta_init_matches_jax_eval_shape():
     assert tl["['groups']['slot0']['rwkv']['decay_b']"][0] == (32, 64, 4096)
 
 
-def test_loss_with_grad_raises_naming_the_wkv_backward():
-    _, tcfg = _cfgs("float32")
-    params = init_params(tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    for leaf in jax.tree.leaves(params):
-        leaf.requires_grad_(True)
-    tokens = torch.randint(0, tcfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+@pytest.mark.parametrize(
+    "remat,seq", [("none", 16), ("full", 16), ("none", 768)], ids=["none", "remat_full", "seq768_chunked"]
+)
+def test_loss_and_every_grad_leaf_match_jax(remat, seq):
+    """The whole rwkv6 smoke ``loss_fn`` and every leaf's gradient against
+    ``jax.grad`` of the JAX one, through ``convert.py``'s weights (seeded
+    constants in place of the init ones).  Sequence 768 runs JAX's chunked,
+    checkpointed WKV scan and three of the port's 256-step chunks."""
+    jcfg, tcfg = _cfgs("float32", {"remat": remat})
+    jparams = _randomise(jax_init_params(jax.random.PRNGKey(0), jcfg), 1)
+    tokens = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, seq + 1))
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13"):
-        loss_fn(params, batch, tcfg)
-    with torch.no_grad():
-        loss, _ = loss_fn(params, batch, tcfg)
-    assert torch.isfinite(loss)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(lambda p, b: jax_loss_fn(p, b, jcfg), has_aux=True))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    leaves = jax.tree.leaves(tparams)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss, _ = loss_fn(tparams, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=2e-5, atol=2e-5)
+    jflat = [(jax.tree_util.keystr(p), np.asarray(g)) for p, g in jax.tree_util.tree_flatten_with_path(jgrads)[0]]
+    assert len(jflat) == len(grads) == RWKV_LEAVES
+    for (path, want), got in zip(jflat, grads):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5, err_msg=path)
+
+
+def test_remat_runs_the_wkv_forward_once_a_layer(monkeypatch):
+    """Under ``remat="full"`` the recomputed group forward replays the WKV
+    outputs of the first: one chunked forward a layer, the same gradients."""
+    from repro_torch.kernels.rwkv6_wkv import ops
+
+    calls = []
+    plain = ops.wkv6_ref
+    monkeypatch.setattr(ops, "wkv6_ref", lambda *a, **kw: calls.append(kw.get("chunk")) or plain(*a, **kw))
+    grads = {}
+    for remat in ("none", "full"):
+        _, tcfg = _cfgs("float32", {"remat": remat})
+        params = init_params(tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+        leaves = jax.tree.leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        tokens = torch.randint(0, tcfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+        calls.clear()
+        loss, _ = loss_fn(params, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}, tcfg)
+        grads[remat] = torch.autograd.grad(loss, leaves)
+        assert calls == [GRAD_CHUNK] * tcfg.num_layers, remat
+    for a, b in zip(grads["none"], grads["full"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_decoder_lm_module_serves_rwkv6():

@@ -12,12 +12,13 @@ Phases, each printing one JSON line on stdout:
    at the main paths' shapes and the variants below, with times: the flash
    forward and backward, the WAN int8 quantiser and dequantiser, the RWKV6
    WKV recurrence and its backward (``wkv6_bwd``: dr, dk, dv, dw, du and
-   dstate0 against ``wkv6_bwd_ref`` at N 16, 64, 128, bf16 and float32, T
-   from 1 to 4096 across the 16-step stage and the 256-step chunk, w down
-   to 1e-30 in one case; ``wkv6`` under grad against autograd through
-   ``wkv6_ref``; timed at 4 x 4096 and 2 x 4096, with the forward's
-   serving instance and its training instance, which also saves the
-   state every 256 steps).
+   dstate0 against ``wkv6_bwd_ref`` and ``wkv6_bwd_chunked_ref`` at N 8,
+   16, 32, 64, 128, bf16 and float32, T from 1 to 4096 across the 16-step
+   sub-chunk and the 256-step chunk, w at 1e-30, at a denormal and at 0,
+   each launch on the route ``bwd_route`` names; ``wkv6`` under grad
+   against autograd through ``wkv6_ref``; timed at 4 x 4096 and 2 x 4096,
+   with the forward's serving instance and its training instance, which
+   also saves the state every 256 steps).
 4. ``serve``: the serving path, distilgpt2-82m at full width (random
    weights from a seed): prefill of 8 x 1024 tokens, then 32 greedy decode
    steps, with the kernel launch counts of that run; then the card against
@@ -100,7 +101,8 @@ Phases, each printing one JSON line on stdout:
    batch 4 x 4096, bf16 compute, float32 parameters, AdamW, 2 untimed and
    4 timed steps, no checkpoint written.  Losses finite and falling; per
    step 8 ``wkv6_fwd`` and 8 ``wkv6_bwd`` launches (pods x layers: the
-   rematerialised forward replays the first one's WKV outputs) and a
+   rematerialised forward replays the first one's WKV outputs; every
+   ``wkv6_bwd`` launch on bf16's ``tf32`` route) and a
    ``wan_quant`` / ``wan_dequant`` a leaf; WAN bytes a pod a step within 1%
    of ``wan_bytes_per_step``.  Then one step of a 2-layer cut on one
    768-token sequence (three 256-step chunks) on the card against the CPU:
@@ -146,7 +148,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # NVIDIA H100 SXM data sheet, dense: HBM rate and peak rates by operand type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # float32: CUDA cores, no TF32
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}  # float32: CUDA cores; tf32: tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # kernel vs plain; rtol = atol
 SERVE_TOL = 5e-2  # bf16 logits, card vs CPU: rounding points differ
 TRAIN_TOL = 5e-2  # bf16 loss, grad norm, synced leaves (relative norm), card vs CPU
@@ -198,21 +200,33 @@ WKV_CASES = [
     ("n32", 4, 1024, 128, 32, "bfloat16", "float32", False),
 ]
 WKV_TOL = {"bfloat16": 5e-2, "float32": 1e-4}  # TestWkv6's, by the r/k/v dtype
-# (label, B, T, H, N, r/k/v dtype, w dtype, w down to 1e-30): the backward
-# at the rwkv6-7b 4 x 4096 shape and train_rwkv's per-pod 2 x 4096 (both
-# timed), then T across the kernel's 16-step stage and the 256-step chunk
-# (1, 17, 256 + 5, 3 x 256) at N 16, 64, 128 in bf16 and float32
+# (label, B, T, H, N, r/k/v dtype, w dtype, small w): the backward at the
+# rwkv6-7b 4 x 4096 shape and train_rwkv's per-pod 2 x 4096 (both timed),
+# then T across the kernel's 16-step sub-chunk and the 256-step chunk (1,
+# 17, 256 + 5, 3 x 256) at N 16, 64, 128 in bf16 and float32; w set to
+# 1e-30, to a float32 denormal or to exactly 0 on a quarter of the lanes
+# ("1e-30", "denormal", "zero"), or to 0 on every lane for steps 16-20 and
+# 256-271 ("zero_run": a run of w == 0 that starts a sub-chunk and a chunk),
+# at T that straddle the sub-chunk and the chunk (256 + 17, 2 x 256 + 15,
+# 4 x 256 + 16)
 WKV_BWD_CASES = [
-    ("path_4x4096", 4, 4096, 64, 64, "bfloat16", "float32", False),
-    ("train_pod_2x4096", 2, 4096, 64, 64, "bfloat16", "float32", False),
-    ("t1_n64", 2, 1, 64, 64, "bfloat16", "float32", False),
-    ("t17_n16_f32", 2, 17, 16, 16, "float32", "float32", False),
-    ("t261_n128", 1, 261, 32, 128, "bfloat16", "float32", False),
-    ("t261_n64_f32", 2, 261, 64, 64, "float32", "float32", False),
-    ("t768_n16_w_bf16", 2, 768, 16, 16, "bfloat16", "bfloat16", False),
-    ("t768_n128_f32", 1, 768, 32, 128, "float32", "float32", False),
-    ("w_to_1e-30_t300_n64", 2, 300, 16, 64, "bfloat16", "float32", True),
+    ("path_4x4096", 4, 4096, 64, 64, "bfloat16", "float32", None),
+    ("train_pod_2x4096", 2, 4096, 64, 64, "bfloat16", "float32", None),
+    ("t1_n64", 2, 1, 64, 64, "bfloat16", "float32", None),
+    ("t17_n16_f32", 2, 17, 16, 16, "float32", "float32", None),
+    ("t261_n128", 1, 261, 32, 128, "bfloat16", "float32", None),
+    ("t261_n64_f32", 2, 261, 64, 64, "float32", "float32", None),
+    ("t768_n16_w_bf16", 2, 768, 16, 16, "bfloat16", "bfloat16", None),
+    ("t768_n128_f32", 1, 768, 32, 128, "float32", "float32", None),
+    ("w_to_1e-30_t300_n64", 2, 300, 16, 64, "bfloat16", "float32", "1e-30"),
+    ("w_zero_t273_n64", 2, 273, 16, 64, "bfloat16", "float32", "zero"),
+    ("w_zero_t273_n64_f32", 2, 273, 16, 64, "float32", "float32", "zero"),
+    ("w_denormal_t527_n32", 2, 527, 16, 32, "bfloat16", "float32", "denormal"),
+    ("w_denormal_t527_n64_f32", 1, 527, 16, 64, "float32", "float32", "denormal"),
+    ("w_zero_run_t1040_n8_w_bf16", 2, 1040, 8, 8, "bfloat16", "bfloat16", "zero_run"),
+    ("w_zero_run_t1040_n64_f32", 1, 1040, 8, 64, "float32", "float32", "zero_run"),
 ]
+WKV_SMALL_W = {"1e-30": 1e-30, "denormal": 1e-40, "zero": 0.0}
 WKV_BWD_TIMED = 2  # the first cases, timed
 # train_rwkv: rwkv6-7b at full width, depth cut from 32 layers
 RWKV_TRAIN_LAYERS, B_RWKV_TRAIN, SEQ_RWKV_TRAIN, RWKV_TRAIN_STEPS = 4, 4, 4096, 6
@@ -332,15 +346,34 @@ def wkv_bound(b, t, h, n, rkv_dtype, w_dtype):
 
 
 def wkv_bwd_bound(b, t, h, n, rkv_dtype, w_dtype, chunk):
-    """Each input read once (r, k, v, w; dy float32; u; the saved states and
-    dstate), each output written once (dr, dk, dv in r's type, dw in w's; du;
-    dstate0); 15 N^2 float32 operations per (b, t, h): the recomputed
-    forward (3), dr (2), H (2), dk (2), dv (1), dw (2), G (3)."""
+    """-> (bound_ms, bound_by, figures).  Bytes: each input read once (r, k,
+    v, w; dy float32; u; the saved states and dstate), each output written
+    once (dr, dk, dv in r's type, dw in w's; du; dstate0).  Operations: those
+    wkv6_bwd.cu does a (b, t, h), by type: on the tensor cores (TF32; three
+    products each for float32 r, k, v) P, Q, the state recomputed 1.5 times,
+    G's two updates and dv's K~ GL: 13 N^2; A and dv's B DY: 4 L N; the pair
+    terms' X: 2 L 17 N (L = 16); on the CUDA cores (float32) ~170 N for the
+    pair terms and the decays.  The bytes are the floor: the operations'
+    time is below them at the timed shapes.  The earlier scalar kernel's
+    bound, 15 N^2 float32 operations a (b, t, h) of the step-by-step
+    recurrence (0.9616 ms at 4 x 4096), stands beside it in ``figures``: no
+    floor once the tensor cores take the products."""
     isz = {"bfloat16": 2, "float32": 4}
-    elems = b * t * h * n
+    steps, elems, sub = b * t * h, b * t * h * n, 16
     states = (b * -(-t // chunk) + 2 * b) * h * n * n * 4
     nbytes = elems * (2 * (3 * isz[rkv_dtype] + isz[w_dtype]) + 4) + 2 * h * n * 4 + states
-    return bound(nbytes, 15 * n * n * b * t * h, "float32")
+    tensor = steps * (13 * n * n + 4 * sub * n + 2 * sub * 17 * n) * (3 if rkv_dtype == "float32" else 1)
+    cuda = steps * 170 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = tensor / PEAK_FLOPS["tf32"] + cuda / PEAK_FLOPS["float32"]
+    figures = {
+        "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3, "floor": "bytes" if t_bytes >= t_ops else "operations",
+        "f32_recurrence_ops_ms": 15 * n * n * steps / PEAK_FLOPS["float32"] * 1e3,
+        "f32_recurrence_ops_ms_is": "the scalar kernel's bound: 15 N^2 float32 operations a (b, t, h) of the "
+                                    "step-by-step recurrence on the CUDA cores; no floor once the tensor cores "
+                                    "take the products",
+    }
+    return max(t_bytes, t_ops) * 1e3, figures["floor"], figures
 
 
 def phase_env(torch):
@@ -644,12 +677,15 @@ def phase_kernels_wkv(torch):
 
 def phase_kernels_wkv_bwd(torch):
     """wkv6_bwd from the forward kernel's saved states against wkv6_bwd_ref
-    from the plain forward's (dr, dk, dv, dw, du, dstate0, with a nonzero
-    state0 and dstate), twice for equal bits, finite with w down to 1e-30;
-    the saved states against the plain ones; wkv6 under grad against
-    autograd through wkv6_ref; times at the two path shapes, with the
-    forward's serving and training instances beside them."""
-    from repro_torch.kernels.rwkv6_wkv import GRAD_CHUNK, wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_fwd, wkv6_ref
+    (step by step) and wkv6_bwd_chunked_ref (the kernel's algorithm in plain
+    float32) from the plain forward's (dr, dk, dv, dw, du, dstate0, with a
+    nonzero state0 and dstate), twice for equal bits, finite with w at
+    1e-30, at a denormal and at 0, on the route bwd_route names; the saved
+    states against the plain ones; wkv6 under grad against autograd through
+    wkv6_ref; times at the two path shapes, with the forward's serving and
+    training instances beside them."""
+    from repro_torch.kernels.rwkv6_wkv import (GRAD_CHUNK, WKV_BWD_ROUTE_LAUNCHES, bwd_route, wkv6, wkv6_bwd,
+                                               wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_fwd, wkv6_ref)
 
     gen = torch.Generator(device="cuda").manual_seed(4)
 
@@ -658,11 +694,15 @@ def phase_kernels_wkv_bwd(torch):
 
     names = ("dr", "dk", "dv", "dw", "du", "dstate0")
     checks = []
-    for i, (label, b, t, h, n, rkv_dtype, w_dtype, tiny) in enumerate(WKV_BWD_CASES):
+    for i, (label, b, t, h, n, rkv_dtype, w_dtype, small_w) in enumerate(WKV_BWD_CASES):
         r, k, v = (draw((b, t, h, n), 0.5).to(getattr(torch, rkv_dtype)) for _ in range(3))
         w = torch.sigmoid(draw((b, t, h, n), 1.0, 2.0))
-        if tiny:
-            w = torch.where(torch.rand(w.shape, generator=gen, device="cuda") < 0.25, torch.full_like(w, 1e-30), w)
+        if small_w == "zero_run":
+            w[:, 16:21] = 0.0
+            w[:, 256:272] = 0.0
+        elif small_w:
+            lanes = torch.rand(w.shape, generator=gen, device="cuda") < 0.25
+            w = torch.where(lanes, torch.full_like(w, WKV_SMALL_W[small_w]), w)
         w = w.to(getattr(torch, w_dtype))
         u, s0 = draw((h, n), 0.1), draw((b, h, n, n), 0.1)
         dout, dstate = draw((b, t, h, n)), draw((b, h, n, n), 0.5)
@@ -670,45 +710,54 @@ def phase_kernels_wkv_bwd(torch):
         final = torch.empty_like(s0)
         wkv6_fwd(r, k, v, w, u, s0, final, bounds=bounds, chunk=GRAD_CHUNK)
         _, plain_final, plain_bounds = wkv6_ref(r, k, v, w, u, s0, chunk=GRAD_CHUNK)
+        routes, route = dict(WKV_BWD_ROUTE_LAUNCHES), bwd_route(r.dtype, n)
         got = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, GRAD_CHUNK)
         again = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, GRAD_CHUNK)
+        took = {x: c - routes.get(x, 0) for x, c in WKV_BWD_ROUTE_LAUNCHES.items() if c != routes.get(x, 0)}
+        if took != {route: 2}:
+            raise AssertionError(f"wkv6_bwd {label}: launched on routes {took}, expected {route}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = wkv6_bwd_ref(r, k, v, w, u, plain_bounds, dout, dstate, GRAD_CHUNK)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        tol, errs = WKV_TOL[rkv_dtype], {}
-        pairs = list(zip(names, got, want)) + [("bounds", bounds, plain_bounds), ("final", final, plain_final)]
-        for name, g, p in pairs:
+        want_chunked = wkv6_bwd_chunked_ref(r, k, v, w, u, plain_bounds, dout, dstate, GRAD_CHUNK)
+        tol, errs, errs_chunked = WKV_TOL[rkv_dtype], {}, {}
+        pairs = ([(nm, g, p, errs) for nm, g, p in zip(names, got, want)]
+                 + [(nm, g, p, errs_chunked) for nm, g, p in zip(names, got, want_chunked)]
+                 + [("bounds", bounds, plain_bounds, errs), ("final", final, plain_final, errs)])
+        for name, g, p, into in pairs:
             diff = (g.float() - p.float()).abs()
-            errs[name] = diff.max().item()
+            into[name] = diff.max().item()
             if g.dtype != p.dtype or not bool(torch.isfinite(g).all()):
                 raise AssertionError(f"wkv6_bwd {label} {name}: dtype {g.dtype} vs {p.dtype}, or not finite")
             if not bool((diff <= tol + tol * p.float().abs()).all()):
-                raise AssertionError(f"wkv6_bwd {label} {name}: max_abs_err {errs[name]}, rtol=atol={tol}")
+                ref = "wkv6_bwd_chunked_ref" if into is errs_chunked else "wkv6_bwd_ref"
+                raise AssertionError(f"wkv6_bwd {label} {name} vs {ref}: max_abs_err {into[name]}, rtol=atol={tol}")
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
             raise AssertionError(f"wkv6_bwd {label}: two calls on the same inputs differ")
         row = {
             "label": label, "shape": {"B": b, "T": t, "H": h, "N": n, "chunk": GRAD_CHUNK}, "rkv_dtype": rkv_dtype,
-            "w_dtype": w_dtype, "w_down_to_1e-30": tiny, "two_calls_equal": True,
-            "max_abs_err": max(errs[nm] for nm in names), "max_abs_err_by_output": errs, "tol": tol,
+            "w_dtype": w_dtype, "small_w": small_w, "route": route, "two_calls_equal": True,
+            "max_abs_err": max(errs[nm] for nm in names), "max_abs_err_by_output": errs,
+            "max_abs_err_vs_chunked_ref": errs_chunked, "tol": tol,
         }
         if i < WKV_BWD_TIMED:
             def kernel():
                 return wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, GRAD_CHUNK)
 
-            bound_ms, bound_by = wkv_bwd_bound(b, t, h, n, rkv_dtype, w_dtype, GRAD_CHUNK)
+            bound_ms, bound_by, bound_figures = wkv_bwd_bound(b, t, h, n, rkv_dtype, w_dtype, GRAD_CHUNK)
             row.update({
                 "ms": device_ms(kernel, calls=3, replays=3), "call_ms": time_ms(kernel, runs=5, warmup=1),
                 "plain_ms": plain_ms,
                 "plain_ms_is": "one call of wkv6_bwd_ref at this shape (the check's), host clock around it",
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bound_figures": bound_figures, "library_ms": None,
                 "fwd_serving_instance_ms": device_ms(lambda: wkv6_fwd(r, k, v, w, u, s0, final)),
                 "fwd_training_instance_ms": device_ms(
                     lambda: wkv6_fwd(r, k, v, w, u, s0, final, bounds=bounds, chunk=GRAD_CHUNK)),
             })
         checks.append(row)
-        del r, k, v, w, u, s0, dout, dstate, bounds, final, got, again, want, plain_bounds, plain_final
+        del r, k, v, w, u, s0, dout, dstate, bounds, final, got, again, want, want_chunked, plain_bounds, plain_final
     torch.cuda.empty_cache()
 
     # wkv6 under grad (both kernels) against autograd through the plain loop
@@ -725,7 +774,7 @@ def phase_kernels_wkv_bwd(torch):
     tol = WKV_TOL["float32"]
     if not all(bool(((g - p).abs() <= tol + tol * p.abs()).all()) for g, p in zip(got, want)):
         raise AssertionError(f"wkv6 under grad vs autograd through wkv6_ref: {auto}, rtol=atol={tol}")
-    emit({"phase": "kernels", "kernel": "wkv6_bwd", "checks": checks,
+    emit({"phase": "kernels", "kernel": "wkv6_bwd", "routes": {c["label"]: c["route"] for c in checks}, "checks": checks,
           "vs_autograd_through_wkv6_ref": {"shape": [b, t, h, n], "dtype": "float32", "max_abs_err": auto,
                                            "tol": tol}})
     return checks
@@ -1992,6 +2041,7 @@ def phase_train_rwkv(torch):
     from repro_torch.configs import get_config
     from repro_torch.distributed import wan_bytes_per_step
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.rwkv6_wkv import WKV_BWD_ROUTE_LAUNCHES, bwd_route
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import GeoTrainer, TrainerConfig
     from repro_torch.tree import tree_leaves
@@ -2015,8 +2065,9 @@ def phase_train_rwkv(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
+    WKV_BWD_ROUTE_LAUNCHES.clear()
     result = trainer.run()
-    launches = dict(LAUNCHES)
+    launches, bwd_routes = dict(LAUNCHES), dict(WKV_BWD_ROUTE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     rows = result["metrics"]
     leaves = tree_leaves(trainer.params)
@@ -2027,6 +2078,9 @@ def phase_train_rwkv(torch):
     expected = {k: RWKV_TRAIN_STEPS * n for k, n in per_step.items()}
     if launches != expected:
         raise AssertionError(f"train_rwkv: launches {launches} over {RWKV_TRAIN_STEPS} steps, expected {expected}")
+    path_route = bwd_route(getattr(torch, cfg.dtype), cfg.rwkv_head_dim)
+    if bwd_routes != {path_route: expected["wkv6_bwd"]}:
+        raise AssertionError(f"train_rwkv: wkv6_bwd routes {bwd_routes}, expected all {expected['wkv6_bwd']} on {path_route}")
     losses = falling_losses("train_rwkv", rows)
     analytic = wan_bytes_per_step(n_params * 4, "hier_int8", npods=NPODS)
     wan = [r["wan_bytes"] for r in rows]
@@ -2051,7 +2105,7 @@ def phase_train_rwkv(torch):
         "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
         "grad_norm_last": rows[-1]["grad_norm"], "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9,
         "wan_bytes_per_pod_step": wan[-1], "wan_bytes_per_step_analytic": analytic,
-        "launches_main_path": launches, "launches_per_step": per_step,
+        "launches_main_path": launches, "launches_per_step": per_step, "wkv6_bwd_routes": bwd_routes,
         "card_vs_cpu": rwkv_card_vs_cpu_step(torch, full),
     })
     return launches
@@ -2211,7 +2265,8 @@ def main() -> int:
                    "none: the JAX package trains RWKV6 through jax.grad of the checkpointed lax.scan "
                    "(src/repro/models/rwkv6.py:165, _wkv_with_initial_state; no Pallas backward)", wkv_bwd[0],
                    library_why="no single PyTorch call computes the WKV6 recurrence's gradient",
-                   plain_ms_is=wkv_bwd[0]["plain_ms_is"], shapes=wkv_bwd),
+                   plain_ms_is=wkv_bwd[0]["plain_ms_is"], bound_figures=wkv_bwd[0]["bound_figures"],
+                   bwd_route=wkv_bwd[0]["route"], shapes=wkv_bwd),
              launches=train_rwkv["wkv6_bwd"], launches_per_train_step=0,
              launches_per_train_rwkv_step=train_rwkv["wkv6_bwd"] // RWKV_TRAIN_STEPS),
     ]})

@@ -12,9 +12,11 @@ Where autograd needs a gradient, :func:`wkv6` goes through :class:`WKV6Fn`:
 its forward also saves the float32 state before every ``chunk`` steps
 (``GRAD_CHUNK``, JAX's ``WKV_CHUNK``, by default), and its backward is the
 hand-written kernel ``csrc/wkv6_bwd.cu`` (the JAX package trains through
-``jax.grad`` of a checkpointed ``lax.scan``; no Pallas kernel), which
-recomputes each chunk's states from the saved one.  On CPU tensors both run
-the plain versions, on the same chunked schedule.
+``jax.grad`` of a checkpointed ``lax.scan``; no Pallas kernel), which works
+on all chunks at once from the saved states, its products on the tensor
+cores by the route :func:`bwd_route` names (counted in
+``WKV_BWD_ROUTE_LAUNCHES``).  On CPU tensors both run the plain versions,
+on the same chunked schedule.
 
 Under the model's rematerialisation (``torch.utils.checkpoint`` with
 :func:`remat_contexts`) the recomputed forward takes the outputs the first
@@ -27,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -46,6 +49,21 @@ CHUNK = 16
 GRAD_CHUNK = 256
 MAX_GRAD_CHUNK = 256
 _DTYPES = (torch.bfloat16, torch.float32)
+#: backward launches by route (:func:`bwd_route`); the wrapper adds one
+#: where it launches
+WKV_BWD_ROUTE_LAUNCHES: Counter = Counter()
+
+
+def bwd_route(dtype: torch.dtype, n: int) -> str:
+    """The route ``csrc/wkv6_bwd.cu`` takes for r, k, v of ``dtype`` at head
+    dim ``n``, by these two and nothing else: ``"tf32"`` (bf16, the
+    training path) runs its matrix products on TF32 operands,
+    ``"3xtf32"`` (float32) splits each operand into a high and a low TF32
+    part; float32 sums on both."""
+    if n not in HEAD_DIMS or dtype not in _DTYPES:
+        raise ValueError(f"the backward kernel takes head dim N in {HEAD_DIMS} and r, k, v in {_DTYPES}, "
+                         f"got {n}, {dtype}")
+    return "tf32" if dtype == torch.bfloat16 else "3xtf32"
 
 
 def _check(r, k, v, w, u, state0) -> None:
@@ -143,31 +161,37 @@ def wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk: int = GRAD_CHUNK):
     if tuple(dout.shape) != (b, t, h, n) or (dstate is not None and tuple(dstate.shape) != (b, h, n, n)):
         raise ValueError(f"dout must be [B, T, H, N] and dstate [B, H, N, N], got {tuple(dout.shape)}, "
                          f"{None if dstate is None else tuple(dstate.shape)}")
-    r, k, v, w = (x.contiguous() for x in (r, k, v, w))
-    u, bounds, dout = u.float().contiguous(), bounds.contiguous(), dout.float().contiguous()
-    dstate = None if dstate is None else dstate.float().contiguous()
+    route = bwd_route(r.dtype, n)
+
+    def staged(x, dtype=None):  # contiguous, 16-byte aligned: the kernel copies 16 bytes at a time
+        x = (x if dtype is None else x.to(dtype)).contiguous()
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+
+    r, k, v, w, bounds = (staged(x) for x in (r, k, v, w, bounds))
+    u, dout = staged(u, torch.float32), staged(dout, torch.float32)
+    dstate = None if dstate is None else staged(dstate, torch.float32)
     lib = _build.load("wkv6_bwd")
-    groups = lib.repro_wkv6_bwd_groups
-    groups.argtypes, groups.restype = [ctypes.c_int], ctypes.c_int
-    ng = groups(n)
     dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
     du = torch.empty((h, n), dtype=torch.float32, device=r.device)
     dstate0 = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
-    dv_parts = torch.empty((ng, b, t, h, n), dtype=torch.float32, device=r.device)
-    du_parts = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
+    # scratch: G at each chunk's end, each chunk's decay, per-chunk du partials
+    gend = torch.empty((b, nc, h, n, n), dtype=torch.float32, device=r.device)
+    cdecay = torch.empty((b, nc, h, n), dtype=torch.float32, device=r.device)
+    du_parts = torch.empty((b, nc, h, n), dtype=torch.float32, device=r.device)
     fn = lib.repro_wkv6_bwd
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
-        r.device.index, int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), n,
+        r.device.index, int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), int(route == "3xtf32"), n,
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), bounds.data_ptr(),
         dout.data_ptr(), None if dstate is None else dstate.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(),
-        dv_parts.data_ptr(), du_parts.data_ptr(),
+        gend.data_ptr(), cdecay.data_ptr(), du_parts.data_ptr(),
         b, t, h, chunk, torch.cuda.current_stream(r.device).cuda_stream,
     )
     _build.check(lib, err, BWD_KERNEL)
     LAUNCHES[BWD_KERNEL] += 1
+    WKV_BWD_ROUTE_LAUNCHES[route] += 1
     return dr, dk, dv, dw, du, dstate0
 
 

@@ -26,7 +26,8 @@ from repro_torch.kernels.flash_attention import (
     fwd_route,
 )
 from repro_torch.kernels.flash_attention.ops import BWD_ROUTE_LAUNCHES, PADDED_LAUNCHES, ROUTE_LAUNCHES
-from repro_torch.kernels.rwkv6_wkv import GRAD_CHUNK, wkv6, wkv6_bwd, wkv6_bwd_ref, wkv6_fwd, wkv6_ref
+from repro_torch.kernels.rwkv6_wkv import (GRAD_CHUNK, WKV_BWD_ROUTE_LAUNCHES, bwd_route, wkv6, wkv6_bwd,
+                                           wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_fwd, wkv6_ref)
 from repro_torch.kernels.rwkv6_wkv.ops import CHUNK as WKV_CHUNK
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
 from repro_torch.launch.batches import synthetic_prompt_batch
@@ -489,27 +490,39 @@ def test_wkv6_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         wkv6(r, k, v, w, u, s0.transpose(2, 3))
 
 
-# (b, t, h, n, r/k/v dtype, w dtype, chunk, w down to 1e-30): T around the
-# 16-step stage and the chunk (one step, 17, chunk + 5, three chunks)
+# (b, t, h, n, r/k/v dtype, w dtype, chunk, small w): T around the 16-step
+# sub-chunk and the chunk (one step, 17, chunk + 5, three chunks, 256 + 17);
+# w at 1e-30, at a float32 denormal or exactly 0 on a quarter of the lanes,
+# or 0 on every lane for steps 16-20 ("zero_run": a sub-chunk starts in it)
 WKV_BWD_CASES = [
-    (2, 1, 4, 64, "bfloat16", "float32", GRAD_CHUNK, False),
-    (2, 17, 4, 16, "float32", "float32", GRAD_CHUNK, False),
-    (1, GRAD_CHUNK + 5, 2, 64, "bfloat16", "float32", GRAD_CHUNK, False),
-    (1, 3 * GRAD_CHUNK, 2, 128, "float32", "float32", GRAD_CHUNK, False),
-    (2, 100, 3, 8, "bfloat16", "bfloat16", 32, False),
-    (1, 300, 2, 32, "float32", "float32", 64, True),
+    (2, 1, 4, 64, "bfloat16", "float32", GRAD_CHUNK, None),
+    (2, 17, 4, 16, "float32", "float32", GRAD_CHUNK, None),
+    (1, GRAD_CHUNK + 5, 2, 64, "bfloat16", "float32", GRAD_CHUNK, None),
+    (1, 3 * GRAD_CHUNK, 2, 128, "float32", "float32", GRAD_CHUNK, None),
+    (2, 100, 3, 8, "bfloat16", "bfloat16", 32, None),
+    (1, 300, 2, 32, "float32", "float32", 64, 1e-30),
+    (2, GRAD_CHUNK + 17, 2, 64, "bfloat16", "float32", GRAD_CHUNK, 0.0),
+    (1, GRAD_CHUNK + 17, 2, 64, "float32", "float32", GRAD_CHUNK, 0.0),
+    (2, 2 * GRAD_CHUNK + 15, 2, 32, "bfloat16", "float32", GRAD_CHUNK, 1e-40),
+    (1, 2 * GRAD_CHUNK + 15, 2, 64, "float32", "float32", GRAD_CHUNK, 1e-40),
+    (1, 70, 2, 16, "float32", "bfloat16", 32, "zero_run"),
 ]
 
 
 @pytest.mark.parametrize("case", WKV_BWD_CASES, ids=str)
 def test_wkv6_bwd_kernel_matches_plain(cuda, case):
     """The backward kernel from the forward kernel's saved states against
-    wkv6_bwd_ref from the plain forward's, with a nonzero state0 and
-    dstate; two calls give the same bits; all finite with w near 0."""
-    b, t, h, n, rkv_dtype, w_dtype, chunk, tiny = case
+    wkv6_bwd_ref (step by step) and wkv6_bwd_chunked_ref (its own algorithm
+    in plain float32) from the plain forward's, with a nonzero state0 and
+    dstate, on the route bwd_route names; two calls give the same bits; all
+    finite with w at or near 0."""
+    b, t, h, n, rkv_dtype, w_dtype, chunk, small_w = case
     r, k, v, w, u, s0 = _wkv_inputs(t + n, b, t, h, n, rkv_dtype, w_dtype, cuda)
-    if tiny:
-        w = torch.where(torch.rand(w.shape, device=cuda) < 0.25, torch.full_like(w, 1e-30), w)
+    if small_w == "zero_run":
+        w = w.clone()
+        w[:, 16:21] = 0.0
+    elif small_w is not None:
+        w = torch.where(torch.rand(w.shape, device=cuda) < 0.25, torch.full_like(w, small_w), w)
     gen = torch.Generator(cuda).manual_seed(t)
     dout = torch.randn((b, t, h, n), generator=gen, device=cuda)
     dstate = torch.randn((b, h, n, n), generator=gen, device=cuda) * 0.5
@@ -520,16 +533,20 @@ def test_wkv6_bwd_kernel_matches_plain(cuda, case):
     tol = WKV_TOL[rkv_dtype]
     torch.testing.assert_close(bounds, plain_bounds, rtol=tol, atol=tol)
     torch.testing.assert_close(out, plain_out, rtol=tol, atol=tol)
-    before = LAUNCHES["wkv6_bwd"]
+    before, route = LAUNCHES["wkv6_bwd"], bwd_route(r.dtype, n)
+    routes = dict(WKV_BWD_ROUTE_LAUNCHES)
     got = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk)
     again = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk)
     torch.cuda.synchronize()
     assert LAUNCHES["wkv6_bwd"] == before + 2
+    assert WKV_BWD_ROUTE_LAUNCHES[route] == routes.get(route, 0) + 2
     want = wkv6_bwd_ref(r, k, v, w, u, plain_bounds, dout, dstate, chunk)
-    for name, g, a, p in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got, again, want):
+    want_chunked = wkv6_bwd_chunked_ref(r, k, v, w, u, plain_bounds, dout, dstate, chunk)
+    for name, g, a, p, pc in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got, again, want, want_chunked):
         assert torch.equal(g, a), name
         assert g.dtype == p.dtype and bool(torch.isfinite(g).all()), name
         torch.testing.assert_close(g.float(), p.float(), rtol=tol, atol=tol, msg=name)
+        torch.testing.assert_close(g.float(), pc.float(), rtol=tol, atol=tol, msg=f"{name} vs the chunked model")
 
 
 def test_wkv6_gradient_on_the_card_matches_autograd_through_the_plain_loop(cuda):

@@ -34,7 +34,7 @@ from repro.models import prefill as jax_prefill
 from repro.models import rwkv6 as jr
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import cache_from_numpy, cache_to_numpy, params_from_numpy, params_to_numpy
-from repro_torch.kernels.rwkv6_wkv import GRAD_CHUNK, wkv6, wkv6_bwd_ref, wkv6_ref
+from repro_torch.kernels.rwkv6_wkv import GRAD_CHUNK, bwd_route, wkv6, wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_ref
 from repro_torch.models import DecoderLM, decode_step, init_decode_cache, init_params, loss_fn, prefill
 from repro_torch.models import rwkv6 as tr
 
@@ -220,6 +220,102 @@ def test_wkv6_bwd_ref_takes_no_final_state_gradient():
     zero = wkv6_bwd_ref(*xs[:5], bounds, torch.from_numpy(dout), torch.zeros_like(xs[5]), 4)
     for a, b in zip(none, zero):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+
+# -- the chunked backward's plain model (``csrc/wkv6_bwd.cu``'s algorithm) ---------
+
+# w at 1e-30, at a float32 denormal, exactly 0 on a quarter of the lanes, and
+# a run of steps with w == 0 on every lane that starts a 16-step sub-chunk
+W_MODES = {
+    "tiny": np.float32(1e-30),
+    "denormal": np.float32(1e-40),
+    "zero": np.float32(0.0),
+}
+
+
+def _chunked_inputs(t, n, w_mode, b=2, h=2):
+    arrays, dout, dstate = _grad_inputs(t + n, b, t, h, n)
+    rng = np.random.default_rng(t + 7 * n)
+    if w_mode in W_MODES:
+        arrays[3] = np.where(rng.random(arrays[3].shape) < 0.25, W_MODES[w_mode], arrays[3])
+    elif w_mode == "zero_run":  # steps 16..20 and, where T reaches it, a whole sub-chunk from 256
+        arrays[3][:, 16:21] = 0.0
+        arrays[3][:, 256:272] = 0.0
+    assert np.isfinite(arrays[3]).all()
+    return arrays, dout, dstate
+
+
+# (T, chunk, N, w): T of one step, one sub-chunk + 1, a chunk + 5 and over
+# two chunks; chunks of one sub-chunk (16) and of 256 steps; N 8 and 64
+CHUNKED_CASES = [
+    (1, 16, 8, None), (1, 256, 64, "zero"),
+    (17, 16, 8, "tiny"), (17, 256, 64, None),
+    (261, 16, 64, "denormal"), (261, 256, 8, "zero_run"), (261, 256, 64, "tiny"),
+    (600, 16, 8, "zero"), (600, 256, 64, "zero_run"), (600, 256, 8, "denormal"),
+]
+
+
+def _exact_grads(arrays, dout, dstate, chunk):
+    """wkv6_bwd_ref on float64 copies of the inputs: the exact yardstick."""
+    xs = [torch.from_numpy(a).double() for a in arrays]
+    _, _, bounds = wkv6_ref(*xs, chunk=chunk)
+    return wkv6_bwd_ref(*xs[:5], bounds, torch.from_numpy(dout).double(), torch.from_numpy(dstate).double(), chunk)
+
+
+def _chunked_grads(arrays, dout, dstate, chunk):
+    xs = [torch.from_numpy(a) for a in arrays]
+    _, _, bounds = wkv6_ref(*xs, chunk=chunk)
+    return wkv6_bwd_chunked_ref(*xs[:5], bounds, torch.from_numpy(dout), torch.from_numpy(dstate), chunk)
+
+
+@pytest.mark.parametrize("t,chunk,n,w_mode", CHUNKED_CASES, ids=lambda x: str(x))
+def test_wkv6_bwd_chunked_ref_matches_wkv6_bwd_ref(t, chunk, n, w_mode):
+    """The kernel's algorithm in float32 (chunk-parallel G, sub-chunk
+    products, decays as running products, dw from its parts) against the
+    step-by-step backward evaluated in float64, every output finite.  (The
+    step-by-step backward in float32 sums du over B T = 1200 steps in
+    another order, itself up to 1.2x the bar from the float64 value.)"""
+    arrays, dout, dstate = _chunked_inputs(t, n, w_mode)
+    got = _chunked_grads(arrays, dout, dstate, chunk)
+    want = _exact_grads(arrays, dout, dstate, chunk)
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        torch.testing.assert_close(g.double(), w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("t,chunk,n,w_mode", CHUNKED_CASES, ids=lambda x: str(x))
+def test_wkv6_bwd_chunked_ref_matches_jax_grad(t, chunk, n, w_mode):
+    """The same model against ``jax.grad`` of
+    ``repro.models.rwkv6._wkv_with_initial_state`` (its chunked, checkpointed
+    scan where T allows), through a loss reading out and the final state.
+    du, a float32 sum over B T steps in JAX, is held to the float64
+    yardstick instead: JAX's own sum is up to 1.1x the bar from it (T 261,
+    N 64)."""
+    arrays, dout, dstate = _chunked_inputs(t, n, w_mode)
+
+    def jloss(r, k, v, w, u, s0):
+        out, final = jr._wkv_with_initial_state(r, k, v, w, u, s0, chunk=chunk)
+        return jnp.sum(out * dout) + jnp.sum(final * dstate)
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(6)))(*(jnp.asarray(a) for a in arrays))
+    got = _chunked_grads(arrays, dout, dstate, chunk)
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got, jgrads):
+        assert bool(torch.isfinite(g).all()), name
+        if name != "du":
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=name)
+    exact_du = _exact_grads(arrays, dout, dstate, chunk)[4]
+    np.testing.assert_allclose(got[4].double().numpy(), exact_du.numpy(), rtol=1e-5, atol=1e-5, err_msg="du")
+
+
+def test_wkv6_bwd_route_follows_dtype_and_head_dim():
+    """The backward kernel's route: TF32 products for bf16 r, k, v (the
+    training path), 3xTF32 for float32; a head dim it does not take raises."""
+    for n in (8, 16, 32, 64, 128):
+        assert bwd_route(torch.bfloat16, n) == "tf32"
+        assert bwd_route(torch.float32, n) == "3xtf32"
+    with pytest.raises(ValueError, match="head dim"):
+        bwd_route(torch.bfloat16, 48)
 
 
 # -- the blocks ------------------------------------------------------------------

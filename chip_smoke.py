@@ -18,7 +18,13 @@ Phases, each printing one JSON line on stdout:
    each launch on the route ``bwd_route`` names; ``wkv6`` under grad
    against autograd through ``wkv6_ref``; timed at 4 x 4096 and 2 x 4096,
    with the forward's serving instance and its training instance, which
-   also saves the state every 256 steps).
+   also saves the state every 256 steps); the flash forward at head_dim
+   256 on ``mma_sync`` (recurrentgemma-9b's local attention: 4 x 4096, 16
+   heads over 1 kv head, window 2048; a ragged and an unwindowed shape);
+   and the RG-LRU scan (``rglru_scan``, h and h_last against
+   ``rglru_scan_ref``) at the recurrentgemma-9b prefill's 4 x 4096 x 4096
+   and decode step's shapes, T one past a chunk, float32, and extreme
+   gates, two calls bit-equal.
 4. ``serve``: the serving path, distilgpt2-82m at full width (random
    weights from a seed): prefill of 8 x 1024 tokens, then 32 greedy decode
    steps, with the kernel launch counts of that run; then the card against
@@ -95,6 +101,22 @@ Phases, each printing one JSON line on stdout:
    steps), and the state carried from a 4096-token prefill through one
    decode step against a 4097-token prefill.  It runs after the train
    phases' tensors are released.
+   ``serve_recurrentgemma``: recurrentgemma-9b at full width and depth
+   (38 layers: 26 RG-LRU, 12 local attention at head_dim 256; 9.4 B
+   parameters, random weights from a seed): prefill of 4 x 4096 tokens,
+   then 32 greedy decode steps, with 26 ``rglru_scan`` and 12
+   ``flash_attention_fwd`` (``mma_sync``) launches a prefill and 26
+   ``rglru_scan`` a decode step; the LRU state, conv tail and rolling
+   window cache carried from a 4096-token prefill through one decode step
+   against a 4097-token prefill, at 3, 12, 24 and all 38 layers (the
+   first groups of the same weights); then one group (3 layers) at full
+   width, its window cut to 128, on the card against the CPU on a
+   [1, 256] prompt (prefill and 4 decode steps): in relative norm against
+   the CPU bf16 run, and elementwise against the CPU float32 run at no
+   more than 1.5 x the CPU bf16 run's own distance from it; and that
+   cut's state carry (256 tokens and a decode step against 257) on the
+   card, on the CPU in bf16 and on the CPU in float32, where it must be
+   within 1e-4.
 7. ``train_rwkv``: rwkv6-7b at full width (d_model 4096, 64 heads of 64,
    d_ff 14336, vocab 65536), its depth cut to 4 of 32 layers (1.41 B
    parameters), through ``GeoTrainer``: 2 pods, ``hier_int8``, global
@@ -123,7 +145,10 @@ divided by the count, so the wrapper's host time is left out.  ``call_ms``
 Python calls, host included, as earlier runs reported ``ms``.  The flash
 backward's ``library_ms`` is ``scaled_dot_product_attention``'s forward and
 backward together, ``library_bwd_ms`` its backward alone (one forward
-outside the graph, the backward captured on the forward's stream).  Each
+outside the graph, the backward captured on the forward's stream).  A
+windowed forward's ``library_ms`` is ``scaled_dot_product_attention``
+with a banded causal boolean mask, made once outside the timed calls;
+a softcapped one has none.  Each
 flash check, and every flash launch of the serve and train phases, is held
 to the route ``fwd_route`` / ``bwd_route`` names.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -165,6 +190,12 @@ FLASH_CASES = [
     ("phi3v_hd96", 2, 1024, 32, 32, 96, "bfloat16", None, None, "mma_sync"),
     ("padded_hd12_gqa6_2", 2, 1024, 6, 2, 12, "bfloat16", None, None, "mma_sync"),
     ("padded_hd8_gqa7_1", 2, 1024, 7, 1, 8, "bfloat16", None, None, "mma_sync"),
+    # recurrentgemma-9b's local attention (hd 256, MQA, window 2048) at the
+    # serve_recurrentgemma prefill's shape, a ragged one whose window cuts
+    # mid-tile, and hd 256 with no window (sdpa beside it)
+    ("rg9b_hd256_mqa_w2048", 4, 4096, 16, 1, 256, "bfloat16", 2048, None, "mma_sync"),
+    ("hd256_ragged_s300_w128", 1, 300, 16, 1, 256, "bfloat16", 128, None, "mma_sync"),
+    ("hd256_h4_kvh1", 2, 1024, 4, 1, 256, "bfloat16", None, None, "mma_sync"),
 ]
 # (label, B, S, H, KVH, hd, dtype, window, softcap, backward route); the
 # first is the train path's shape
@@ -227,6 +258,22 @@ WKV_BWD_CASES = [
     ("w_zero_run_t1040_n64_f32", 1, 1040, 8, 64, "float32", "float32", "zero_run"),
 ]
 WKV_SMALL_W = {"1e-30": 1e-30, "denormal": 1e-40, "zero": 0.0}
+# (label, B, T, Dr, dtype, gates): the recurrentgemma-9b prefill's shape
+# (non-zero h0), its decode step, T one past a
+# multiple of the 64-step chunk, two float32 shapes, and extreme gates:
+# r = 0 everywhere (a = 1, beta at the 1e-6 clamp), r = 1 with lam = 10
+# (a = sigmoid(10)^8) and lam = -10 (a near 0)
+RGLRU_CASES = [
+    ("path_prefill", 4, 4096, 4096, "bfloat16", None),
+    ("path_decode_t1", 4, 1, 4096, "bfloat16", None),
+    ("ragged_t4097", 1, 4097, 4096, "bfloat16", None),
+    ("f32_t300_dr64", 2, 300, 64, "float32", None),
+    ("f32_t37_dr72", 3, 37, 72, "float32", None),
+    ("r_zero_t300", 2, 300, 4096, "bfloat16", "r_zero"),
+    ("r_one_lam10_t300", 2, 300, 4096, "bfloat16", "r_one_lam10"),
+    ("lam_minus10_t300", 2, 300, 4096, "bfloat16", "lam_minus10"),
+]
+RGLRU_LAST_TOL = 1e-4  # h_last is float32 on both sides
 WKV_BWD_TIMED = 2  # the first cases, timed
 # train_rwkv: rwkv6-7b at full width, depth cut from 32 layers
 RWKV_TRAIN_LAYERS, B_RWKV_TRAIN, SEQ_RWKV_TRAIN, RWKV_TRAIN_STEPS = 4, 4, 4096, 6
@@ -234,6 +281,13 @@ RWKV_CHECK_LAYERS, RWKV_CHECK_SEQ = 2, 768  # card against CPU: 3 chunks of 256
 B_SERVE, PROMPT, GEN = 8, 1024, 32
 B_RWKV, PROMPT_RWKV, GEN_RWKV = 4, 4096, 32
 RWKV_PARAMS, RWKV_LEAVES = 7_534_682_112, 27  # jax.eval_shape of init_params
+B_RG, PROMPT_RG, GEN_RG = 4, 4096, 32
+RG_PARAMS, RG_LEAVES = 9_396_195_328, 63  # jax.eval_shape of init_params
+# launches a recurrentgemma-9b prefill / decode step: 12 groups x 2 + 2 recurrent, 12 local attention
+RG_SCANS, RG_FLASH = 26, 12
+RG_CHECK_WINDOW, RG_CHECK_PROMPT = 128, 256  # card against CPU: one group, the window cut so the prompt crosses it
+RG_CHECK_F32_RATIO = 1.5  # card's share of SERVE_TOL from the CPU float32 run, over the CPU bf16 run's own
+RG_CARRY_GROUPS = (1, 4, 8)  # the state carry also at the first 3, 12 and 24 layers
 NPODS, B_TRAIN, SEQ_TRAIN, STEPS, WARMUP = 2, 16, 1024, 12, 2
 
 
@@ -376,6 +430,16 @@ def wkv_bwd_bound(b, t, h, n, rkv_dtype, w_dtype, chunk):
     return max(t_bytes, t_ops) * 1e3, figures["floor"], figures
 
 
+def rglru_bound(b, t, dr, dtype):
+    """Bytes: x, r, i read once and h written once in ``dtype``; lam, h0 read
+    and h_last written in float32.  Operations: ~13 float32 a (b, t,
+    channel): the gate products, two exp, a sqrt, the clamp and the update
+    (an exp or sqrt counted as one)."""
+    isz = {"bfloat16": 2, "float32": 4}[dtype]
+    elems = b * t * dr
+    return bound(4 * elems * isz + dr * 4 + 2 * b * dr * 4, 13 * elems, "float32")
+
+
 def phase_env(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -442,13 +506,27 @@ def phase_kernels(torch):
         # assert_allclose's form with rtol = atol = tol, as the tests hold it
         if not bool((diff <= tol + tol * plain.float().abs()).all()):
             raise AssertionError(f"flash_attention_fwd {label}: max_abs_err {err}, rtol=atol={tol}")
-        library_ms = library_call_ms = None
-        if window is None and cap is None:  # the same function as one PyTorch call
+        library_ms = library_call_ms = library_err = library_is = None
+        if cap is None:  # the same function as one PyTorch call
             qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
+            mask, library_is = None, "scaled_dot_product_attention(is_causal=True)"
+            if window is not None:  # key j kept for query i where 0 <= i - j < window
+                pos = torch.arange(s, device="cuda")
+                back = pos[:, None] - pos[None, :]
+                mask = (back >= 0) & (back < window)
+                library_is = "scaled_dot_product_attention(attn_mask=banded causal bool [S, S])"
 
             def library():
-                return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
+                if mask is None:
+                    return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
+                return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask, enable_gqa=h != kvh)
 
+            lib = library().transpose(1, 2).float()
+            library_err = (lib - plain.float()).abs().max().item()
+            if not bool(((lib - plain.float()).abs() <= tol + tol * plain.float().abs()).all()):
+                raise AssertionError(f"flash_attention_fwd {label}: {library_is} is not the same function: "
+                                     f"max_abs_err {library_err}, rtol=atol={tol}")
+            del lib
             library_ms, library_call_ms = device_ms(library), time_ms(library)
         bound_ms, bound_by = flash_bound(b, s, h, kvh, hd, dtype, window)
         ms = device_ms(lambda: flash_attention(q, k, v, **kw))
@@ -461,6 +539,7 @@ def phase_kernels(torch):
             "tflops": flash_flops(b, s, h, hd, window) / (ms * 1e-3) / 1e12,
             "plain_ms": time_ms(lambda: flash_attention_ref(qh, kh, vh, **kw)),
             "library_ms": library_ms, "library_call_ms": library_call_ms,
+            "library_is": library_is, "library_max_abs_err": library_err,
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
     emit({"phase": "kernels", "kernel": "flash_attention_fwd", "checks": checks})
@@ -780,6 +859,66 @@ def phase_kernels_wkv_bwd(torch):
     return checks
 
 
+def phase_kernels_rglru(torch):
+    """rglru_scan against its plain version at the recurrentgemma-9b prefill
+    and decode shapes and the variants; two calls must give equal bits."""
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    checks = []
+    for label, b, t, dr, dtype, gates in RGLRU_CASES:
+        dt = getattr(torch, dtype)
+        x = draw((b, t, dr)).to(dt)
+        r = torch.sigmoid(draw((b, t, dr))).to(dt)
+        i = torch.sigmoid(draw((b, t, dr))).to(dt)
+        # the JAX init's logits of a^(1/8) over (0.9, 0.999), jittered
+        lam = torch.logit(torch.linspace(0.9, 0.999, dr, device="cuda") ** (1 / 8)) + 0.1 * draw((dr,))
+        if gates == "r_zero":
+            r = torch.zeros_like(r)
+        elif gates == "r_one_lam10":
+            r, lam = torch.ones_like(r), torch.full_like(lam, 10.0)
+        elif gates == "lam_minus10":
+            lam = torch.full_like(lam, -10.0)
+        h0 = draw((b, dr))
+        plain_h, plain_last = rglru_scan_ref(x, r, i, lam, h0)
+        h, last = rglru_scan(x, r, i, lam, h0)
+        again, again_last = rglru_scan(x, r, i, lam, h0)
+        torch.cuda.synchronize()
+        if not (torch.equal(h, again) and torch.equal(last, again_last)):
+            raise AssertionError(f"rglru_scan {label}: two calls on the same inputs differ")
+        errs = {}
+        for name, got, want, tol in (("h", h.float(), plain_h.float(), TOL[dtype]),
+                                     ("h_last", last, plain_last, RGLRU_LAST_TOL)):
+            diff = (got - want).abs()
+            errs[name] = diff.max().item()
+            if not (torch.isfinite(got).all() and bool((diff <= tol + tol * want.abs()).all())):
+                raise AssertionError(f"rglru_scan {label} {name}: max_abs_err {errs[name]}, rtol=atol={tol}")
+        bound_ms, bound_by = rglru_bound(b, t, dr, dtype)
+        slow = t >= 1000  # the plain loop launches a few kernels a step
+
+        def kernel():
+            return rglru_scan(x, r, i, lam, h0)
+
+        checks.append({
+            "label": label, "shape": {"B": b, "T": t, "Dr": dr}, "dtype": dtype, "gates": gates,
+            "two_calls_equal": True,
+            "max_abs_err": max(errs.values()), "max_abs_err_h_h_last": errs,
+            "tol": TOL[dtype], "tol_h_last": RGLRU_LAST_TOL,
+            "ms": device_ms(kernel), "call_ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda: rglru_scan_ref(x, r, i, lam, h0), runs=3 if slow else 25,
+                                warmup=1 if slow else 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_why": "no single PyTorch call computes the RG-LRU recurrence",
+        })
+        del x, r, i, lam, h0, h, last, again, again_last, plain_h, plain_last
+    emit({"phase": "kernels", "kernel": "rglru_scan", "checks": checks})
+    return checks
+
+
 def serve_run(torch, params, batch, cfg, *, prompt, gen, max_len=None):
     """The serving path once: prefill, then ``gen`` greedy decode steps.
     Returns times, the launch counts after prefill and after each decode
@@ -991,6 +1130,176 @@ def phase_serve_rwkv(torch):
         "last_tokens": res["tokens"].tolist(),
     })
     return launches, per_layer
+
+
+def phase_serve_recurrentgemma(torch):
+    """recurrentgemma-9b at full width and depth: the serving path through
+    the RG-LRU scan kernel and the flash forward at head_dim 256."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.launch.batches import synthetic_prompt_batch
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("recurrentgemma-9b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params, n_leaves = sum(t.numel() for t in leaves), len(leaves)
+    del leaves
+    if (n_params, n_leaves) != (RG_PARAMS, RG_LEAVES):
+        raise AssertionError(f"serve_recurrentgemma: {n_params} parameters in {n_leaves} leaves, "
+                             f"expected {RG_PARAMS} in {RG_LEAVES}")
+    # one token more than the prompt: the state-carry check decodes it
+    tokens = synthetic_prompt_batch(cfg, gen, B_RG, PROMPT_RG + 1)["tokens"]
+    batch = {"tokens": tokens[:, :PROMPT_RG]}
+    max_len = PROMPT_RG + GEN_RG
+
+    def run():
+        return serve_run(torch, params, batch, cfg, prompt=PROMPT_RG, gen=GEN_RG, max_len=max_len)
+
+    run()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
+    res = run()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not res["ok"]:
+        raise AssertionError("serve_recurrentgemma: logits not finite or of the wrong shape")
+    counts = [res["after_prefill"]] + res["after_steps"]
+    got = [(c.get("rglru_scan", 0), c.get("flash_attention_fwd", 0)) for c in counts]
+    expected = [(RG_SCANS * (1 + i), RG_FLASH) for i in range(GEN_RG + 1)]
+    if got != expected or set(launches) != {"rglru_scan", "flash_attention_fwd"} or routes != {"mma_sync": RG_FLASH}:
+        raise AssertionError(f"serve_recurrentgemma: (rglru_scan, flash) launches {got} after prefill and each "
+                             f"decode step, expected {expected}; all launches {launches}, flash routes {routes}")
+    prefill_ms_median = time_ms(lambda: prefill(params, batch, cfg, max_len=max_len), runs=3, warmup=0)
+
+    # The state carried through decode (the LRU state, the conv tail and the
+    # rolling window cache): prefill of T then one decode step against a
+    # prefill of T + 1, at full depth and at the first groups' depths (the
+    # same weights), to show how the bf16 difference grows with depth.
+    carry_by_layers = {}
+    for groups in RG_CARRY_GROUPS + (None,):
+        depth = cfg if groups is None else dataclasses.replace(cfg, num_layers=groups * len(cfg.pattern))
+        depth_params = params if groups is None else {
+            **{k: v for k, v in params.items() if k not in ("groups", "remainder")},
+            "groups": tree_map(lambda t, n=groups: t[:n], params["groups"]),
+        }
+        carry_by_layers[depth.num_layers] = state_carry(depth_params, tokens, depth)
+    carry_err = carry_by_layers[cfg.num_layers]
+    if not all(e <= SERVE_TOL for e in carry_by_layers.values()):
+        raise AssertionError(f"serve_recurrentgemma: state carry relative norm error by layers {carry_by_layers} "
+                             f"above {SERVE_TOL}")
+    del params, depth_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The card against the CPU (plain path): one group (recurrent,
+    # recurrent, local) at full width, the window cut to 128 so that the
+    # [1, 256] prompt crosses it on both sides.  bf16 at this width is
+    # coarser than SERVE_TOL's elementwise bar even between the CPU's own
+    # bf16 and float32 runs, so the card is held to the CPU bf16 run in
+    # relative norm, and elementwise to the CPU float32 run at no more than
+    # RG_CHECK_F32_RATIO x the CPU bf16 run's own share of the bar.
+    cut = dataclasses.replace(cfg, num_layers=3, local_window=RG_CHECK_WINDOW)
+    params = init_params(cut, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    cut_params = sum(t.numel() for t in tree_leaves(params))
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    small = synthetic_prompt_batch(cut, gen, 1, RG_CHECK_PROMPT)
+    cpu_small = tree_map(lambda t: t.cpu(), small)
+    n = RG_CHECK_PROMPT + 4
+    g_logits, g_cache = prefill(params, small, cut, max_len=n)
+    t0 = time.perf_counter()
+    c_logits, c_cache = prefill(cpu_params, cpu_small, cut, max_len=n)
+    f_logits, f_cache = prefill(cpu_params, cpu_small, cut32, max_len=n)
+    rows = []
+
+    def compare():
+        card, c16, c32 = g_logits.float().cpu(), c_logits.float(), f_logits.float()
+        rows.append({
+            "vs_cpu_bf16": _logit_diff(card, c16),
+            "vs_cpu_bf16_rel_norm": ((card - c16).norm() / c16.norm()).item(),
+            "vs_cpu_f32": _logit_diff(card, c32), "cpu_bf16_vs_cpu_f32": _logit_diff(c16, c32),
+        })
+
+    compare()
+    carried = {}
+    for i in range(4):
+        nxt = g_logits.argmax(-1)
+        g_logits, g_cache = decode_step(params, nxt, g_cache, cut, RG_CHECK_PROMPT + i)
+        c_logits, c_cache = decode_step(cpu_params, nxt.cpu(), c_cache, cut, RG_CHECK_PROMPT + i)
+        f_logits, f_cache = decode_step(cpu_params, nxt.cpu(), f_cache, cut32, RG_CHECK_PROMPT + i)
+        compare()
+        if i == 0:  # the cut's state carry: the first decode step against a prefill one token longer
+            longer = torch.cat([small["tokens"], nxt[:, None]], 1)
+            carried = {"card_bf16": (g_logits, params, longer, cut),
+                       "cpu_bf16": (c_logits, cpu_params, longer.cpu(), cut),
+                       "cpu_f32": (f_logits, cpu_params, longer.cpu(), cut32)}
+    cut_carry = {}
+    for key, (logits, ps, longer, c) in carried.items():
+        whole = prefill(ps, {"tokens": longer}, c, max_len=n)[0]
+        cut_carry[key] = ((logits.float() - whole.float()).norm() / whole.float().norm()).item()
+    del carried
+    cpu_s = time.perf_counter() - t0
+    if not (cut_carry["card_bf16"] <= SERVE_TOL and cut_carry["cpu_f32"] <= TOL["float32"]):
+        raise AssertionError(f"serve_recurrentgemma: the 3-layer cut's state carry {cut_carry}: card bf16 above "
+                             f"{SERVE_TOL} or CPU float32 above {TOL['float32']}")
+    bad = [i for i, row in enumerate(rows)
+           if not (row["vs_cpu_bf16_rel_norm"] <= SERVE_TOL
+                   and row["vs_cpu_f32"][1] <= RG_CHECK_F32_RATIO * row["cpu_bf16_vs_cpu_f32"][1])]
+    if bad:
+        raise AssertionError(f"serve_recurrentgemma: card vs CPU outside its bars at rows {bad} "
+                             f"(prefill, then decode steps): {rows}")
+    del params, cpu_params, g_cache, c_cache, f_cache
+
+    step_ms = res["step_ms"]
+    emit({
+        "phase": "serve_recurrentgemma", "arch": cfg.name, "dtype": cfg.dtype, "params": n_params,
+        "leaves": n_leaves, "layers": cfg.num_layers, "head_dim": cfg.head_dim, "local_window": cfg.local_window,
+        "batch": B_RG, "prompt": PROMPT_RG, "gen": GEN_RG, "init_s": init_s,
+        "prefill_ms": res["t_prefill"] * 1e3,
+        "prefill_ms_median_of_3_more": prefill_ms_median,
+        "prefill_tokens_per_s": B_RG * PROMPT_RG / res["t_prefill"],
+        "decode_ms_per_step_mean": statistics.fmean(step_ms),
+        "decode_ms_per_step_median": statistics.median(step_ms),
+        "decode_tokens_per_s": B_RG * GEN_RG / res["t_decode"],
+        "decode_s": res["t_decode"],
+        "peak_memory_bytes": peak,
+        "launches_main_path": launches, "fwd_routes_main_path": routes,
+        "rglru_scan_per_prefill": RG_SCANS, "rglru_scan_per_decode_step": RG_SCANS,
+        "flash_per_prefill": RG_FLASH, "flash_per_decode_step": 0,
+        "state_carry_rel_err": carry_err, "state_carry_tol": SERVE_TOL,
+        "state_carry_rel_err_by_layers": carry_by_layers,
+        "card_vs_cpu": {"layers": cut.num_layers, "local_window": cut.local_window, "params": cut_params,
+                        "prompt": [1, RG_CHECK_PROMPT], "decode_steps": 4, "tol": SERVE_TOL,
+                        "f32_ratio_bar": RG_CHECK_F32_RATIO, "rows": rows,
+                        "state_carry_rel_err": cut_carry, "state_carry_f32_tol": TOL["float32"], "cpu_s": cpu_s},
+        "reduced": "none on the main path; the card-vs-CPU check cuts depth to 3 layers and local_window to "
+                   f"{RG_CHECK_WINDOW}",
+        "last_tokens": res["tokens"].tolist(),
+    })
+    return launches
+
+
+def state_carry(params, tokens, cfg):
+    """Relative norm of (a prefill of all tokens but the last, then one
+    decode step of it) against (a prefill of all tokens): last logits."""
+    from repro_torch.models import decode_step, prefill
+
+    n = tokens.shape[1] - 1
+    _, cache = prefill(params, {"tokens": tokens[:, :n]}, cfg, max_len=n + 1)
+    carried, _ = decode_step(params, tokens[:, n], cache, cfg, n)
+    del cache
+    whole, _ = prefill(params, {"tokens": tokens}, cfg, max_len=n + 1)
+    return ((carried.float() - whole.float()).norm() / whole.float().norm()).item()
 
 
 def _logit_diff(card, cpu):
@@ -2174,6 +2483,7 @@ def main() -> int:
     wan, wan_step = phase_kernels_wan(torch)
     wkv = phase_kernels_wkv(torch)
     wkv_bwd = phase_kernels_wkv_bwd(torch)
+    rglru = phase_kernels_rglru(torch)
     serve = phase_serve(torch)
     train, train_losses, train_step_ms = phase_train(torch)
     trains, one_process_losses = {}, {"hier_int8": train_losses}
@@ -2204,6 +2514,9 @@ def main() -> int:
     rwkv, rwkv_per_step = phase_serve_rwkv(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    serve_rg = phase_serve_recurrentgemma(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_rwkv = phase_train_rwkv(torch)
     quick = phase_quickstart(torch)
 
@@ -2223,6 +2536,7 @@ def main() -> int:
                                              for (shape, axes, strategy, _), ranks in zip(MESH_PLAN, mesh_train)},
             "launches_serve_mesh_per_rank": [r.get(name, 0) for r in mesh_serve],
             "launches_train_rwkv": train_rwkv.get(name, 0), "launches_quickstart": quick.get(name, 0),
+            "launches_serve_recurrentgemma": serve_rg.get(name, 0),
             **more,
         }
 
@@ -2269,6 +2583,11 @@ def main() -> int:
                    bwd_route=wkv_bwd[0]["route"], shapes=wkv_bwd),
              launches=train_rwkv["wkv6_bwd"], launches_per_train_step=0,
              launches_per_train_rwkv_step=train_rwkv["wkv6_bwd"] // RWKV_TRAIN_STEPS),
+        dict(entry("rglru_scan", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+                   "none: the JAX package runs the RG-LRU as jax.lax.associative_scan (src/repro/models/rglru.py:91)",
+                   rglru[0], library_why=rglru[0]["library_why"], tol_h_last=RGLRU_LAST_TOL, shapes=rglru),
+             launches=serve_rg["rglru_scan"], launches_per_prefill=RG_SCANS,
+             launches_per_decode_step=RG_SCANS, launches_per_train_step=0),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

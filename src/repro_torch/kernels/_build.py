@@ -32,6 +32,7 @@ SOURCES: Dict[str, Path] = {
     "wan_quant": _PKG / "wan_quant" / "csrc" / "wan_quant.cu",
     "wkv6": _PKG / "rwkv6_wkv" / "csrc" / "wkv6.cu",
     "wkv6_bwd": _PKG / "rwkv6_wkv" / "csrc" / "wkv6_bwd.cu",
+    "rglru_scan": _PKG / "rglru_scan" / "csrc" / "rglru_scan.cu",
 }
 
 NVCC_FLAGS = (

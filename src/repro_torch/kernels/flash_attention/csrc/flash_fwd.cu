@@ -21,9 +21,10 @@
 // and a route that does not fit the dtype and head_dim is refused:
 //   * "wgmma" (bf16, head_dim 64 and 128): flash_fwd_wgmma below, the
 //     Hopper design.  It serves every full-width path.
-//   * "mma_sync" (bf16, head_dim 16 and 96): flash_fwd_bf16, the first
+//   * "mma_sync" (bf16, head_dim 16, 96 and 256): flash_fwd_bf16, the first
 //     port's Ampere-style kernel, kept for the smoke configs' 16-wide heads
-//     (8 and 12 zero-padded to 16 by the wrapper) and phi-3-vision's 96.
+//     (8 and 12 zero-padded to 16 by the wrapper), phi-3-vision's 96 and
+//     recurrentgemma-9b's 256 (forward only; no backward kernel takes 256).
 //   * "f32" (float32, head_dim 16, 64, 96, 128): flash_fwd_f32, scalar FMA.
 //
 // What bounds it on the H100.  At the serving path's shape (B=8, H=12,
@@ -158,13 +159,19 @@ constexpr size_t bf16_smem_bytes() {
   return (size_t(2) * kBlockM * (HD + 8) + size_t(HD) * (kBlockN + 8)) * sizeof(__nv_bfloat16);
 }
 
-// The "mma_sync" route (bf16, head_dim 16 and 96).  One block per (64-row query
-// tile, head, batch), four warps of 16 rows, a loop over 64-key tiles; q, k
-// and v (transposed) in padded shared memory, loaded synchronously; both
-// products with mma.sync m16n8k16 (bf16 in, float32 accumulate).
+// The "mma_sync" route (bf16, head_dim 16, 96 and 256).  One block per
+// (64-row query tile, head, batch), four warps of 16 rows, a loop over
+// 64-key tiles; q, k and v (transposed) in padded shared memory, loaded
+// synchronously; both products with mma.sync m16n8k16 (bf16 in, float32
+// accumulate).  Up to head_dim 128 each warp keeps its query rows' A
+// fragments in registers.  At 256 (recurrentgemma-9b's local attention)
+// those would take 64 registers beside the 128 of the O accumulator and the
+// 32 of S, so the fragments are read from sQ again for each key tile, one
+// 16-deep step at a time, with the S loop turned to take the depth outside.
 template <int HD>
 __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Args a) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr bool kQRegs = HD <= 128;  // the query fragments stay in registers
   constexpr int LD = HD + 8;         // padded row of sQ and sK
   constexpr int LDV = kBlockN + 8;   // padded row of sVt ([HD][kBlockN])
   constexpr int VEC = 8;             // bf16 per 16-byte load
@@ -196,16 +203,19 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Args a) {
   }
   __syncthreads();
 
-  // This warp's 16 query rows as A fragments, kept in registers.
+  // This warp's 16 query rows as A fragments (kept in registers up to head_dim 128).
   const int wr = warp * 16;
-  uint32_t qa[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
+  auto q_frag = [&](int kc, uint32_t (&f)[4]) {
     const __nv_bfloat16* p = sQ + (wr + g) * LD + kc * 16 + 2 * t;
-    qa[kc][0] = ld32(p);
-    qa[kc][1] = ld32(p + 8 * LD);
-    qa[kc][2] = ld32(p + 8);
-    qa[kc][3] = ld32(p + 8 * LD + 8);
+    f[0] = ld32(p);
+    f[1] = ld32(p + 8 * LD);
+    f[2] = ld32(p + 8);
+    f[3] = ld32(p + 8 * LD + 8);
+  };
+  uint32_t qa[kQRegs ? KC : 1][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) q_frag(kc, qa[kc]);
   }
 
   float o[DT][4];
@@ -236,12 +246,26 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Args a) {
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
     float s[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    if constexpr (kQRegs) {
 #pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          const __nv_bfloat16* p = sK + (nt * 8 + g) * LD + kc * 16 + 2 * t;
+          mma_bf16(s[nt], qa[kc], ld32(p), ld32(p + 8));
+        }
+      }
+    } else {  // the same sums in the same order, the depth outside
+#pragma unroll 2
       for (int kc = 0; kc < KC; ++kc) {
-        const __nv_bfloat16* p = sK + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-        mma_bf16(s[nt], qa[kc], ld32(p), ld32(p + 8));
+        uint32_t f[4];
+        q_frag(kc, f);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const __nv_bfloat16* p = sK + (nt * 8 + g) * LD + kc * 16 + 2 * t;
+          mma_bf16(s[nt], f, ld32(p), ld32(p + 8));
+        }
       }
     }
 
@@ -866,6 +890,8 @@ int dispatch(int route, int head_dim, const Args& a, int batch, cudaStream_t s) 
     return static_cast<int>(launch(flash_fwd_bf16<16>, a, batch, kWarps * 32, bf16_smem_bytes<16>(), s));
   if (route == kRouteMmaSync && head_dim == 96)
     return static_cast<int>(launch(flash_fwd_bf16<96>, a, batch, kWarps * 32, bf16_smem_bytes<96>(), s));
+  if (route == kRouteMmaSync && head_dim == 256)
+    return static_cast<int>(launch(flash_fwd_bf16<256>, a, batch, kWarps * 32, bf16_smem_bytes<256>(), s));
   if (route == kRouteF32 && head_dim == 16)
     return static_cast<int>(launch(flash_fwd_f32<16>, a, batch, kBlockM, f32_smem_bytes<16>(), s));
   if (route == kRouteF32 && head_dim == 64)
@@ -884,7 +910,7 @@ extern "C" {
 // Launches the forward pass on `stream` and returns 0 on success, else a
 // cudaError_t of the attribute call or the launch, or kEncodeError plus the
 // CUresult of a failed tensor-map encode (see repro_cuda_error_string).
-// route: 0 "f32" (float32, head_dim 16/64/96/128), 1 "mma_sync" (bf16, 16/96),
+// route: 0 "f32" (float32, head_dim 16/64/96/128), 1 "mma_sync" (bf16, 16/96/256),
 // 2 "wgmma" (bf16, 64/128); any other pairing is refused.  dims = {B, H,
 // KVH, Sq, Sk}; strides = element strides {batch, seq, head} of q, k, v, o
 // in that order.  sm_scale is head_dim**-0.5 rounded once to float32, as the

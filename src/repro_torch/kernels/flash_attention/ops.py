@@ -33,14 +33,14 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
-#: head dims a kernel is built for
-HEAD_DIMS = (16, 64, 96, 128)
+#: head dims a kernel is built for (256: the bf16 forward alone)
+HEAD_DIMS = (16, 64, 96, 128, 256)
 #: head dims that run zero-padded on head_dim to ``PAD_TO``
 PADDED_HEAD_DIMS = (8, 12)
 PAD_TO = 16
-ITEM_12 = (
-    "head_dim 256 (recurrentgemma-9b) has no kernel yet: it waits for ROADMAP "
-    "queue 1, item 12, the first ported path to reach it"
+ITEM_19 = (
+    "head_dim 256 (recurrentgemma-9b) has the bf16 forward alone: its backward and its "
+    "float32 route wait for ROADMAP queue 1, item 19"
 )
 _DTYPES = (torch.bfloat16, torch.float32)
 #: route -> the code ``repro_flash_fwd`` and ``repro_flash_bwd`` take for it
@@ -60,8 +60,7 @@ def kernel_head_dim(head_dim: int) -> int:
         return head_dim
     if head_dim in PADDED_HEAD_DIMS:
         return PAD_TO
-    why = ITEM_12 if head_dim == 256 else f"kernels take {HEAD_DIMS}, padded {PADDED_HEAD_DIMS}"
-    raise ValueError(f"no kernel for head_dim {head_dim}: {why}")
+    raise ValueError(f"no kernel for head_dim {head_dim}: kernels take {HEAD_DIMS}, padded {PADDED_HEAD_DIMS}")
 
 
 def pad_head_dim(*tensors: torch.Tensor):
@@ -78,10 +77,10 @@ def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which forward kernel serves (dtype, head_dim); raises for any other.
 
     ``"wgmma"``: bf16 at head_dim 64 and 128, the Hopper kernel (TMA ring,
-    wgmma, warp specialisation) that every full-width path runs.
-    ``"mma_sync"``: bf16 at head_dim 96 (phi-3-vision-4.2b) and 16 (the
-    smoke configs; 8 and 12 padded to 16).  ``"f32"``: float32 at 16, 64,
-    96 and 128 (8 and 12 padded).
+    wgmma, warp specialisation) that the full-width paths at those widths
+    run.  ``"mma_sync"``: bf16 at head_dim 256 (recurrentgemma-9b), 96
+    (phi-3-vision-4.2b) and 16 (the smoke configs; 8 and 12 padded to 16).
+    ``"f32"``: float32 at 16, 64, 96 and 128 (8 and 12 padded).
     """
     return _route(dtype, head_dim, "forward")
 
@@ -92,7 +91,8 @@ def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     ``"wgmma"``: bf16 at head_dim 64 and 128, the Hopper kernels (TMA rings,
     wgmma, warp specialisation) that every full-width training path runs.
     ``"mma_sync"``: bf16 at head_dim 96 and 16 (8 and 12 padded to 16).
-    ``"f32"``: float32 at 16, 64, 96 and 128 (8 and 12 padded).
+    ``"f32"``: float32 at 16, 64, 96 and 128 (8 and 12 padded).  No
+    backward takes head_dim 256 yet.
     """
     return _route(dtype, head_dim, "backward")
 
@@ -102,6 +102,8 @@ def _route(dtype: torch.dtype, head_dim: int, which: str) -> str:
         hd = kernel_head_dim(head_dim)
     except ValueError as e:
         raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim {head_dim}: {e}") from None
+    if hd == 256 and (which == "backward" or dtype != torch.bfloat16):
+        raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim 256: {ITEM_19}")
     if dtype == torch.bfloat16:
         return "wgmma" if hd in (64, 128) else "mma_sync"
     if dtype == torch.float32:
@@ -150,7 +152,7 @@ def _layout_error(name: str, t: torch.Tensor) -> Optional[str]:
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _DTYPES:
         raise ValueError(f"kernel takes {_DTYPES}, got {q.dtype}")
-    kernel_head_dim(q.shape[3])  # raises, naming the head_dim
+    fwd_route(q.dtype, q.shape[3])  # raises, naming the head_dim
     b, sq, h, _ = q.shape
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the grid's 65535")
@@ -303,5 +305,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Blocked online-softmax attention; query and key indices start at 0."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.device.type == "cuda":
+            bwd_route(q.dtype, q.shape[3])  # no backward kernel: raise before the forward runs
         return FlashAttentionFn.apply(q, k, v, causal, window, logit_softcap)
     return flash_attention_fwd(q, k, v, causal=causal, window=window, logit_softcap=logit_softcap)

@@ -1,12 +1,18 @@
-"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427): its init.
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427).
 
-Port of ``repro.models.rglru``'s parameters and decode state, leaf for leaf:
-the in-projections of the recurrent and gate branches, the width-4 causal
-conv, the ``lru_lambda`` logits (so that ``a = sigmoid(Lambda)^c`` spans
-about (0.9, 0.999), computed in float32 as the JAX package does), the two
-gate projections and the out-projection; the state is the LRU hidden
-``[B, Dr]`` (float32) and the conv tail ``[B, 3, Dr]``.  The block and its
-scan are not ported yet (ROADMAP queue 1, item 12): they raise.
+Port of ``repro.models.rglru``, leaf for leaf: the in-projections of the
+recurrent and gate branches, the width-4 causal conv, the ``lru_lambda``
+logits (so that ``a = sigmoid(Lambda)^c`` spans about (0.9, 0.999),
+computed in float32 as the JAX package does), the two gate projections and
+the out-projection; the state is the LRU hidden ``[B, Dr]`` (float32) and
+the conv tail ``[B, 3, Dr]``.
+
+The projections and the conv are eager torch, as the JAX package leaves
+them to XLA; the recurrence (``rg_lru`` there) runs in the hand-written
+kernel :mod:`repro_torch.kernels.rglru_scan` on the card, its plain version
+on the CPU.  Decode (``in_place=True``) writes the new state into the
+cache's tensors.  On a mesh (DTensor arguments) the block raises: the scan
+on each rank's channel shard waits for ROADMAP queue 1, item 20.
 """
 
 from __future__ import annotations
@@ -15,17 +21,18 @@ from typing import Dict, Optional
 
 import torch
 
+from ..kernels.rglru_scan import rglru_scan
 from .config import ModelConfig, torch_dtype
-from .layers import dense_init
+from .layers import dense_init, gelu
 
 Params = Dict[str, torch.Tensor]
 
 CONV_WIDTH = 4
 LRU_C = 8.0
 
-RGLRU_NOT_PORTED = (
-    "the RG-LRU block and its scan are not ported to repro_torch yet "
-    "(ROADMAP queue 1, item 12: models/rglru.py)"
+ON_A_MESH = (
+    "the RG-LRU block on a mesh (DTensor arguments) is not ported yet: the scan on each "
+    "rank's channel shard waits for ROADMAP queue 1, item 20"
 )
 
 
@@ -53,12 +60,44 @@ def init_rglru_block(
     }
 
 
-def rg_lru(x, r_gate, i_gate, lam, *, h0):
-    raise NotImplementedError(RGLRU_NOT_PORTED)
+def _causal_conv1d(x, w, b, *, tail):
+    """Depthwise causal conv, width CONV_WIDTH, in x's dtype.
+
+    x: [B, T, Dr]; tail: [B, CONV_WIDTH-1, Dr] from the previous segment.
+    Returns (y [B, T, Dr], new_tail); the tail is a view of the padded input.
+    """
+    t = x.shape[1]
+    padded = torch.cat([tail.to(x.dtype), x], dim=1)  # [B, T+3, Dr]
+    y = torch.zeros_like(x)
+    for i in range(CONV_WIDTH):
+        y = y + padded[:, i : i + t, :] * w[i][None, None, :].to(x.dtype)
+    y = y + b[None, None, :].to(x.dtype)
+    return y, padded[:, t:, :]
 
 
-def rglru_block(params: Params, x, cfg: ModelConfig, *, state):
-    raise NotImplementedError(RGLRU_NOT_PORTED)
+def rglru_block(params: Params, x, cfg: ModelConfig, *, state, in_place: bool = False):
+    """Griffin recurrent block -> (y [B, T, D], new state).  ``in_place``
+    writes the new state into ``state``'s tensors (decode's cache) and
+    returns ``state``; otherwise the state is fresh tensors."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in (x, state["h"], state["conv"], *params.values())):
+        raise NotImplementedError(ON_A_MESH)
+    dt = cfg.compute_dtype
+    branch_x = x @ params["w_in_x"].to(dt)
+    branch_g = gelu(x @ params["w_in_g"].to(dt))
+    conv_out, new_tail = _causal_conv1d(branch_x, params["conv_w"], params["conv_b"], tail=state["conv"])
+    r_gate = torch.sigmoid(conv_out @ params["w_gate_a"].to(dt))
+    i_gate = torch.sigmoid(conv_out @ params["w_gate_x"].to(dt))
+    h, h_last = rglru_scan(conv_out, r_gate, i_gate, params["lru_lambda"], state["h"])
+    y = (h * branch_g) @ params["w_out"].to(dt)
+    if in_place:
+        # new_tail views the concatenated input, not the old tail: no overlap
+        state["h"].copy_(h_last)
+        state["conv"].copy_(new_tail)
+        return y, state
+    # the tail is a view of the [B, T+3, Dr] padded input: copy it out
+    return y, {"h": h_last, "conv": new_tail.clone()}
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, *, device: torch.device) -> Params:

@@ -28,11 +28,15 @@ in memory only, never in values.
 RWKV6 layers (rwkv6-7b) train and serve: the WKV recurrence runs in the
 hand-written kernels (:mod:`repro_torch.kernels.rwkv6_wkv`), and decode
 updates their state in place.
-Recurrent (RG-LRU) layers and mixture-of-experts FFNs have their
-parameters and decode state (:func:`init_params`, :func:`init_decode_cache`,
-so the sizing hooks of :mod:`repro_torch.launch.shapes` cover every arch),
-but a pass through them raises: RG-LRU waits for ROADMAP queue 1, item 12,
-MoE for item 11.
+Recurrent (RG-LRU) layers (recurrentgemma-9b, with its local-attention
+layers at head_dim 256) serve on the card: the recurrence runs in the
+hand-written kernel :mod:`repro_torch.kernels.rglru_scan`, and decode
+updates the LRU state and conv tail in place; they train on the CPU
+through the plain version (the kernel's backward waits for ROADMAP queue
+1, item 19).  Mixture-of-experts FFNs have their parameters and decode
+state (:func:`init_params`, :func:`init_decode_cache`, so the sizing hooks
+of :mod:`repro_torch.launch.shapes` cover every arch), but a pass through
+them raises: MoE waits for item 11.
 """
 
 from __future__ import annotations
@@ -49,7 +53,7 @@ from .attention import attention_decode, attention_forward, init_attention, init
 from .config import ATTN, LOCAL, RECURRENT, RWKV, ModelConfig
 from .ffn import dense_ffn, init_dense_ffn, init_moe, moe_ffn
 from .layers import apply_norm, dense_init, embed_init, init_norm, softcap
-from .rglru import RGLRU_NOT_PORTED, init_rglru_block, init_rglru_state
+from .rglru import init_rglru_block, init_rglru_state, rglru_block
 from .rwkv6 import channel_mix, init_rwkv_block, init_rwkv_state, time_mix
 
 Params = Dict[str, Any]
@@ -59,9 +63,7 @@ IGNORE_LABEL = -100
 
 def _check_kind(kind: str) -> None:
     """The layer kinds a pass (forward, prefill, decode) can run."""
-    if kind == RECURRENT:
-        raise NotImplementedError(RGLRU_NOT_PORTED)
-    if kind not in (ATTN, LOCAL, RWKV):
+    if kind not in (ATTN, LOCAL, RECURRENT, RWKV):
         raise ValueError(kind)
 
 
@@ -173,9 +175,25 @@ def _rwkv_block(params: Params, x, cfg: ModelConfig, state: Params, *, in_place:
     return x + cm_out, {"wkv": wkv, "shift_att": shift_att.clone(), "shift_ffn": shift_ffn.clone()}
 
 
+def _recurrent_block(params: Params, x, cfg: ModelConfig, state: Params, *, in_place: bool):
+    """One RG-LRU layer from ``state`` -> (x, new state): norm, the
+    recurrent block, residual, norm, the dense (GeGLU) FFN, residual.
+    ``in_place`` writes the new state into ``state``'s tensors (decode)."""
+    h = apply_norm(params["norm1"], x, cfg)
+    rec_out, state = rglru_block(params["rec"], h, cfg, state=state, in_place=in_place)
+    x = x + rec_out
+    h = apply_norm(params["norm2"], x, cfg)
+    return x + dense_ffn(params["ffn"], h, cfg), state
+
+
 def _block(params: Params, x, kind: str, cfg: ModelConfig, positions, cache_len):
     """One layer (forward or prefill).  Returns (x, cache or None)."""
     _check_kind(kind)
+    if kind == RECURRENT:  # prefill starts from a zero state; max_len does not apply
+        x, state = _recurrent_block(
+            params, x, cfg, init_rglru_state(cfg, x.shape[0], device=x.device), in_place=False
+        )
+        return x, state if cache_len is not None else None
     if kind == RWKV:  # prefill starts from a zero state; max_len does not apply
         x, state = _rwkv_block(
             params, x, cfg, init_rwkv_state(cfg, x.shape[0], device=x.device), in_place=False
@@ -194,6 +212,8 @@ def _block(params: Params, x, kind: str, cfg: ModelConfig, positions, cache_len)
 def _block_decode(params: Params, x_t, cache, kind: str, cfg: ModelConfig, position: int):
     """One layer, one token.  Returns (x_t, cache), the cache updated in place."""
     _check_kind(kind)
+    if kind == RECURRENT:
+        return _recurrent_block(params, x_t, cfg, cache, in_place=True)
     if kind == RWKV:
         return _rwkv_block(params, x_t, cfg, cache, in_place=True)
     h = apply_norm(params["norm1"], x_t, cfg)
@@ -329,7 +349,8 @@ def loss_fn(params: Params, batch, cfg: ModelConfig):
 def prefill(params: Params, batch, cfg: ModelConfig, *, max_len: Optional[int] = None):
     """Forward + caches.  Returns (last-position logits [B, V], cache).
 
-    ``max_len`` sizes the attention caches; RWKV6 states have no length.
+    ``max_len`` sizes the attention caches; RWKV6 and RG-LRU states have
+    no length.
     """
     x, positions = embed_inputs(params, batch, cfg)
     x, cache = _run_stack(params, x, cfg, positions, max_len or x.shape[1])

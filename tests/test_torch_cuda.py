@@ -26,9 +26,11 @@ from repro_torch.kernels.flash_attention import (
     fwd_route,
 )
 from repro_torch.kernels.flash_attention.ops import BWD_ROUTE_LAUNCHES, PADDED_LAUNCHES, ROUTE_LAUNCHES
-from repro_torch.kernels.rwkv6_wkv import (GRAD_CHUNK, WKV_BWD_ROUTE_LAUNCHES, bwd_route, wkv6, wkv6_bwd,
+from repro_torch.kernels.rwkv6_wkv import (GRAD_CHUNK, WKV_BWD_ROUTE_LAUNCHES, wkv6, wkv6_bwd,
                                            wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_fwd, wkv6_ref)
+from repro_torch.kernels.rwkv6_wkv.ops import bwd_route as wkv_bwd_route
 from repro_torch.kernels.rwkv6_wkv.ops import CHUNK as WKV_CHUNK
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
 from repro_torch.launch.batches import synthetic_prompt_batch
 from repro_torch.models import decode_step, init_params, prefill
@@ -125,11 +127,24 @@ def test_kernel_reads_strided_inputs(cuda):
     torch.testing.assert_close(out.float(), plain.transpose(1, 2).float(), rtol=2e-2, atol=2e-2)
 
 
-def test_wrapper_rejects_unsupported_head_dim(cuda):
-    """head_dim 256 (recurrentgemma-9b) has no kernel until its path is ported."""
-    q, k, v = _qkv(1, 1, 16, 16, 2, 2, 256, "float32", cuda)
-    with pytest.raises(ValueError, match="head_dim 256.*item 12"):
-        flash_attention(q, k, v)
+@pytest.mark.parametrize("case", [(1, 300, 300, 16, 1, 128), (2, 256, 256, 4, 1, None), (1, 37, 37, 2, 2, 16)],
+                         ids=str)
+def test_head_dim_256_forward_runs_and_refuses_backward(cuda, case):
+    """head_dim 256 (recurrentgemma-9b's local attention): the bf16 forward
+    runs on mma_sync against the plain version; float32, and a forward that
+    would need the backward, raise naming ROADMAP item 19."""
+    b, sq, sk, h, kvh, window = case
+    q, k, v = _qkv(1, b, sq, sk, h, kvh, 256, "bfloat16", cuda)
+    before = ROUTE_LAUNCHES["mma_sync"]
+    out = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES["mma_sync"] == before + 1
+    plain, _ = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window)
+    torch.testing.assert_close(out.float(), plain.transpose(1, 2).float(), rtol=2e-2, atol=2e-2)
+    with pytest.raises(ValueError, match="head_dim 256.*item 19"):
+        flash_attention(q.float(), k.float(), v.float(), window=window)
+    with pytest.raises(ValueError, match="head_dim 256.*item 19"):
+        flash_attention(q.requires_grad_(True), k, v, window=window)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -533,7 +548,7 @@ def test_wkv6_bwd_kernel_matches_plain(cuda, case):
     tol = WKV_TOL[rkv_dtype]
     torch.testing.assert_close(bounds, plain_bounds, rtol=tol, atol=tol)
     torch.testing.assert_close(out, plain_out, rtol=tol, atol=tol)
-    before, route = LAUNCHES["wkv6_bwd"], bwd_route(r.dtype, n)
+    before, route = LAUNCHES["wkv6_bwd"], wkv_bwd_route(r.dtype, n)
     routes = dict(WKV_BWD_ROUTE_LAUNCHES)
     got = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk)
     again = wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk)
@@ -596,6 +611,127 @@ def test_rwkv6_smoke_prefill_and_decode_card_matches_cpu(cuda, dtype):
     torch.testing.assert_close(
         g_cache["groups"]["slot0"]["wkv"].cpu(), c_cache["groups"]["slot0"]["wkv"], rtol=tol, atol=tol
     )
+
+
+# (b, t, dr, dtype, gates): chip_smoke.py's RGLRU_CASES (the prefill's and
+# decode step's shapes, T one past the 64-step chunk, float32, extreme
+# gates) and T at one chunk and one past it
+RGLRU_CASES = [
+    (4, 4096, 4096, "bfloat16", None),
+    (4, 1, 4096, "bfloat16", None),
+    (1, 4097, 4096, "bfloat16", None),
+    (2, 300, 64, "float32", None),
+    (3, 37, 72, "float32", None),
+    (2, 64, 256, "float32", None),
+    (2, 65, 256, "bfloat16", None),
+    (2, 300, 256, "bfloat16", "r_zero"),
+    (2, 300, 256, "float32", "r_one_lam10"),
+    (2, 300, 256, "bfloat16", "lam_minus10"),
+]
+
+
+def _rglru_inputs(seed, b, t, dr, dtype, gates=None, device="cuda"):
+    g = torch.Generator(device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = torch.randn((b, t, dr), generator=g, device=device).to(dt)
+    r = torch.sigmoid(torch.randn((b, t, dr), generator=g, device=device)).to(dt)
+    i = torch.sigmoid(torch.randn((b, t, dr), generator=g, device=device)).to(dt)
+    lam = torch.logit(torch.linspace(0.9, 0.999, dr, device=device) ** (1 / 8))
+    if gates == "r_zero":  # a = 1, beta at the 1e-6 clamp
+        r = torch.zeros_like(r)
+    elif gates == "r_one_lam10":
+        r, lam = torch.ones_like(r), torch.full_like(lam, 10.0)
+    elif gates == "lam_minus10":  # a near 0
+        lam = torch.full_like(lam, -10.0)
+    return x, r, i, lam, torch.randn((b, dr), generator=g, device=device)
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=str)
+def test_rglru_kernel_matches_plain_and_is_deterministic(cuda, case):
+    b, t, dr, dtype, gates = case
+    x, r, i, lam, h0 = _rglru_inputs(0, b, t, dr, dtype, gates)
+    before = LAUNCHES["rglru_scan"]
+    h, last = rglru_scan(x, r, i, lam, h0)
+    again, again_last = rglru_scan(x, r, i, lam, h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan"] == before + 2
+    assert h.dtype == x.dtype and last.dtype == torch.float32
+    assert torch.equal(h, again) and torch.equal(last, again_last)
+    plain, plain_last = rglru_scan_ref(x, r, i, lam, h0)
+    torch.testing.assert_close(h.float(), plain.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(last, plain_last, rtol=1e-4, atol=1e-4)
+
+
+def test_rglru_decode_steps_carry_h(cuda):
+    """Decode's T = 1 steps from h0 held in a view of a stacked cache, each
+    step's h_last copied back into it as ``rglru_block`` does: the plain
+    loop over all steps, and the cache's other rows untouched."""
+    x, r, i, lam, h0 = _rglru_inputs(1, 2, 6, 4096, "bfloat16")
+    stacked = torch.zeros((3, 2, 4096), device=cuda)
+    stacked[1] = h0
+    h = stacked[1]
+    outs = []
+    for step in range(6):
+        y, last = rglru_scan(x[:, step:step + 1], r[:, step:step + 1], i[:, step:step + 1], lam, h)
+        h.copy_(last)
+        outs.append(y)
+    torch.cuda.synchronize()
+    plain, plain_last = rglru_scan_ref(x, r, i, lam, h0)
+    torch.testing.assert_close(torch.cat(outs, 1).float(), plain.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(h, plain_last, rtol=1e-4, atol=1e-4)
+    assert not stacked[0].any() and not stacked[2].any()
+
+
+def test_rglru_kernel_reads_strided_inputs(cuda):
+    """x, r, i as views of one [B, T, 3, Dr] tensor: no copy.  lam and h0
+    as views at an odd float offset, which the float2 loads cannot read in
+    place: the wrapper copies them."""
+    xri = torch.rand((2, 130, 3, 512), device=cuda).to(torch.bfloat16)
+    x, r, i = xri.unbind(2)
+    _, _, _, lam, h0 = _rglru_inputs(2, 2, 130, 512, "bfloat16")
+    lam = torch.cat([lam.new_zeros(1), lam])[1:]
+    h0 = torch.cat([h0.new_zeros(1), h0.flatten()])[1:].view(2, 512)
+    assert not x.is_contiguous() and lam.data_ptr() % 8 and h0.data_ptr() % 8
+    h, last = rglru_scan(x, r, i, lam, h0)
+    plain, plain_last = rglru_scan_ref(x, r, i, lam, h0)
+    torch.testing.assert_close(h.float(), plain.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(last, plain_last, rtol=1e-4, atol=1e-4)
+
+
+def test_rglru_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    x, r, i, lam, h0 = _rglru_inputs(3, 2, 8, 64, "float32")
+    with pytest.raises(NotImplementedError, match="item 19"):
+        rglru_scan(x.requires_grad_(True), r, i, lam, h0)
+    odd = _rglru_inputs(3, 2, 8, 63, "float32")
+    with pytest.raises(ValueError, match="Dr must be even"):
+        rglru_scan(*odd)
+    with pytest.raises(ValueError, match="one dtype"):
+        rglru_scan(x.detach().to(torch.bfloat16), r, i, lam, h0)
+
+
+def test_recurrentgemma_smoke_prefill_and_decode_card_matches_cpu(cuda):
+    """recurrentgemma-9b's smoke config in float32 on the card and on the
+    CPU: 4 rglru_scan launches and 1 flash launch a prefill, 4 rglru_scan a
+    decode step; logits and the recurrent states at 1e-4."""
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-9b"), dtype="float32")
+    params = init_params(cfg, generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    cpu_params = _tree(params, lambda t: t.cpu())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    before = dict(LAUNCHES)
+    g_logits, g_cache = prefill(params, {"tokens": tokens.to(cuda)}, cfg, max_len=44)
+    moved = {n: c - before.get(n, 0) for n, c in LAUNCHES.items() if c != before.get(n, 0)}
+    assert moved == {"rglru_scan": 4, "flash_attention_fwd": 1}
+    c_logits, c_cache = prefill(cpu_params, {"tokens": tokens}, cfg, max_len=44)
+    torch.testing.assert_close(g_logits.cpu(), c_logits, rtol=1e-4, atol=1e-4)
+    for i in range(4):
+        nxt = g_logits.argmax(-1)
+        g_logits, g_cache = decode_step(params, nxt, g_cache, cfg, 40 + i)
+        c_logits, c_cache = decode_step(cpu_params, nxt.cpu(), c_cache, cfg, 40 + i)
+        torch.testing.assert_close(g_logits.cpu(), c_logits, rtol=1e-4, atol=1e-4)
+    assert LAUNCHES["rglru_scan"] == before.get("rglru_scan", 0) + 4 * 5
+    for key in ("h", "conv"):
+        torch.testing.assert_close(g_cache["remainder"][1][key].cpu(), c_cache["remainder"][1][key],
+                                   rtol=1e-4, atol=1e-4)
 
 
 def _tree(tree, fn):

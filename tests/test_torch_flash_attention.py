@@ -46,6 +46,7 @@ SWEEP = [
     (1, 256, 256, 2, 2, 64, False, None, None, 128),
     (1, 128, 128, 2, 1, 64, True, None, 30.0, 128),
     (1, 128, 384, 2, 2, 64, False, None, None, 128),  # cross lengths
+    (1, 256, 256, 4, 1, 256, True, 64, None, 128),  # recurrentgemma-9b's hd 256, MQA, window
 ]
 
 RAGGED = [
@@ -206,6 +207,7 @@ ROUTES = {
     (torch.bfloat16, 64): "wgmma",
     (torch.bfloat16, 96): "mma_sync",
     (torch.bfloat16, 128): "wgmma",
+    (torch.bfloat16, 256): "mma_sync",
     (torch.float32, 8): "f32",
     (torch.float32, 12): "f32",
     (torch.float32, 16): "f32",
@@ -228,8 +230,9 @@ def test_forward_route(dtype, head_dim):
 
 # Which backward kernels each (dtype, head_dim) pair reaches on the card;
 # None: refused.  bf16 at 64 and 128 (every full-width training path) must
-# stay on wgmma.  The same table as the forward's.
-BWD_ROUTES = dict(ROUTES)
+# stay on wgmma.  The forward's table but for head_dim 256, which has no
+# backward yet (ROADMAP queue 1, item 19).
+BWD_ROUTES = {key: route for key, route in ROUTES.items() if key[1] != 256}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16], ids=str)
@@ -244,9 +247,12 @@ def test_backward_route(dtype, head_dim):
 
 
 def test_head_dim_256_is_refused_naming_its_item():
-    for route in (fwd_route, bwd_route):
-        with pytest.raises(ValueError, match="item 12"):
-            route(torch.bfloat16, 256)
+    """recurrentgemma-9b's head_dim 256: the bf16 forward runs on mma_sync;
+    its backward and the float32 route raise naming ROADMAP item 19."""
+    assert fwd_route(torch.bfloat16, 256) == "mma_sync"
+    for route, dtype in ((bwd_route, torch.bfloat16), (bwd_route, torch.float32), (fwd_route, torch.float32)):
+        with pytest.raises(ValueError, match="head_dim 256.*item 19"):
+            route(dtype, 256)
 
 
 # (b, s, h, kvh, hd, window, softcap): yi-34b's smoke heads (7 of hd 8 over

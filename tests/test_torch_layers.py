@@ -161,13 +161,14 @@ def test_init_std_matches_jax():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "recurrentgemma-9b", "rwkv6-7b"])
 def test_unported_layers_raise(arch):
-    """MoE and RG-LRU layers have their parameters, but a pass through them
-    raises; RWKV6 layers, no longer unported, train: their loss and every
-    gradient leaf are finite (held to JAX in ``test_torch_rwkv6.py``)."""
+    """MoE layers have their parameters, but a pass through them raises;
+    RWKV6 and RG-LRU layers, no longer unported, train on the CPU: their
+    loss and every gradient leaf are finite (held to JAX in
+    ``test_torch_rwkv6.py`` and ``test_torch_rglru.py``)."""
     from repro_torch.models import loss_fn
 
     cfg = get_smoke_config(arch)
-    if arch != "rwkv6-7b":
+    if arch == "mixtral-8x22b":
         params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
         tokens = torch.zeros((1, 5), dtype=torch.long)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -7,7 +7,9 @@ Phases, each printing one JSON line on stdout:
 
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions.
 2. ``build``: every kernel of the port compiled from this checkout's sources
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together), with ptxas's
+   registers and spills; the hd-256 ``wgmma`` flash instances must not
+   spill.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and the variants below, with times: the flash
    forward and backward, the WAN int8 quantiser and dequantiser, the RWKV6
@@ -19,12 +21,13 @@ Phases, each printing one JSON line on stdout:
    against autograd through ``wkv6_ref``; timed at 4 x 4096 and 2 x 4096,
    with the forward's serving instance and its training instance, which
    also saves the state every 256 steps); the flash forward at head_dim
-   256 on ``mma_sync`` (recurrentgemma-9b's local attention: 4 x 4096, 16
-   heads over 1 kv head, window 2048; a ragged and an unwindowed shape);
-   and the RG-LRU scan (``rglru_scan``, h and h_last against
+   256 on ``wgmma`` (recurrentgemma-9b's local attention: 4 x 4096, 16
+   heads over 1 kv head, window 2048, with ``sdpa`` timed beside it twice,
+   with the banded mask and unwindowed; a ragged and an unwindowed shape);
+   and the RG-LRU scan (``rglru_scan``, one launch, h and h_last against
    ``rglru_scan_ref``) at the recurrentgemma-9b prefill's 4 x 4096 x 4096
-   and decode step's shapes, T one past a chunk, float32, and extreme
-   gates, two calls bit-equal.
+   and decode step's shapes, T one past a chunk and one past a multiple of
+   it, float32, and extreme gates, two calls bit-equal.
 4. ``serve``: the serving path, distilgpt2-82m at full width (random
    weights from a seed): prefill of 8 x 1024 tokens, then 32 greedy decode
    steps, with the kernel launch counts of that run; then the card against
@@ -105,7 +108,7 @@ Phases, each printing one JSON line on stdout:
    (38 layers: 26 RG-LRU, 12 local attention at head_dim 256; 9.4 B
    parameters, random weights from a seed): prefill of 4 x 4096 tokens,
    then 32 greedy decode steps, with 26 ``rglru_scan`` and 12
-   ``flash_attention_fwd`` (``mma_sync``) launches a prefill and 26
+   ``flash_attention_fwd`` (``wgmma``) launches a prefill and 26
    ``rglru_scan`` a decode step; the LRU state, conv tail and rolling
    window cache carried from a 4096-token prefill through one decode step
    against a 4097-token prefill, at 3, 12, 24 and all 38 layers (the
@@ -160,6 +163,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -193,10 +197,13 @@ FLASH_CASES = [
     # recurrentgemma-9b's local attention (hd 256, MQA, window 2048) at the
     # serve_recurrentgemma prefill's shape, a ragged one whose window cuts
     # mid-tile, and hd 256 with no window (sdpa beside it)
-    ("rg9b_hd256_mqa_w2048", 4, 4096, 16, 1, 256, "bfloat16", 2048, None, "mma_sync"),
-    ("hd256_ragged_s300_w128", 1, 300, 16, 1, 256, "bfloat16", 128, None, "mma_sync"),
-    ("hd256_h4_kvh1", 2, 1024, 4, 1, 256, "bfloat16", None, None, "mma_sync"),
+    ("rg9b_hd256_mqa_w2048", 4, 4096, 16, 1, 256, "bfloat16", 2048, None, "wgmma"),
+    ("hd256_ragged_s300_w128", 1, 300, 16, 1, 256, "bfloat16", 128, None, "wgmma"),
+    ("hd256_h4_kvh1", 2, 1024, 4, 1, 256, "bfloat16", None, None, "wgmma"),
 ]
+# windowed cases where sdpa is also timed unwindowed (is_causal=True) on the
+# same inputs: more pairs than the window keeps, but no S x S mask to read
+SDPA_UNWINDOWED_TOO = ("rg9b_hd256_mqa_w2048",)
 # (label, B, S, H, KVH, hd, dtype, window, softcap, backward route); the
 # first is the train path's shape
 FLASH_BWD_CASES = [
@@ -259,14 +266,15 @@ WKV_BWD_CASES = [
 ]
 WKV_SMALL_W = {"1e-30": 1e-30, "denormal": 1e-40, "zero": 0.0}
 # (label, B, T, Dr, dtype, gates): the recurrentgemma-9b prefill's shape
-# (non-zero h0), its decode step, T one past a
-# multiple of the 64-step chunk, two float32 shapes, and extreme gates:
+# (non-zero h0), its decode step, T one past a multiple of the kernel's
+# 64-step chunk and one past one chunk, two float32 shapes, and extreme gates:
 # r = 0 everywhere (a = 1, beta at the 1e-6 clamp), r = 1 with lam = 10
 # (a = sigmoid(10)^8) and lam = -10 (a near 0)
 RGLRU_CASES = [
     ("path_prefill", 4, 4096, 4096, "bfloat16", None),
     ("path_decode_t1", 4, 1, 4096, "bfloat16", None),
     ("ragged_t4097", 1, 4097, 4096, "bfloat16", None),
+    ("t65_one_chunk_plus_1", 4, 65, 4096, "bfloat16", None),
     ("f32_t300_dr64", 2, 300, 64, "float32", None),
     ("f32_t37_dr72", 3, 37, 72, "float32", None),
     ("r_zero_t300", 2, 300, 4096, "bfloat16", "r_zero"),
@@ -458,6 +466,32 @@ def phase_env(torch):
 PTXAS_KEEP = ("registers", "spill", "C7513", "C7515", "C7520", "Compiling entry")
 
 
+# the hd-256 wgmma flash instances' mangled names hold this
+HD256_ENTRY = "flash_fwd_wgmmaILi256E"
+
+
+def ptxas_entries(lines, pattern):
+    """Registers, stack and spill bytes of each entry function (ptxas -v)
+    whose mangled name holds ``pattern``."""
+    out, cur = [], None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"entry": m.group(1)} if pattern in m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (int(g) for g in m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -468,11 +502,15 @@ def phase_build():
         for name, (_, log) in report.items()
     }
     serialised = [ln for lines in ptxas.values() for ln in lines if any(k in ln for k in PTXAS_KEEP[2:5])]
+    hd256 = ptxas_entries(ptxas["flash_fwd"], HD256_ENTRY) if "flash_fwd" in ptxas else None
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
         "compiled": {n: sec for n, (sec, _) in report.items()}, "ptxas": ptxas,
-        "wgmma_serialised": serialised,
+        "wgmma_serialised": serialised, "flash_fwd_wgmma_hd256": hd256,
     })
+    if hd256 is not None and (len(hd256) != 2 or any(e.get("spill_stores", 1) or e.get("spill_loads", 1)
+                                                     or e.get("stack", 1) for e in hd256)):
+        raise AssertionError(f"build: the hd-256 wgmma flash instances (softcap off, on) spill or are missing: {hd256}")
 
 
 def phase_kernels(torch):
@@ -528,6 +566,21 @@ def phase_kernels(torch):
                                      f"max_abs_err {library_err}, rtol=atol={tol}")
             del lib
             library_ms, library_call_ms = device_ms(library), time_ms(library)
+            if window is not None:
+                library_is += (f": all S x S pairs, {s * s / attention_pairs(s, s, True, window):.2f}x "
+                               "the pairs the window keeps")
+        more = {}
+        if label in SDPA_UNWINDOWED_TOO:  # a second reading: sdpa's causal kernel, no window
+            qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
+            more = {
+                "library_unwindowed_ms": device_ms(
+                    lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)),
+                "library_unwindowed_is": (
+                    "scaled_dot_product_attention(is_causal=True), no window: a different function on the same "
+                    f"inputs, {attention_pairs(s, s, True, None) / attention_pairs(s, s, True, window):.2f}x the "
+                    "pairs the window keeps"),
+            }
+            del qc, kc, vc
         bound_ms, bound_by = flash_bound(b, s, h, kvh, hd, dtype, window)
         ms = device_ms(lambda: flash_attention(q, k, v, **kw))
         checks.append({
@@ -540,7 +593,7 @@ def phase_kernels(torch):
             "plain_ms": time_ms(lambda: flash_attention_ref(qh, kh, vh, **kw)),
             "library_ms": library_ms, "library_call_ms": library_call_ms,
             "library_is": library_is, "library_max_abs_err": library_err,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **more,
         })
     emit({"phase": "kernels", "kernel": "flash_attention_fwd", "checks": checks})
     return checks
@@ -1176,7 +1229,7 @@ def phase_serve_recurrentgemma(torch):
     counts = [res["after_prefill"]] + res["after_steps"]
     got = [(c.get("rglru_scan", 0), c.get("flash_attention_fwd", 0)) for c in counts]
     expected = [(RG_SCANS * (1 + i), RG_FLASH) for i in range(GEN_RG + 1)]
-    if got != expected or set(launches) != {"rglru_scan", "flash_attention_fwd"} or routes != {"mma_sync": RG_FLASH}:
+    if got != expected or set(launches) != {"rglru_scan", "flash_attention_fwd"} or routes != {"wgmma": RG_FLASH}:
         raise AssertionError(f"serve_recurrentgemma: (rglru_scan, flash) launches {got} after prefill and each "
                              f"decode step, expected {expected}; all launches {launches}, flash routes {routes}")
     prefill_ms_median = time_ms(lambda: prefill(params, batch, cfg, max_len=max_len), runs=3, warmup=0)

@@ -19,12 +19,13 @@
 //
 // Three kernels; the caller names one by its route (ops.py::fwd_route),
 // and a route that does not fit the dtype and head_dim is refused:
-//   * "wgmma" (bf16, head_dim 64 and 128): flash_fwd_wgmma below, the
-//     Hopper design.  It serves every full-width path.
-//   * "mma_sync" (bf16, head_dim 16, 96 and 256): flash_fwd_bf16, the first
+//   * "wgmma" (bf16, head_dim 64, 128 and 256): flash_fwd_wgmma below, the
+//     Hopper design.  It serves every full-width path, recurrentgemma-9b's
+//     local attention at 256 among them (forward only; no backward kernel
+//     takes 256).
+//   * "mma_sync" (bf16, head_dim 16 and 96): flash_fwd_bf16, the first
 //     port's Ampere-style kernel, kept for the smoke configs' 16-wide heads
-//     (8 and 12 zero-padded to 16 by the wrapper), phi-3-vision's 96 and
-//     recurrentgemma-9b's 256 (forward only; no backward kernel takes 256).
+//     (8 and 12 zero-padded to 16 by the wrapper) and phi-3-vision's 96.
 //   * "f32" (float32, head_dim 16, 64, 96, 128): flash_fwd_f32, scalar FMA.
 //
 // What bounds it on the H100.  At the serving path's shape (B=8, H=12,
@@ -36,34 +37,56 @@
 // both units fed at once.  Clock counters in the consumers on the card put
 // most of each one's time in the softmax and in issuing wgmma, little in
 // waiting for data, with the two consumers in phase: that, not memory, is
-// what holds it back (PERF.md, Findings).
+// what holds it back (PERF.md, Findings).  At head_dim 256
+// (recurrentgemma-9b: 4 x 4096, 16 heads over 1 kv head, window 2048) the
+// floor is the tensor cores: ~412 GFLOP of kept pairs, ~0.42 ms; a tile's
+// products take four times the exponentials' cycles, so there the softmax
+// hides under the products.
 //
 // Design of flash_fwd_wgmma.  A persistent grid, one CTA per SM, of 384
 // threads in three warpgroups.  A work item is one 128-row query tile of
 // one (batch, head); items are numbered heaviest first (the last query
-// tiles, with the longest causal rows, of every head) and dealt to the CTAs
-// in rounds that alternate direction, so the load evens out.
+// tiles, with the longest causal rows, of every head), the heads of one
+// query tile one after another so that those sharing a kv head read its
+// K/V tiles from L2, and dealt to the CTAs in rounds that alternate
+// direction, so the load evens out.  Per instance (Smem<HD>): K/V tiles of
+// kN keys, the ring's depth and the number of query buffers:
+//   head_dim   kN   ring   query buffers   shared memory
+//      64     128     4          2            160 KB
+//     128     128     2          2            192 KB
+//     256      64     2          1            192 KB
+// At 256 a 128-key K or V tile would be 64 KB and a 128-row query tile is
+// 64 KB, so the tiles hold 64 keys and the query buffer is single; with
+// 64-key tiles the consumers' S (32 registers) and P (16) fit beside the
+// O accumulator's 128 under 240 registers.  A launch at 256 whose 128-row
+// items would fill at most half the SMs (a short prompt) takes 64-row
+// items for consumer 0 alone: such a launch lasts as long as its longest
+// item, which then walks its keys for half the rows on an SM of its own.
 //   * Producer (warpgroup 0, registers lowered to 24 with setmaxnreg): one
-//     thread issues TMA loads of each item's query tile into one of two
-//     buffers, and of its 128-key K and V tiles into a ring in shared
-//     memory (4 stages at hd 64, 2 at hd 128), which runs on from one item
-//     to the next.  Each ring stage has a full barrier per tensor
-//     (transaction bytes) and an empty barrier per tensor (one arrival per
-//     consumer warp); each query buffer has a full and an empty barrier.
-//     So the next item's query and first tiles load while this item
-//     finishes.  The tensor maps are 4-D over (hd, H, S, B) with the
-//     tensors' own byte strides, so strided q, k, v load with no copy, and
-//     rows past Sq or Sk arrive as zeros without reading into the next batch.
+//     thread issues TMA loads of each item's query tile into a query
+//     buffer, and of its K and V tiles into a ring in shared memory, which
+//     runs on from one item to the next.  Each ring stage has a full
+//     barrier per tensor (transaction bytes) and an empty barrier per
+//     tensor (one arrival per consumer warp); each query buffer has a full
+//     and an empty barrier.  With two buffers the next item's query tile
+//     loads while this item finishes; with one, the next item's first K/V
+//     tiles load first, then its query tile, once both consumers have
+//     stored this item's O out of the buffer.  The tensor maps are 4-D over
+//     (hd, H, S, B) with the tensors' own byte strides, so strided q, k, v
+//     load with no copy, and rows past Sq or Sk arrive as zeros without
+//     reading into the next batch.
 //   * Two consumers (warpgroups 1 and 2, registers raised to 240), 64
-//     query rows of each item: S = Q K^T with wgmma from shared memory (both
-//     K-major, 128-byte swizzle), the online softmax in the exp2 domain in
-//     registers, then O += P V with P from registers (the S accumulators
-//     rounded to bf16 are the A fragments) and V from shared memory through
-//     the descriptor's transpose bit, so V is never transposed by hand.
-//     Q K^T of tile kt is issued beside P V of tile kt - 1, and the softmax
-//     of tile kt runs while that product is in flight.  The probabilities
-//     p are rounded to bf16 for P.V, where the TPU kernel keeps them in
-//     float32; that stays inside the bf16 tolerance (2e-2).
+//     query rows of each item: S = Q K^T with wgmma m64nkN from shared
+//     memory (both K-major, 128-byte swizzle, head_dim / 16 steps), the
+//     online softmax in the exp2 domain in registers, then O += P V with P
+//     from registers (the S accumulators rounded to bf16 are the A
+//     fragments) and V from shared memory through the descriptor's
+//     transpose bit, so V is never transposed by hand; at 256 each 16-key
+//     step is two m64n128 products over V's atoms 0-1 and 2-3.  Q K^T of
+//     tile kt is issued beside P V of tile kt - 1, and the softmax of tile
+//     kt runs while that product is in flight.  The probabilities p are
+//     rounded to bf16 for P.V, where the TPU kernel keeps them in float32;
+//     that stays inside the bf16 tolerance (2e-2).
 //   * Only the tiles that need it pay for the index compare: the tiles
 //     holding the causal diagonal, the window's leading edge or the ragged
 //     end of Sk.  The loop bounds skip fully masked tiles (key_tiles).
@@ -159,19 +182,13 @@ constexpr size_t bf16_smem_bytes() {
   return (size_t(2) * kBlockM * (HD + 8) + size_t(HD) * (kBlockN + 8)) * sizeof(__nv_bfloat16);
 }
 
-// The "mma_sync" route (bf16, head_dim 16, 96 and 256).  One block per
-// (64-row query tile, head, batch), four warps of 16 rows, a loop over
-// 64-key tiles; q, k and v (transposed) in padded shared memory, loaded
-// synchronously; both products with mma.sync m16n8k16 (bf16 in, float32
-// accumulate).  Up to head_dim 128 each warp keeps its query rows' A
-// fragments in registers.  At 256 (recurrentgemma-9b's local attention)
-// those would take 64 registers beside the 128 of the O accumulator and the
-// 32 of S, so the fragments are read from sQ again for each key tile, one
-// 16-deep step at a time, with the S loop turned to take the depth outside.
+// The "mma_sync" route (bf16, head_dim 16 and 96).  One block per (64-row query
+// tile, head, batch), four warps of 16 rows, a loop over 64-key tiles; q, k
+// and v (transposed) in padded shared memory, loaded synchronously; both
+// products with mma.sync m16n8k16 (bf16 in, float32 accumulate).
 template <int HD>
 __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Args a) {
   static_assert(HD % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr bool kQRegs = HD <= 128;  // the query fragments stay in registers
   constexpr int LD = HD + 8;         // padded row of sQ and sK
   constexpr int LDV = kBlockN + 8;   // padded row of sVt ([HD][kBlockN])
   constexpr int VEC = 8;             // bf16 per 16-byte load
@@ -203,19 +220,16 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Args a) {
   }
   __syncthreads();
 
-  // This warp's 16 query rows as A fragments (kept in registers up to head_dim 128).
+  // This warp's 16 query rows as A fragments, kept in registers.
   const int wr = warp * 16;
-  auto q_frag = [&](int kc, uint32_t (&f)[4]) {
-    const __nv_bfloat16* p = sQ + (wr + g) * LD + kc * 16 + 2 * t;
-    f[0] = ld32(p);
-    f[1] = ld32(p + 8 * LD);
-    f[2] = ld32(p + 8);
-    f[3] = ld32(p + 8 * LD + 8);
-  };
-  uint32_t qa[kQRegs ? KC : 1][4];
-  if constexpr (kQRegs) {
+  uint32_t qa[KC][4];
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) q_frag(kc, qa[kc]);
+  for (int kc = 0; kc < KC; ++kc) {
+    const __nv_bfloat16* p = sQ + (wr + g) * LD + kc * 16 + 2 * t;
+    qa[kc][0] = ld32(p);
+    qa[kc][1] = ld32(p + 8 * LD);
+    qa[kc][2] = ld32(p + 8);
+    qa[kc][3] = ld32(p + 8 * LD + 8);
   }
 
   float o[DT][4];
@@ -246,26 +260,12 @@ __global__ void __launch_bounds__(kWarps * 32) flash_fwd_bf16(const Args a) {
     // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
     float s[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    if constexpr (kQRegs) {
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int kc = 0; kc < KC; ++kc) {
-          const __nv_bfloat16* p = sK + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-          mma_bf16(s[nt], qa[kc], ld32(p), ld32(p + 8));
-        }
-      }
-    } else {  // the same sums in the same order, the depth outside
-#pragma unroll 2
       for (int kc = 0; kc < KC; ++kc) {
-        uint32_t f[4];
-        q_frag(kc, f);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const __nv_bfloat16* p = sK + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-          mma_bf16(s[nt], f, ld32(p), ld32(p + 8));
-        }
+        const __nv_bfloat16* p = sK + (nt * 8 + g) * LD + kc * 16 + 2 * t;
+        mma_bf16(s[nt], qa[kc], ld32(p), ld32(p + 8));
       }
     }
 
@@ -445,11 +445,8 @@ __global__ void __launch_bounds__(kBlockM) flash_fwd_f32(const Args a) {
 
 namespace wg {
 
-constexpr int kN = 128;          // keys per tile
-constexpr int kAtom = kN * 128;  // bytes of one 64-column swizzle atom of a K or V tile
-
 // 128 query rows per work item: two consumer warpgroups of 64, with 240
-// registers each (the O accumulator at head_dim 128 needs them).
+// registers each (the O accumulator at head_dim 256 takes 128 of them).
 constexpr int kM = 128;
 constexpr int kThreads = 384;     // producer + two consumer warpgroups
 constexpr int kQAtom = kM * 128;  // bytes of one 64-column atom of a query tile
@@ -458,32 +455,42 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = kNegInf * kLog2e;  // the masked logit, in base-2 units
 
 struct Params {
-  CUtensorMap tq, tk, tv, to;  // 4-D (hd, H, S, B) maps; q, k, v boxes 64 x 128 rows, o 64 x 64
+  CUtensorMap tq, tk, tv, to;  // 4-D (hd, H, S, B) maps; boxes 64 x rows (q), kN (k, v), 64 (o)
   float* lse;                  // [B, H, Sq] float32, or null
   int B, H, KVH, Sq, Sk;
   int causal, window;
   float softcap, softcap_inv, sm_scale;
   int n_qtiles;
+  int rows;       // query rows an item takes: kM, or 64 on a narrow grid (head_dim 256)
+  int consumers;  // consumer warpgroups that work: 2, or 1 on a narrow grid
 };
 
-// Shared memory: two query-tile buffers and as deep a K/V ring as then fits.
+// One instance's tiling and shared memory: query buffers, then the K and V
+// rings, then the barriers.  At head_dim 256 a 128-key K or V tile (64 KB)
+// and two query buffers (128 KB) do not fit beside each other: the tiles
+// hold 64 keys and there is one query buffer.
 template <int HD>
 struct Smem {
-  static constexpr int kQTile = (HD / 64) * kQAtom;  // bytes of one query tile
-  static constexpr int kTile = (HD / 64) * kAtom;    // bytes of one K or V tile
-  static constexpr int kStages = HD == 64 ? 4 : 2;   // K/V ring depth
-  static constexpr int kQ = 0;                            // + buffer * kQTile, 2 buffers
-  static constexpr int kK = 2 * kQTile;                   // + stage * kTile
+  static constexpr int kN = HD == 256 ? 64 : 128;       // keys per K/V tile
+  static constexpr int kAtom = kN * 128;                 // bytes of one 64-column atom of a K or V tile
+  static constexpr int kQBufs = HD == 256 ? 1 : 2;       // query-tile buffers
+  static constexpr int kStages = HD == 64 ? 4 : 2;       // K/V ring depth
+  static constexpr int kQTile = (HD / 64) * kQAtom;      // bytes of one query tile
+  static constexpr int kTile = (HD / 64) * kAtom;        // bytes of one K or V tile
+  static constexpr int kQ = 0;                            // + buffer * kQTile
+  static constexpr int kK = kQBufs * kQTile;              // + stage * kTile
   static constexpr int kV = kK + kTile * kStages;         // + stage * kTile
   static constexpr int kBar = kV + kTile * kStages;
-  // barriers: full Q [2], empty Q [2], then full K, full V, empty K, empty V [kStages] each
-  static constexpr int kBytes = kBar + 8 * (4 + 4 * kStages);
+  // barriers: full Q, empty Q [kQBufs] each, then full K, full V, empty K, empty V [kStages] each
+  static constexpr int kBytes = kBar + 8 * (2 * kQBufs + 4 * kStages);
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024
+  static_assert(kAlloc <= 232448, "more shared memory than a block can have");
 };
 
-// First and one-past-last 128-key tile the query tile [q0, q0 + kM) can see.
-__device__ __forceinline__ void key_tiles(const Params& p, int q0, int* beg, int* end) {
-  const int q_last = min(q0 + kM, p.Sq) - 1;
+// First and one-past-last kN-key tile the query tile [q0, q0 + rows) can see.
+template <int kN>
+__device__ __forceinline__ void key_tiles(const Params& p, int q0, int rows, int* beg, int* end) {
+  const int q_last = min(q0 + rows, p.Sq) - 1;
   int e = p.Sk;
   if (p.causal) e = min(e, q_last + 1);
   int b = 0;
@@ -492,9 +499,10 @@ __device__ __forceinline__ void key_tiles(const Params& p, int q0, int* beg, int
   *end = (e + kN - 1) / kN;
 }
 
-// A work item: one 128-row query tile of one (batch, head).  Items are
+// A work item: one query tile (`rows` rows) of one (batch, head).  Items are
 // numbered heaviest first: the last query tiles (the longest causal rows)
-// of every head come first.
+// of every head come first, and the heads of one query tile one after
+// another.
 struct Item {
   int b, h, kvh, q0, kt_beg, kt_end;
 };
@@ -507,15 +515,16 @@ __device__ __forceinline__ int item_index(int i) {
   return i * gridDim.x + lane;
 }
 
-__device__ __forceinline__ Item work_item(const Params& p, int w) {
+template <int kN>
+__device__ __forceinline__ Item work_item(const Params& p, int w, int rows) {
   Item it;
   const int per_tile = p.B * p.H;
   const int z = w / per_tile, rest = w % per_tile;
   it.b = rest / p.H;
   it.h = rest % p.H;
   it.kvh = it.h / (p.H / p.KVH);
-  it.q0 = (p.n_qtiles - 1 - z) * kM;
-  key_tiles(p, it.q0, &it.kt_beg, &it.kt_end);
+  it.q0 = (p.n_qtiles - 1 - z) * rows;
+  key_tiles<kN>(p, it.q0, rows, &it.kt_beg, &it.kt_end);
   return it;
 }
 
@@ -524,7 +533,7 @@ using hopper::pack_bf16x2;
 using hopper::rcp;
 using hopper::tanh_fast;
 
-// One consumer's online-softmax step on its S tile (64 rows x 128 keys):
+// One consumer's online-softmax step on its S tile (64 rows x kN keys):
 // softcap and (kMask) mask, update the running max m and sum l, leave
 // p = 2^(x - m) in s and the factor O must be scaled by in alpha.  m is in
 // base-2 units.  In a tile with no softcap and no mask s stays the raw q.k
@@ -533,8 +542,8 @@ using hopper::tanh_fast;
 // is exactly -1e30 (in base-2 units) and x - m is exact: an FFMA's unrounded
 // product would leave a residual of ~1e23 beside m = -1e30.  Rows: r0 holds
 // d[4j], r0 + 8 holds d[4j + 2].
-template <bool kSoftcap, bool kMask>
-__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[64], float (&m)[2],
+template <int kN, bool kSoftcap, bool kMask>
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[kN / 2], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2], int r0, int k0,
                                              int t) {
   constexpr bool kScaled = kSoftcap || kMask;  // s is rewritten in base-2 units
@@ -542,7 +551,7 @@ __device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[64], fl
   const float unit = kScaled ? 1.f : scale2;  // base-2 units per unit of s
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * j + e];
@@ -573,7 +582,7 @@ __device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[64], fl
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[4 * j + e] = ex2(fmaf(s[4 * j + e], unit, -m[e >> 1]));
@@ -584,20 +593,42 @@ __device__ __forceinline__ void softmax_tile(const Params& p, float (&s)[64], fl
   l[1] = alpha[1] * l[1] + rs[1];
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (HD == 64) {
-    hopper::wgmma_rs_m64n64(o, a, b, 1);
+// One 16-deep step of S (64 x kN) += Q K^T, both from shared memory.
+template <int kN>
+__device__ __forceinline__ void wgmma_qk(float (&s)[kN / 2], uint64_t q, uint64_t k, int scale_d) {
+  if constexpr (kN == 128) {
+    hopper::wgmma_ss_m64n128(s, q, k, scale_d);
   } else {
-    hopper::wgmma_rs_m64n128(o, a, b, 1);
+    hopper::wgmma_ss_m64n64(s, q, k, scale_d);
+  }
+}
+
+// One 16-key step of O (64 x HD) += P V: V's 16 rows start at `v` and its
+// 64-column atoms lie `atom` bytes apart (the descriptor's leading byte
+// offset under the transpose bit).  At head_dim 256 two N-128 products, one
+// over atoms 0-1 into O's columns 0-127, one over atoms 2-3 into 128-255.
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)[4], uint32_t v,
+                                         uint32_t atom) {
+  if constexpr (HD == 64) {
+    hopper::wgmma_rs_m64n64(o, a, hopper::smem_desc(v, atom, 1024), 1);
+  } else if constexpr (HD == 128) {
+    hopper::wgmma_rs_m64n128(o, a, hopper::smem_desc(v, atom, 1024), 1);
+  } else {
+    hopper::wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, hopper::smem_desc(v, atom, 1024), 1);
+    hopper::wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&o[64]), a,
+                             hopper::smem_desc(v + 2 * atom, atom, 1024), 1);
   }
 }
 
 template <int HD, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ Params p) {
-  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256, "head_dim 64, 128 or 256");
   using L = Smem<HD>;
+  constexpr int kN = L::kN;
+  constexpr int kAtom = L::kAtom;
+  constexpr int kQBufs = L::kQBufs;
   constexpr int kStages = L::kStages;
   constexpr int kConsumerWarps = 8;
   constexpr int NO = HD / 2;  // O accumulator floats per thread
@@ -606,43 +637,53 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::kBar;                    // + 8 * buffer
-  const uint32_t bar_empty_q = bar_q + 16;                  // + 8 * buffer
-  const uint32_t bar_k = bar_empty_q + 16;                  // + 8 * stage
+  const uint32_t bar_empty_q = bar_q + 8 * kQBufs;          // + 8 * buffer
+  const uint32_t bar_k = bar_empty_q + 8 * kQBufs;          // + 8 * stage
   const uint32_t bar_v = bar_k + 8 * kStages;               // + 8 * stage
   const uint32_t bar_empty_k = bar_v + 8 * kStages;         // + 8 * stage
   const uint32_t bar_empty_v = bar_empty_k + 8 * kStages;   // + 8 * stage
   const int n_items = p.n_qtiles * p.B * p.H;
+  // 128-row items for both consumers; at head_dim 256 on a grid that would
+  // leave SMs idle, 64-row items for consumer 0 alone (launch chooses).
+  const int rows = HD == 256 ? p.rows : kM;
+  const int consumers = HD == 256 ? p.consumers : 2;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kQBufs; ++i) {
       hopper::mbar_init(bar_q + 8 * i, 1);
-      hopper::mbar_init(bar_empty_q + 8 * i, 2);  // one thread of each consumer, after its store
+      hopper::mbar_init(bar_empty_q + 8 * i, consumers);  // one thread of each consumer, after its store
     }
     for (int s = 0; s < kStages; ++s) {
       hopper::mbar_init(bar_k + 8 * s, 1);
       hopper::mbar_init(bar_v + 8 * s, 1);
-      hopper::mbar_init(bar_empty_k + 8 * s, kConsumerWarps);
-      hopper::mbar_init(bar_empty_v + 8 * s, kConsumerWarps);
+      hopper::mbar_init(bar_empty_k + 8 * s, kConsumerWarps / 2 * consumers);
+      hopper::mbar_init(bar_empty_v + 8 * s, kConsumerWarps / 2 * consumers);
     }
     hopper::mbar_init_fence();
   }
   __syncthreads();
 
-  // The i-th item of this CTA uses query buffer i % 2; its K/V tiles continue
-  // the ring where the previous item's stopped (`tiles` counts them).
+  // The i-th item of this CTA uses query buffer i % kQBufs; its K/V tiles
+  // continue the ring where the previous item's stopped (`tiles` counts them).
   if (threadIdx.x / 128 == 0) {
     // ---- producer ----
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       int tiles = 0;
       for (int i = 0; item_index(i) < n_items; ++i) {
-        const Item it = work_item(p, item_index(i));
-        const int qb = i % 2;
-        const uint32_t sQ = base + L::kQ + qb * L::kQTile;
-        hopper::mbar_wait(bar_empty_q + 8 * qb, ((i / 2) % 2) ^ 1);
-        hopper::mbar_arrive_expect_tx(bar_q + 8 * qb, L::kQTile);
-        for (int a = 0; a < kAtoms; ++a)
-          hopper::tma_load_4d(sQ + a * kQAtom, &p.tq, bar_q + 8 * qb, a * 64, it.h, it.q0, it.b);
+        const Item it = work_item<kN>(p, item_index(i), rows);
+        const int qb = i % kQBufs;
+        auto load_q = [&]() {
+          const uint32_t sQ = base + L::kQ + qb * L::kQTile;
+          hopper::mbar_wait(bar_empty_q + 8 * qb, ((i / kQBufs) % 2) ^ 1);
+          hopper::mbar_arrive_expect_tx(bar_q + 8 * qb, kAtoms * rows * 128);
+          for (int a = 0; a < kAtoms; ++a)
+            hopper::tma_load_4d(sQ + a * kQAtom, &p.tq, bar_q + 8 * qb, a * 64, it.h, it.q0, it.b);
+        };
+        // With one query buffer a later item's first K/V tiles (as many as
+        // the ring holds) load before its query tile, which waits for the
+        // previous item's O to leave the buffer.
+        if (kQBufs == 2 || i == 0) load_q();
         for (int kt = it.kt_beg; kt < it.kt_end; ++kt, ++tiles) {
           const int stage = tiles % kStages;
           const uint32_t phase = (tiles / kStages) % 2;
@@ -658,6 +699,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int a = 0; a < kAtoms; ++a)
             hopper::tma_load_4d(sV + a * kAtom, &p.tv, bar_v + 8 * stage, a * 64, it.kvh, kt * kN,
                                 it.b);
+          if constexpr (kQBufs == 1) {
+            if (i > 0 && kt - it.kt_beg + 1 == min(kStages, it.kt_end - it.kt_beg)) load_q();
+          }
         }
       }
     }
@@ -665,15 +709,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- consumers: 64 query rows of each item ----
     hopper::setmaxnreg_inc<240>();
     const int c = threadIdx.x / 128 - 1;
+    if (HD == 256 && c >= consumers) return;  // a narrow grid's idle consumer
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const int g = lane / 4, t = lane % 4;
     float o[NO], m[2], l[2], alpha[2];
-    float s[64];
-    uint32_t pa[8][4];
+    float s[kN / 2];
+    uint32_t pa[kN / 16][4];
     int tiles = 0;
     for (int i = 0; item_index(i) < n_items; ++i) {
-      const Item it = work_item(p, item_index(i));
-      const int qb = i % 2;
+      const Item it = work_item<kN>(p, item_index(i), rows);
+      const int qb = i % kQBufs;
       const int wg_row0 = it.q0 + 64 * c;         // first row of this warpgroup
       const int r0 = wg_row0 + 16 * warp + g;     // this thread's rows: r0, r0 + 8
       const uint32_t sQc = base + L::kQ + qb * L::kQTile + c * 64 * 128;  // its rows of each atom
@@ -687,15 +732,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t col = (kk % 4) * 32;
-          hopper::wgmma_ss_m64n128(s, hopper::smem_desc(sQc + (kk / 4) * kQAtom + col, 16, 1024),
-                                   hopper::smem_desc(sK + (kk / 4) * kAtom + col, 16, 1024), kk > 0);
+          wgmma_qk<kN>(s, hopper::smem_desc(sQc + (kk / 4) * kQAtom + col, 16, 1024),
+                       hopper::smem_desc(sK + (kk / 4) * kAtom + col, 16, 1024), kk > 0);
         }
         hopper::wgmma_commit();
       };
-      auto issue_pv = [&](uint32_t sV) {  // O += P V: 8 steps of 16 keys, 2048 bytes apart
+      auto issue_pv = [&](uint32_t sV) {  // O += P V: kN / 16 steps of 16 keys, 2048 bytes apart
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          wgmma_pv<HD>(o, pa[kk], hopper::smem_desc(sV + kk * 16 * 128, kAtom, 1024));
+        for (int kk = 0; kk < kN / 16; ++kk) wgmma_pv<HD>(o, pa[kk], sV + kk * 16 * 128, kAtom);
         hopper::wgmma_commit();
       };
       auto softmax = [&](int kt) {
@@ -704,9 +748,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const bool need_mask = k0 + kN > p.Sk || (p.causal && k0 + kN - 1 > wg_row0) ||
                                (p.window > 0 && k0 <= wg_row0 + 63 - p.window);
         if (need_mask) {
-          softmax_tile<kSoftcap, true>(p, s, m, l, alpha, r0, k0, t);
+          softmax_tile<kN, kSoftcap, true>(p, s, m, l, alpha, r0, k0, t);
         } else {
-          softmax_tile<kSoftcap, false>(p, s, m, l, alpha, r0, k0, t);
+          softmax_tile<kN, kSoftcap, false>(p, s, m, l, alpha, r0, k0, t);
         }
       };
       // O *= alpha, then P as bf16 A fragments: only once the previous P V
@@ -720,7 +764,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           o[4 * j + 3] *= alpha[1];
         }
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < kN / 16; ++kk) {
           pa[kk][0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
           pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
           pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
@@ -748,7 +792,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // K^T of tile kt is issued before P V of tile kt - 1, and the softmax
       // of tile kt runs while that product is in flight; O is rescaled and P
       // packed once it has landed.
-      hopper::mbar_wait(bar_q + 8 * qb, (i / 2) % 2);
+      hopper::mbar_wait(bar_q + 8 * qb, (i / kQBufs) % 2);
       hopper::fence_regs(s);
       hopper::fence_regs(o);
       hopper::wgmma_fence();
@@ -827,13 +871,27 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int HD>
 int launch(const Args& a, int batch, cudaStream_t stream) {
+  using L = Smem<HD>;
   hopper::EncodeTiled fn;
   cudaError_t e = hopper::encode_fn(&fn);
   if (e != cudaSuccess) return static_cast<int>(e);
+  int device, sms;
+  e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   Params p;
-  int err = hopper::encode(fn, &p.tq, a.q, HD, a.H, a.Sq, batch, a.sq, kM);
-  if (!err) err = hopper::encode(fn, &p.tk, a.k, HD, a.KVH, a.Sk, batch, a.sk, kN);
-  if (!err) err = hopper::encode(fn, &p.tv, a.v, HD, a.KVH, a.Sk, batch, a.sv, kN);
+  // At head_dim 256 a grid of 128-row items that fills at most half the SMs
+  // is cut into 64-row items for one consumer each: the longest item, which
+  // bounds such a launch, then walks its keys for half the rows.
+  p.rows = kM;
+  p.consumers = 2;
+  if (HD == 256 && 2LL * ((a.Sq + kM - 1) / kM) * batch * a.H <= sms) {
+    p.rows = 64;
+    p.consumers = 1;
+  }
+  int err = hopper::encode(fn, &p.tq, a.q, HD, a.H, a.Sq, batch, a.sq, p.rows);
+  if (!err) err = hopper::encode(fn, &p.tk, a.k, HD, a.KVH, a.Sk, batch, a.sk, L::kN);
+  if (!err) err = hopper::encode(fn, &p.tv, a.v, HD, a.KVH, a.Sk, batch, a.sv, L::kN);
   if (!err) err = hopper::encode(fn, &p.to, a.o, HD, a.H, a.Sq, batch, a.so, 64);
   if (err) return err;
   p.lse = a.lse;
@@ -847,16 +905,12 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
   p.softcap = a.softcap;
   p.softcap_inv = a.softcap > 0.f ? 1.f / a.softcap : 0.f;
   p.sm_scale = a.sm_scale;
-  p.n_qtiles = (a.Sq + kM - 1) / kM;
+  p.n_qtiles = (a.Sq + p.rows - 1) / p.rows;
   const long long n_items = static_cast<long long>(p.n_qtiles) * batch * a.H;
   if (n_items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = a.softcap > 0.f ? &flash_fwd_wgmma<HD, true> : &flash_fwd_wgmma<HD, false>;
-  constexpr int smem = Smem<HD>::kAlloc;
+  constexpr int smem = L::kAlloc;
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int device, sms;
-  e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = static_cast<int>(n_items < sms ? n_items : sms);  // one CTA per SM, persistent
   kernel<<<grid, kThreads, smem, stream>>>(p);
@@ -886,12 +940,11 @@ constexpr int kRouteWgmma = 2;
 int dispatch(int route, int head_dim, const Args& a, int batch, cudaStream_t s) {
   if (route == kRouteWgmma && head_dim == 64) return wg::launch<64>(a, batch, s);
   if (route == kRouteWgmma && head_dim == 128) return wg::launch<128>(a, batch, s);
+  if (route == kRouteWgmma && head_dim == 256) return wg::launch<256>(a, batch, s);
   if (route == kRouteMmaSync && head_dim == 16)
     return static_cast<int>(launch(flash_fwd_bf16<16>, a, batch, kWarps * 32, bf16_smem_bytes<16>(), s));
   if (route == kRouteMmaSync && head_dim == 96)
     return static_cast<int>(launch(flash_fwd_bf16<96>, a, batch, kWarps * 32, bf16_smem_bytes<96>(), s));
-  if (route == kRouteMmaSync && head_dim == 256)
-    return static_cast<int>(launch(flash_fwd_bf16<256>, a, batch, kWarps * 32, bf16_smem_bytes<256>(), s));
   if (route == kRouteF32 && head_dim == 16)
     return static_cast<int>(launch(flash_fwd_f32<16>, a, batch, kBlockM, f32_smem_bytes<16>(), s));
   if (route == kRouteF32 && head_dim == 64)
@@ -910,8 +963,8 @@ extern "C" {
 // Launches the forward pass on `stream` and returns 0 on success, else a
 // cudaError_t of the attribute call or the launch, or kEncodeError plus the
 // CUresult of a failed tensor-map encode (see repro_cuda_error_string).
-// route: 0 "f32" (float32, head_dim 16/64/96/128), 1 "mma_sync" (bf16, 16/96/256),
-// 2 "wgmma" (bf16, 64/128); any other pairing is refused.  dims = {B, H,
+// route: 0 "f32" (float32, head_dim 16/64/96/128), 1 "mma_sync" (bf16, 16/96),
+// 2 "wgmma" (bf16, 64/128/256); any other pairing is refused.  dims = {B, H,
 // KVH, Sq, Sk}; strides = element strides {batch, seq, head} of q, k, v, o
 // in that order.  sm_scale is head_dim**-0.5 rounded once to float32, as the
 // TPU kernel has it.  lse is a contiguous float32 [B, H, Sq] output, or null

@@ -76,9 +76,9 @@ def pad_head_dim(*tensors: torch.Tensor):
 def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which forward kernel serves (dtype, head_dim); raises for any other.
 
-    ``"wgmma"``: bf16 at head_dim 64 and 128, the Hopper kernel (TMA ring,
-    wgmma, warp specialisation) that the full-width paths at those widths
-    run.  ``"mma_sync"``: bf16 at head_dim 256 (recurrentgemma-9b), 96
+    ``"wgmma"``: bf16 at head_dim 64, 128 and 256 (recurrentgemma-9b), the
+    Hopper kernel (TMA ring, wgmma, warp specialisation) that every
+    full-width path runs.  ``"mma_sync"``: bf16 at head_dim 96
     (phi-3-vision-4.2b) and 16 (the smoke configs; 8 and 12 padded to 16).
     ``"f32"``: float32 at 16, 64, 96 and 128 (8 and 12 padded).
     """
@@ -105,7 +105,7 @@ def _route(dtype: torch.dtype, head_dim: int, which: str) -> str:
     if hd == 256 and (which == "backward" or dtype != torch.bfloat16):
         raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim 256: {ITEM_19}")
     if dtype == torch.bfloat16:
-        return "wgmma" if hd in (64, 128) else "mma_sync"
+        return "wgmma" if hd in (64, 128, 256) else "mma_sync"
     if dtype == torch.float32:
         return "f32"
     raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim {head_dim}")

@@ -19,24 +19,43 @@
 // write h (134.2 MB): ~0.160 ms at 3.35 TB/s.  Its operations (two exp,
 // one sqrt and a few multiplies an element) are far below the card's rate.
 //
-// Design.  One thread walking all T steps of one channel gives only
-// B x Dr = 16,384 chains at that shape, each waiting on a dependent load
-// every step: the card would sit mostly idle.  So the walk is cut into
-// chunks of kChunk steps, in three launches (ref.py::rglru_scan_chunked_ref
-// is this algorithm in plain torch):
-//   1. chunk_kernel: each (batch, chunk but the last, channel pair) from a
-//      zero state: the chunk's decay product and local end state, float32
-//      scratch [B, NC, Dr] each (8.4 MB at that shape).
-//   2. carry_kernel: per (batch, channel pair), the chunk starts in order
-//      from h0, s_{c+1} = A_c s_c + H_c, written over the decay products.
-//   3. scan_kernel: each (batch, chunk, channel pair) again, step by step
-//      from its start, writing h; the last chunk writes h_last.
-// That is ~0.5 M threads at that shape; the inputs are read twice, so the
-// design's own floor is ~0.28 ms.  A thread takes two adjacent channels
-// (one 4-byte bf16x2 or 8-byte float2 load a tensor a step: a warp reads
-// 128 or 256 contiguous bytes), and loads kUnroll steps ahead of their
-// updates.  When T fits one chunk (decode's T = 1) the scan kernel alone
-// runs, from h0.  No atomics: two calls give equal bits.
+// Design: one launch that reads each input once.
+// ref.py::rglru_scan_chunked_ref is this algorithm in plain torch.
+//   * A block takes (chunk of kChunk = 64 steps, batch row, slice of 64
+//     channels).  Its 8 warps take 8 steps each (a segment), a lane two
+//     adjacent channels: one 4-byte bf16x2 or 8-byte float2 load a tensor a
+//     step, so a warp reads one 128- or 256-byte row.  A thread issues all
+//     its segment's loads of x, r and i at once, forms a_t and
+//     beta_t * gated_x_t in float32 and keeps them in its registers (32
+//     floats) until the rewalk: the inputs are read once and nothing goes
+//     back to HBM but h.  Steps past T are the identity (a = 1, b = 0).
+//   * Each thread folds its 8 steps into the segment's (decay product,
+//     local end state); warp 0 folds the 8 segments, in order, into the
+//     chunk's (A_c, H_c).
+//   * Chunk c's start s_c is chunk c - 1's published inclusive state (h0
+//     for chunk 0): warp 0 waits on that chunk's ready flag, reads its
+//     state from float32 scratch, publishes s_{c+1} = A_c s_c + H_c and
+//     sets its own flag (release after the state's stores; the reader
+//     acquires), then writes the 8 segment starts to shared memory
+//     (s_c, then A_w s + H_w segment by segment).
+//   * Each warp rewalks its 8 steps from its start out of its registers,
+//     writing h; the warp holding step T - 1 writes h_last.
+// Blocks take their (chunk, batch, slice) from an atomic ticket, chunk
+// major, so the block a waiting block needs took an earlier ticket and is
+// resident or done: the wait cannot deadlock.  The ticket and the flags
+// only order the blocks (the only atomics).  A chunk's start is always its
+// immediate predecessor's state, combined in a fixed order, so no sum
+// depends on timing and two calls give equal bits.  The wrapper zeroes the
+// flags and the ticket for every call.  When T fits one chunk (decode's
+// T = 1) there is no scratch, no flag and no ticket: each block starts from
+// h0.
+// Sizes, from timings on the card (PERF.md, Findings): a block's phases
+// (loads, coefficients, fold, wait, rewalk) run one after another, so the
+// card is kept busy by blocks in different phases: 64 registers a thread
+// let 4 blocks of 256 threads share an SM.  16-step segments (2 blocks an
+// SM), 16 warps a block, and persistent blocks that prefetch their next
+// chunk were slower; the chain of waits costs little (removing it saves
+// ~3%).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,10 +64,13 @@
 
 namespace {
 
-constexpr int kChunk = 64;     // steps a chunk walks (ref.py CHUNK)
-constexpr int kUnroll = 8;     // steps whose inputs load before their updates
-constexpr int kThreads = 128;  // channel pairs a block
-constexpr float kC = 8.0f;     // LRU_C
+constexpr int kSeg = 8;                // steps a warp walks (ref.py SEGMENT)
+constexpr int kWarps = 8;              // segments a chunk
+constexpr int kChunk = kSeg * kWarps;  // steps a block takes (ref.py CHUNK)
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlocks = 4;             // resident blocks a SM: 64 registers a thread
+constexpr int kSlice = 64;             // channels a block, two a lane (ops.py SLICE)
+constexpr float kC = 8.0f;             // LRU_C
 
 struct Args {
   const void* x;
@@ -59,19 +81,21 @@ struct Args {
   const float* h0;                // [B, Dr]
   void* h;                        // [B, T, Dr] contiguous, x's type
   float* h_last;                  // [B, Dr]
-  float* decay;                   // [B, NC, Dr]: decay products, then chunk starts
-  float* local;                   // [B, NC, Dr]: local end states (slots 0..NC-2)
-  int T, Dr, NC;
+  float* state;                   // [B, NC, Dr]: chunk c's inclusive state (c < NC - 1), or null
+  int* flags;                     // [NC, B, NS] ready flags, then the ticket: zero on entry; or null
+  int B, T, Dr, NC, NS;
 };
 
 template <typename T>
 struct Pair;
 
+// Two adjacent channels: loaded as one 8-byte float2 or 4-byte bf16x2 (Raw),
+// widened to float2 when used.
 template <>
 struct Pair<float> {
-  static __device__ __forceinline__ float2 load(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-  }
+  using Raw = float2;
+  static __device__ __forceinline__ Raw load(const float* p) { return *reinterpret_cast<const float2*>(p); }
+  static __device__ __forceinline__ float2 wide(Raw v) { return v; }
   static __device__ __forceinline__ void store(float* p, float2 v) {
     *reinterpret_cast<float2*>(p) = v;
   }
@@ -80,9 +104,11 @@ struct Pair<float> {
 
 template <>
 struct Pair<__nv_bfloat16> {
-  static __device__ __forceinline__ float2 load(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  using Raw = __nv_bfloat162;
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const __nv_bfloat162*>(p);
   }
+  static __device__ __forceinline__ float2 wide(Raw v) { return __bfloat1622float2(v); }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, float2 v) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
   }
@@ -96,115 +122,154 @@ __device__ __forceinline__ float log_sigmoid(float v) {
   return fminf(v, 0.f) - log1pf(expf(-fabsf(v)));
 }
 
-// One step's coefficients for one channel: h <- a h + b.
+// One step's coefficients for one channel: h <- a h + b.  c8lsl is
+// 8 * log_sigmoid(lam); r * c8lsl has the bits of (8 r) * log_sigmoid(lam),
+// since scaling by 8 is exact.
 template <typename T>
-__device__ __forceinline__ void coeff(float r, float ig, float x, float lsl, float* a, float* b) {
-  const float log_a = kC * r * lsl;
+__device__ __forceinline__ void coeff(float r, float ig, float x, float c8lsl, float* a, float* b) {
+  const float log_a = r * c8lsl;
   *a = expf(log_a);
   const float beta = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));
   *b = beta * Pair<T>::mul(ig, x);
 }
 
-// Walks steps [s0, s1) of batch row b, channels (d, d + 1), from h.  kPass
-// 1 also multiplies the decays into `decay`; kPass 3 writes each h to `out`.
-template <typename T, int kPass>
-__device__ __forceinline__ void walk(const Args& a, int b, int d, int s0, int s1, float2 lsl,
-                                     float2* h, float2* decay) {
-  const T* xp = static_cast<const T*>(a.x) + b * a.sx[0] + d;
-  const T* rp = static_cast<const T*>(a.r) + b * a.sr[0] + d;
-  const T* ip = static_cast<const T*>(a.i) + b * a.si[0] + d;
-  T* op = static_cast<T*>(a.h) + (long long)b * a.T * a.Dr + d;
-  for (int s = s0; s < s1; s += kUnroll) {
-    float2 xv[kUnroll], rv[kUnroll], iv[kUnroll];
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// h <- a h + b for both channels.
+__device__ __forceinline__ float2 step(float2 a, float2 h, float2 b) {
+  return make_float2(fmaf(a.x, h.x, b.x), fmaf(a.y, h.y, b.y));
+}
+
+// Grid: NC * B * NS blocks, one ticket each.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocks) scan_kernel(const Args a) {
+  using Raw = typename Pair<T>::Raw;
+  __shared__ float4 seg[kWarps][32];    // a segment's (A.x, A.y, H.x, H.y), per lane
+  __shared__ float2 start[kWarps][32];  // a segment's start, per lane
+  __shared__ int ticket_s;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int level = a.B * a.NS;  // blocks a chunk
+  int ticket = blockIdx.x;       // with one chunk no block waits on another
+  if (a.flags != nullptr) {
+    if (threadIdx.x == 0) ticket_s = atomicAdd(a.flags + static_cast<long long>(a.NC) * level, 1);
+    __syncthreads();
+    ticket = ticket_s;
+  }
+  const int c = ticket / level, bs = ticket % level;  // chunk, (batch, slice)
+  const int b = bs / a.NS;
+  const int d = (bs % a.NS) * kSlice + 2 * lane;  // this thread's channels d, d + 1
+  const bool live = d < a.Dr;
+  const int s0 = c * kChunk + warp * kSeg;        // its first step
+  const int n = live ? min(kSeg, a.T - s0) : 0;   // its steps (<= 0: none)
+
+  // This segment's coefficients, read once and kept in registers.
+  float2 av[kSeg], bv[kSeg];
+  {
+    const T* xp = static_cast<const T*>(a.x) + b * a.sx[0] + d;
+    const T* rp = static_cast<const T*>(a.r) + b * a.sr[0] + d;
+    const T* ip = static_cast<const T*>(a.i) + b * a.si[0] + d;
+    Raw xr[kSeg], rr[kSeg], ir[kSeg];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (s + u < s1) {
-        xv[u] = Pair<T>::load(xp + (long long)(s + u) * a.sx[1]);
-        rv[u] = Pair<T>::load(rp + (long long)(s + u) * a.sr[1]);
-        iv[u] = Pair<T>::load(ip + (long long)(s + u) * a.si[1]);
+    for (int u = 0; u < kSeg; ++u) {
+      if (u < n) {
+        const long long s = s0 + u;
+        xr[u] = Pair<T>::load(xp + s * a.sx[1]);
+        rr[u] = Pair<T>::load(rp + s * a.sr[1]);
+        ir[u] = Pair<T>::load(ip + s * a.si[1]);
       }
     }
+    float2 c8lsl = make_float2(0.f, 0.f);
+    if (live) {
+      const float2 lam = *reinterpret_cast<const float2*>(a.lam + d);
+      c8lsl = make_float2(kC * log_sigmoid(lam.x), kC * log_sigmoid(lam.y));
+    }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (s + u < s1) {
-        float a0, b0, a1, b1;
-        coeff<T>(rv[u].x, iv[u].x, xv[u].x, lsl.x, &a0, &b0);
-        coeff<T>(rv[u].y, iv[u].y, xv[u].y, lsl.y, &a1, &b1);
-        h->x = fmaf(a0, h->x, b0);
-        h->y = fmaf(a1, h->y, b1);
-        if (kPass == 1) {
-          decay->x *= a0;
-          decay->y *= a1;
-        }
-        if (kPass == 3) Pair<T>::store(op + (long long)(s + u) * a.Dr, *h);
+    for (int u = 0; u < kSeg; ++u) {
+      if (u < n) {
+        const float2 x = Pair<T>::wide(xr[u]), r = Pair<T>::wide(rr[u]), i = Pair<T>::wide(ir[u]);
+        coeff<T>(r.x, i.x, x.x, c8lsl.x, &av[u].x, &bv[u].x);
+        coeff<T>(r.y, i.y, x.y, c8lsl.y, &av[u].y, &bv[u].y);
+      } else {  // past T, or a channel past Dr: the identity step
+        av[u] = make_float2(1.f, 1.f);
+        bv[u] = make_float2(0.f, 0.f);
       }
     }
   }
-}
 
-__device__ __forceinline__ float2 lsl_pair(const Args& a, int d) {
-  const float2 lam = *reinterpret_cast<const float2*>(a.lam + d);
-  return make_float2(log_sigmoid(lam.x), log_sigmoid(lam.y));
-}
+  // The segment from a zero state: its decay product and local end state.
+  float2 A = make_float2(1.f, 1.f), H = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int u = 0; u < kSeg; ++u) {
+    A = make_float2(A.x * av[u].x, A.y * av[u].y);
+    H = step(av[u], H, bv[u]);
+  }
+  seg[warp][lane] = make_float4(A.x, A.y, H.x, H.y);
+  __syncthreads();
 
-// Pass 1: grid (channel-pair blocks, NC - 1, B).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) chunk_kernel(const Args a) {
-  const int d = 2 * (blockIdx.x * kThreads + threadIdx.x);
-  if (d >= a.Dr) return;
-  const int c = blockIdx.y, b = blockIdx.z;
-  float2 h = make_float2(0.f, 0.f), decay = make_float2(1.f, 1.f);
-  walk<T, 1>(a, b, d, c * kChunk, (c + 1) * kChunk, lsl_pair(a, d), &h, &decay);
-  const long long o = ((long long)b * a.NC + c) * a.Dr + d;
-  *reinterpret_cast<float2*>(a.decay + o) = decay;
-  *reinterpret_cast<float2*>(a.local + o) = h;
-}
-
-// Pass 2: grid (channel-pair blocks, B).  Chunk c's start goes over its
-// decay product, once that is read.
-__global__ void __launch_bounds__(kThreads) carry_kernel(const Args a) {
-  const int d = 2 * (blockIdx.x * kThreads + threadIdx.x);
-  if (d >= a.Dr) return;
-  const int b = blockIdx.y;
-  float2 h = *reinterpret_cast<const float2*>(a.h0 + (long long)b * a.Dr + d);
-  for (int c = 0; c < a.NC; ++c) {
-    float2* slot = reinterpret_cast<float2*>(a.decay + ((long long)b * a.NC + c) * a.Dr + d);
-    if (c + 1 < a.NC) {
-      const float2 dec = *slot;
-      const float2 loc = *reinterpret_cast<const float2*>(a.local + ((long long)b * a.NC + c) * a.Dr + d);
-      *slot = h;
-      h = make_float2(fmaf(dec.x, h.x, loc.x), fmaf(dec.y, h.y, loc.y));
+  if (warp == 0) {
+    // The chunk's (A_c, H_c): its segments folded in order.
+    float2 ca = make_float2(1.f, 1.f), ch = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const float4 g = seg[k][lane];
+      ca = make_float2(g.x * ca.x, g.y * ca.y);
+      ch = step(make_float2(g.x, g.y), ch, make_float2(g.z, g.w));
+    }
+    // The chunk's start: h0, or the previous chunk's published state.
+    float2 st = make_float2(0.f, 0.f);
+    if (c == 0) {
+      if (live) st = *reinterpret_cast<const float2*>(a.h0 + static_cast<long long>(b) * a.Dr + d);
     } else {
-      *slot = h;
+      const int* ready = a.flags + static_cast<long long>(c - 1) * level + bs;
+      while (ld_acquire(ready) == 0) __nanosleep(32);
+      if (live)
+        st = __ldcg(reinterpret_cast<const float2*>(
+            a.state + (static_cast<long long>(b) * a.NC + c - 1) * a.Dr + d));
+    }
+    if (c + 1 < a.NC) {  // publish this chunk's inclusive state
+      if (live)
+        __stcg(reinterpret_cast<float2*>(a.state + (static_cast<long long>(b) * a.NC + c) * a.Dr + d),
+               step(ca, st, ch));
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) st_release(a.flags + static_cast<long long>(c) * level + bs, 1);
+    }
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      start[k][lane] = st;
+      const float4 g = seg[k][lane];
+      st = step(make_float2(g.x, g.y), st, make_float2(g.z, g.w));
     }
   }
-}
+  __syncthreads();
 
-// Pass 3: grid (channel-pair blocks, NC, B).  Starts from the carried
-// starts, or from h0 when there is one chunk.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) scan_kernel(const Args a) {
-  const int d = 2 * (blockIdx.x * kThreads + threadIdx.x);
-  if (d >= a.Dr) return;
-  const int c = blockIdx.y, b = blockIdx.z;
-  const float* starts = a.NC == 1 ? a.h0 : a.decay;  // row stride NC * Dr either way
-  float2 h = *reinterpret_cast<const float2*>(starts + ((long long)b * a.NC + c) * a.Dr + d);
-  walk<T, 3>(a, b, d, c * kChunk, min((c + 1) * kChunk, a.T), lsl_pair(a, d), &h, nullptr);
-  if (c + 1 == a.NC) *reinterpret_cast<float2*>(a.h_last + (long long)b * a.Dr + d) = h;
-}
-
-template <typename T>
-int launch(const Args& a, int batch, cudaStream_t st) {
-  const unsigned pairs = static_cast<unsigned>((a.Dr / 2 + kThreads - 1) / kThreads);
-  if (a.NC > 1) {
-    chunk_kernel<T><<<dim3(pairs, a.NC - 1, batch), kThreads, 0, st>>>(a);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    carry_kernel<<<dim3(pairs, batch), kThreads, 0, st>>>(a);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
+  // The rewalk from this segment's start, writing h.
+  T* op = static_cast<T*>(a.h) + static_cast<long long>(b) * a.T * a.Dr + d;
+  float2 hv = start[warp][lane];
+#pragma unroll
+  for (int u = 0; u < kSeg; ++u) {
+    hv = step(av[u], hv, bv[u]);
+    if (u < n) Pair<T>::store(op + static_cast<long long>(s0 + u) * a.Dr, hv);
   }
-  scan_kernel<T><<<dim3(pairs, a.NC, batch), kThreads, 0, st>>>(a);
+  // The warp holding step T - 1 ends there (the identity steps after it
+  // leave h as it was).
+  if (live && s0 <= a.T - 1 && a.T - 1 < s0 + kSeg)
+    *reinterpret_cast<float2*>(a.h_last + static_cast<long long>(b) * a.Dr + d) = hv;
+}
+
+template <typename T>
+int launch(const Args& a, cudaStream_t st) {
+  const long long blocks = static_cast<long long>(a.NC) * a.B * a.NS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  scan_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -213,16 +278,17 @@ int launch(const Args& a, int batch, cudaStream_t st) {
 extern "C" {
 
 // Runs the scan on `stream`; returns 0 on success, else the cudaError_t of
-// the first launch refused.  x, r, i: [B, T, Dr], float32 (is_bf16 = 0) or
-// bf16, the last dimension contiguous, Dr even, pointers and the batch and
-// time strides (elements, strides = {x: b, t; r: b, t; i: b, t}) aligned
-// for two-element loads.  lam [Dr], h0 and h_last [B, Dr]: contiguous
-// float32, 8-byte aligned.  h [B, T, Dr] contiguous in x's type.  With
-// more than one chunk of 64 steps, decay and local are float32 scratch of
-// [B, ceil(T / 64), Dr] each; otherwise they may be null.
+// the launch.  x, r, i: [B, T, Dr], float32 (is_bf16 = 0) or bf16, the
+// last dimension contiguous, Dr even, pointers and the batch and time
+// strides (elements, strides = {x: b, t; r: b, t; i: b, t}) aligned for
+// two-element loads.  lam [Dr], h0 and h_last [B, Dr]: contiguous float32,
+// 8-byte aligned.  h [B, T, Dr] contiguous in x's type.  With more than
+// one chunk of 128 steps (NC = ceil(T / 128) > 1), state is float32
+// scratch of [B, NC, Dr] and flags int32 of NC * B * ceil(Dr / 64) + 1,
+// zeroed; otherwise both may be null.
 int repro_rglru_scan(int device, int is_bf16, const void* x, const void* r, const void* i,
                      const long long* strides, const void* lam, const void* h0, void* h,
-                     void* h_last, void* decay, void* local, int batch, int T, int Dr,
+                     void* h_last, void* state, void* flags, int batch, int T, int Dr,
                      void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -239,13 +305,16 @@ int repro_rglru_scan(int device, int is_bf16, const void* x, const void* r, cons
   a.h0 = static_cast<const float*>(h0);
   a.h = h;
   a.h_last = static_cast<float*>(h_last);
-  a.decay = static_cast<float*>(decay);
-  a.local = static_cast<float*>(local);
+  a.B = batch;
   a.T = T;
   a.Dr = Dr;
   a.NC = (T + kChunk - 1) / kChunk;
+  a.NS = (Dr + kSlice - 1) / kSlice;
+  a.state = a.NC > 1 ? static_cast<float*>(state) : nullptr;
+  a.flags = a.NC > 1 ? static_cast<int*>(flags) : nullptr;
+  if (a.NC > 1 && (a.state == nullptr || a.flags == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(a, batch, st) : launch<float>(a, batch, st);
+  return is_bf16 ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -20,6 +20,8 @@ from .. import LAUNCHES, _build
 from .ref import CHUNK, rglru_scan_ref
 
 KERNEL = "rglru_scan"
+#: channels a block of the kernel takes (``csrc/rglru_scan.cu``, ``kSlice``)
+SLICE = 64
 _DTYPES = (torch.bfloat16, torch.float32)
 NO_BACKWARD = (
     "the rglru_scan kernel has no backward yet: recurrentgemma-9b training on the card waits "
@@ -54,8 +56,11 @@ def _check_cuda(x, r_gate, i_gate) -> None:
     b, t, dr = x.shape
     if dr % 2:
         raise ValueError(f"the kernel loads two adjacent channels a thread: Dr must be even, got {dr}")
-    if b > 65535 or -(-t // CHUNK) > 65535:
-        raise ValueError(f"batch {b} or ceil(T / {CHUNK}) = {-(-t // CHUNK)} exceed the grid's 65535")
+    nc = -(-t // CHUNK)
+    if b > 65535 or nc > 65535:
+        raise ValueError(f"batch {b} or ceil(T / {CHUNK}) = {nc} exceed the grid's 65535")
+    if nc * b * -(-dr // SLICE) > 2**31 - 1:
+        raise ValueError(f"{nc} chunks x {b} rows x ceil(Dr / {SLICE}) slices exceed the grid's 2^31 - 1 blocks")
     pair = 2 * x.element_size()  # bytes of one two-channel load
     for name, a in (("x", x), ("r_gate", r_gate), ("i_gate", i_gate)):
         if a.stride(2) != 1:
@@ -78,10 +83,10 @@ def _launch(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     h = torch.empty((b, t, dr), dtype=x.dtype, device=x.device)
     h_last = torch.empty((b, dr), dtype=torch.float32, device=x.device)
     nc = -(-t // CHUNK)
-    decay = local = None
-    if nc > 1:  # float32 scratch of the chunked passes
-        decay = torch.empty((b, nc, dr), dtype=torch.float32, device=x.device)
-        local = torch.empty((b, nc, dr), dtype=torch.float32, device=x.device)
+    state = flags = None
+    if nc > 1:  # the chunks' published states; their ready flags and the block ticket, zeroed
+        state = torch.empty((b, nc, dr), dtype=torch.float32, device=x.device)
+        flags = torch.zeros(nc * b * -(-dr // SLICE) + 1, dtype=torch.int32, device=x.device)
     lib = _build.load("rglru_scan")
     fn = lib.repro_rglru_scan
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -91,7 +96,7 @@ def _launch(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     err = fn(
         x.device.index, int(x.dtype == torch.bfloat16), x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
         ctypes.addressof(strides), lam.data_ptr(), h0.data_ptr(), h.data_ptr(), h_last.data_ptr(),
-        None if decay is None else decay.data_ptr(), None if local is None else local.data_ptr(),
+        None if state is None else state.data_ptr(), None if flags is None else flags.data_ptr(),
         b, t, dr, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, KERNEL)

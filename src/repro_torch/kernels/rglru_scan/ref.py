@@ -11,10 +11,11 @@ arithmetic:
     h_t     = a_t h_{t-1} + beta_t gated_x_t        from h0
 
 :func:`rglru_scan_chunked_ref` is the CUDA kernel's algorithm in plain
-torch (``csrc/rglru_scan.cu``): the same recurrence over chunks of
-``chunk`` steps, each chunk's start carried from the chunks before it.
-They are the CPU path of :mod:`.ops` and the yardsticks the kernel is held
-against on the card; nothing on the card's main path runs them.
+torch (``csrc/rglru_scan.cu``): chunks of ``chunk`` steps, each cut into
+segments of ``segment`` steps, each chunk's start taken from the previous
+chunk's published inclusive state.  They are the CPU path of :mod:`.ops`
+and the yardsticks the kernel is held against on the card; nothing on the
+card's main path runs them.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ import torch
 import torch.nn.functional as F
 
 LRU_C = 8.0
-#: steps a chunk of the kernel walks (``csrc/rglru_scan.cu``, ``kChunk``)
+#: steps a block of the kernel takes (``csrc/rglru_scan.cu``, ``kChunk``)
 CHUNK = 64
+#: steps a warp of the kernel walks, a chunk's segment (``kSeg``)
+SEGMENT = 8
 
 
 def _wide(a: torch.Tensor) -> torch.Tensor:
@@ -60,29 +63,46 @@ def rglru_scan_ref(
     return torch.stack(hs, dim=1).to(x.dtype), h
 
 
-def rglru_scan_chunked_ref(x, r_gate, i_gate, lam, h0, *, chunk: int = CHUNK):
-    """The kernel's three passes (one when T fits one chunk):
+def rglru_scan_chunked_ref(x, r_gate, i_gate, lam, h0, *, chunk: int = CHUNK, segment: int = SEGMENT):
+    """The kernel's one launch, chunk by chunk:
 
-    1. each chunk alone from a zero state: its decay product ``A_c`` and its
-       local end state ``H_c``;
-    2. the chunk starts carried in order: ``s_0 = h0``,
-       ``s_{c+1} = A_c s_c + H_c``;
-    3. each chunk again, step by step from its start ``s_c``; h_last is the
-       last chunk's last step.
+    1. the chunk's segments, each from a zero state: its decay product
+       ``A_w`` and local end state ``H_w`` (steps past T are the identity,
+       a = 1, b = 0), folded in order into the chunk's ``(A_c, H_c)``;
+    2. the chunk's start ``s_c`` is the previous chunk's published
+       inclusive state (``h0`` for the first), and it publishes its own,
+       ``A_c s_c + H_c``;
+    3. each segment walked again from its start (``s_c``, then
+       ``A_w s + H_w`` segment by segment); h_last is step T - 1's h.
     """
+    if chunk % segment:
+        raise ValueError(f"chunk {chunk} is not a multiple of segment {segment}")
     a, b = _coefficients(x, r_gate, i_gate, lam)
     t = x.shape[1]
-    bounds = list(range(0, t, chunk))
-    starts = [_wide(h0)]
-    for c0 in bounds[:-1]:  # passes 1 and 2; the last chunk's end is not needed
-        decay, local = torch.ones_like(starts[0]), torch.zeros_like(starts[0])
-        for s in range(c0, c0 + chunk):
-            decay = decay * a[:, s]
-            local = a[:, s] * local + b[:, s]
-        starts.append(decay * starts[-1] + local)
+    pad = -t % chunk  # identity steps to the chunk's end
+    a = F.pad(a, (0, 0, 0, pad), value=1.0)
+    b = F.pad(b, (0, 0, 0, pad))
+    ones, zeros = torch.ones_like(a[:, 0]), torch.zeros_like(a[:, 0])
+    published = _wide(h0)
     hs = []
-    for c0, h in zip(bounds, starts):  # pass 3
-        for s in range(c0, min(c0 + chunk, t)):
-            h = a[:, s] * h + b[:, s]
-            hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype), h
+    for c0 in range(0, t, chunk):
+        segs = []
+        for w0 in range(c0, c0 + chunk, segment):
+            decay, local = ones, zeros
+            for s in range(w0, w0 + segment):
+                decay = a[:, s] * decay
+                local = a[:, s] * local + b[:, s]
+            segs.append((w0, decay, local))
+        chunk_decay, chunk_local = ones, zeros
+        for _, decay, local in segs:
+            chunk_decay = decay * chunk_decay
+            chunk_local = decay * chunk_local + local
+        start, published = published, chunk_decay * published + chunk_local
+        for w0, decay, local in segs:
+            h = start
+            for s in range(w0, w0 + segment):
+                h = a[:, s] * h + b[:, s]
+                if s < t:
+                    hs.append(h)
+            start = decay * start + local
+    return torch.stack(hs, dim=1).to(x.dtype), hs[-1]

@@ -30,7 +30,7 @@ from repro_torch.kernels.rwkv6_wkv import (GRAD_CHUNK, WKV_BWD_ROUTE_LAUNCHES, w
                                            wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_fwd, wkv6_ref)
 from repro_torch.kernels.rwkv6_wkv.ops import bwd_route as wkv_bwd_route
 from repro_torch.kernels.rwkv6_wkv.ops import CHUNK as WKV_CHUNK
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+from repro_torch.kernels.rglru_scan import CHUNK, rglru_scan, rglru_scan_ref
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
 from repro_torch.launch.batches import synthetic_prompt_batch
 from repro_torch.models import decode_step, init_params, prefill
@@ -131,20 +131,50 @@ def test_kernel_reads_strided_inputs(cuda):
                          ids=str)
 def test_head_dim_256_forward_runs_and_refuses_backward(cuda, case):
     """head_dim 256 (recurrentgemma-9b's local attention): the bf16 forward
-    runs on mma_sync against the plain version; float32, and a forward that
+    runs on wgmma against the plain version; float32, and a forward that
     would need the backward, raise naming ROADMAP item 19."""
     b, sq, sk, h, kvh, window = case
     q, k, v = _qkv(1, b, sq, sk, h, kvh, 256, "bfloat16", cuda)
-    before = ROUTE_LAUNCHES["mma_sync"]
+    before = ROUTE_LAUNCHES["wgmma"]
     out = flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
-    assert ROUTE_LAUNCHES["mma_sync"] == before + 1
+    assert ROUTE_LAUNCHES["wgmma"] == before + 1
     plain, _ = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window)
     torch.testing.assert_close(out.float(), plain.transpose(1, 2).float(), rtol=2e-2, atol=2e-2)
     with pytest.raises(ValueError, match="head_dim 256.*item 19"):
         flash_attention(q.float(), k.float(), v.float(), window=window)
     with pytest.raises(ValueError, match="head_dim 256.*item 19"):
         flash_attention(q.requires_grad_(True), k, v, window=window)
+
+
+# (b, sq, sk, h, kvh, causal, window, softcap): edges of the hd-256 wgmma
+# kernel's 128-row items, 64-key tiles, 2-stage ring and single query buffer
+HD256_CASES = [
+    (1, 300, 300, 16, 1, True, 100, None),  # Sq not a multiple of 128; the window cuts a 64-key tile; MQA
+    (2, 256, 256, 4, 2, True, None, 30.0),  # softcap 30, GQA
+    (1, 700, 700, 2, 1, True, 200, 30.0),  # the ring wraps many times; window and softcap
+    (1, 37, 100, 2, 2, False, None, None),  # not causal, Sk ragged on a 64-key tile
+    (1, 1, 1, 1, 1, True, None, None),  # Sq = Sk = 1: one tile, fewer than the ring holds
+    (3, 333, 333, 5, 5, True, None, None),  # items that divide evenly into no grid
+    (1, 2100, 2100, 16, 1, True, 2048, None),  # recurrentgemma-9b's heads and window, past it
+]
+
+
+@pytest.mark.parametrize("case", HD256_CASES, ids=str)
+def test_head_dim_256_wgmma_forward_and_lse_match_plain(cuda, case):
+    """The hd-256 wgmma forward's output and natural-log lse against the
+    plain version (bf16 2e-2; lse 1e-4), on the wgmma route alone."""
+    b, sq, sk, h, kvh, causal, window, cap = case
+    q, k, v = _qkv(2, b, sq, sk, h, kvh, 256, "bfloat16", cuda)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    routes = dict(ROUTE_LAUNCHES)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    took = {r: n - routes.get(r, 0) for r, n in ROUTE_LAUNCHES.items() if n != routes.get(r, 0)}
+    assert took == {"wgmma": 1}
+    plain, plain_lse = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+    torch.testing.assert_close(out.float(), plain.transpose(1, 2).float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, plain_lse, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -614,8 +644,9 @@ def test_rwkv6_smoke_prefill_and_decode_card_matches_cpu(cuda, dtype):
 
 
 # (b, t, dr, dtype, gates): chip_smoke.py's RGLRU_CASES (the prefill's and
-# decode step's shapes, T one past the 64-step chunk, float32, extreme
-# gates) and T at one chunk and one past it
+# decode step's shapes, T one past a multiple of the 64-step chunk,
+# float32, extreme gates), and T at one chunk and one past it (Dr 256, and
+# Dr 200 and 4096: a block's 64-channel slice cut, and the model's width)
 RGLRU_CASES = [
     (4, 4096, 4096, "bfloat16", None),
     (4, 1, 4096, "bfloat16", None),
@@ -624,6 +655,8 @@ RGLRU_CASES = [
     (3, 37, 72, "float32", None),
     (2, 64, 256, "float32", None),
     (2, 65, 256, "bfloat16", None),
+    (2, CHUNK, 200, "float32", None),
+    (3, CHUNK + 1, 4096, "bfloat16", None),
     (2, 300, 256, "bfloat16", "r_zero"),
     (2, 300, 256, "float32", "r_one_lam10"),
     (2, 300, 256, "bfloat16", "lam_minus10"),

@@ -198,8 +198,9 @@ def test_wrapper_rejects_bad_shapes():
 
 
 # Which forward kernel each (dtype, head_dim) pair reaches on the card; None:
-# refused.  bf16 at 64 and 128 (every full-width path) must stay on wgmma;
-# 96 is phi-3-vision-4.2b's; 8 and 12 run zero-padded to 16.
+# refused.  bf16 at 64, 128 and 256 (every full-width path, recurrentgemma-9b's
+# local attention at 256) must stay on wgmma; 96 is phi-3-vision-4.2b's; 8
+# and 12 run zero-padded to 16.
 ROUTES = {
     (torch.bfloat16, 8): "mma_sync",
     (torch.bfloat16, 12): "mma_sync",
@@ -207,7 +208,7 @@ ROUTES = {
     (torch.bfloat16, 64): "wgmma",
     (torch.bfloat16, 96): "mma_sync",
     (torch.bfloat16, 128): "wgmma",
-    (torch.bfloat16, 256): "mma_sync",
+    (torch.bfloat16, 256): "wgmma",
     (torch.float32, 8): "f32",
     (torch.float32, 12): "f32",
     (torch.float32, 16): "f32",
@@ -247,12 +248,17 @@ def test_backward_route(dtype, head_dim):
 
 
 def test_head_dim_256_is_refused_naming_its_item():
-    """recurrentgemma-9b's head_dim 256: the bf16 forward runs on mma_sync;
-    its backward and the float32 route raise naming ROADMAP item 19."""
-    assert fwd_route(torch.bfloat16, 256) == "mma_sync"
+    """recurrentgemma-9b's head_dim 256: its backward and the float32
+    forward raise naming ROADMAP item 19."""
     for route, dtype in ((bwd_route, torch.bfloat16), (bwd_route, torch.float32), (fwd_route, torch.float32)):
         with pytest.raises(ValueError, match="head_dim 256.*item 19"):
             route(dtype, 256)
+
+
+def test_head_dim_256_bf16_forward_runs_on_wgmma():
+    """recurrentgemma-9b's head_dim 256: the bf16 forward takes the Hopper
+    kernel, never the mma_sync one."""
+    assert fwd_route(torch.bfloat16, 256) == "wgmma"
 
 
 # (b, s, h, kvh, hd, window, softcap): yi-34b's smoke heads (7 of hd 8 over

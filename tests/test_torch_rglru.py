@@ -30,7 +30,7 @@ from repro.models import prefill as jax_prefill
 from repro.models import rglru as jrg
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import cache_to_numpy, params_from_numpy, params_to_numpy
-from repro_torch.kernels.rglru_scan import CHUNK, rglru_scan, rglru_scan_chunked_ref, rglru_scan_ref
+from repro_torch.kernels.rglru_scan import CHUNK, SEGMENT, rglru_scan, rglru_scan_chunked_ref, rglru_scan_ref
 from repro_torch.kernels.rglru_scan.ops import _check, _check_cuda
 from repro_torch.models import decode_step, forward, init_params, loss_fn, prefill
 from repro_torch.models import rglru as trg
@@ -122,14 +122,21 @@ def test_scan_matches_jax_rg_lru(t, dtype, gates):
     np.testing.assert_array_equal(th0.numpy(), arrays[4])
 
 
-@pytest.mark.parametrize("t,chunk", [(1, 8), (8, 8), (9, 8), (37, 8), (200, CHUNK), (129, CHUNK)])
+# (T, chunk, segment): the kernel's own chunk and segment with T below, at
+# and past one chunk (and past two), and small ones that cut T every way
+@pytest.mark.parametrize("t,chunk,segment", [
+    (1, 8, 4), (8, 8, 4), (9, 8, 4), (37, 8, 8),
+    (37, CHUNK, SEGMENT), (CHUNK, CHUNK, SEGMENT), (CHUNK + 1, CHUNK, SEGMENT), (2 * CHUNK + 44, CHUNK, SEGMENT),
+])
 @pytest.mark.parametrize("gates", [None, "r_zero", "lam_minus10"])
-def test_chunked_ref_matches_step_by_step_in_float64(t, chunk, gates):
-    """The kernel's algorithm: chunk decay products and local states, the
-    starts carried, each chunk walked again; equal to the loop in float64."""
+def test_chunked_ref_matches_step_by_step_in_float64(t, chunk, segment, gates):
+    """The kernel's algorithm: segment decay products and local states
+    folded into the chunk's, each chunk's start the previous chunk's
+    published state, each segment walked again; equal to the loop in
+    float64."""
     x, r, i, lam, h0 = (torch.from_numpy(a.astype(np.float64)) for a in _scan_inputs(7, 2, t, 6, gates))
     h, last = rglru_scan_ref(x, r, i, lam, h0)
-    ch, clast = rglru_scan_chunked_ref(x, r, i, lam, h0, chunk=chunk)
+    ch, clast = rglru_scan_chunked_ref(x, r, i, lam, h0, chunk=chunk, segment=segment)
     torch.testing.assert_close(ch, h, rtol=1e-10, atol=1e-10)
     torch.testing.assert_close(clast, last, rtol=1e-10, atol=1e-10)
 

@@ -8,8 +8,9 @@ Phases, each printing one JSON line on stdout:
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions.
 2. ``build``: every kernel of the port compiled from this checkout's sources
    (one ``nvcc`` per source, all started together), with ptxas's
-   registers and spills; the hd-256 ``wgmma`` flash instances must not
-   spill.
+   registers and spills; the hd-256 ``wgmma`` flash instances, forward
+   and backward, must not spill (the float32 ones at 256 and
+   ``rglru_scan_bwd``'s are listed).
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the main paths' shapes and the variants below, with times: the flash
    forward and backward, the WAN int8 quantiser and dequantiser, the RWKV6
@@ -27,7 +28,15 @@ Phases, each printing one JSON line on stdout:
    and the RG-LRU scan (``rglru_scan``, one launch, h and h_last against
    ``rglru_scan_ref``) at the recurrentgemma-9b prefill's 4 x 4096 x 4096
    and decode step's shapes, T one past a chunk and one past a multiple of
-   it, float32, and extreme gates, two calls bit-equal.
+   it, float32, and extreme gates, two calls bit-equal; its backward
+   (``rglru_scan_bwd``: dx, dr, di, dlam and dh0 against
+   ``rglru_scan_bwd_chunked_ref`` from the forward kernel's chunk states,
+   cotangents on h and h_last) at train_recurrentgemma's 1 x 4096 x 4096,
+   4 x 4096 x 4096 and the forward's shapes, two calls bit-equal; the
+   flash backward at head_dim 256 (``wgmma``) at train_recurrentgemma's
+   1 x 4096 (16 heads over 1, window 2048; ``sdpa`` forward + backward
+   beside it with the banded mask and unwindowed), a ragged and an
+   unwindowed shape, and the float32 forward and backward at 256.
 4. ``serve``: the serving path, distilgpt2-82m at full width (random
    weights from a seed): prefill of 8 x 1024 tokens, then 32 greedy decode
    steps, with the kernel launch counts of that run; then the card against
@@ -134,6 +143,24 @@ Phases, each printing one JSON line on stdout:
    the loss and each leaf's gradient (relative norm) at 5e-2, or at 1.5 x
    the CPU bf16 gradient's own distance from the card's float32 one where
    bf16 resolves a leaf no better (the bonus u).
+   ``train_recurrentgemma``: recurrentgemma-9b at full width (d_model =
+   d_rnn 4096, 16 heads of 256 over 1, window 2048, GeGLU d_ff 12288,
+   vocab 256,000), its depth cut to one group (recurrent, recurrent, local
+   attention; 1.71 B parameters in 37 leaves), through ``GeoTrainer``: 2
+   pods, ``hier_int8``, global batch 2 x 4096, bf16 compute, float32
+   parameters, AdamW, ``remat="full"``, 2 untimed and 4 timed steps, no
+   checkpoint written, the step built with ``donate=True`` (parameters,
+   moments and error feedback updated in their own storage: a second copy
+   does not fit).  Losses finite and falling; per step 8
+   ``rglru_scan`` and 4 ``rglru_scan_bwd`` launches, 4 flash forward and 2
+   backward (pods x layers; the rematerialised forward launches each
+   forward kernel again), every flash backward on ``wgmma``, and a
+   ``wan_quant`` / ``wan_dequant`` a leaf; WAN bytes a pod a step within 1%
+   of ``wan_bytes_per_step``.  Then one step of the cut, its window cut to
+   128, on one 256-token sequence (four 64-step scan chunks) on the card in
+   bf16 and in float32 (the f32 flash routes at 256) against the CPU in
+   bf16: the loss and each leaf's gradient (relative norm) at 5e-2, or at
+   1.5 x the CPU bf16 gradient's own distance from the card's float32 one.
 8. ``quickstart``: ``repro_torch.examples.quickstart`` on the CPU, then on
    the card, each in a fresh checkpoint directory: the fabric, port and
    cost lines (numpy) equal, the card's 20 losses falling, 2 flash
@@ -196,14 +223,16 @@ FLASH_CASES = [
     ("padded_hd8_gqa7_1", 2, 1024, 7, 1, 8, "bfloat16", None, None, "mma_sync"),
     # recurrentgemma-9b's local attention (hd 256, MQA, window 2048) at the
     # serve_recurrentgemma prefill's shape, a ragged one whose window cuts
-    # mid-tile, and hd 256 with no window (sdpa beside it)
+    # mid-tile, and hd 256 with no window (sdpa beside it); float32 at 256
+    # (the train_recurrentgemma float32 check's route)
     ("rg9b_hd256_mqa_w2048", 4, 4096, 16, 1, 256, "bfloat16", 2048, None, "wgmma"),
     ("hd256_ragged_s300_w128", 1, 300, 16, 1, 256, "bfloat16", 128, None, "wgmma"),
     ("hd256_h4_kvh1", 2, 1024, 4, 1, 256, "bfloat16", None, None, "wgmma"),
+    ("hd256_f32_w128", 1, 512, 4, 1, 256, "float32", 128, None, "f32"),
 ]
 # windowed cases where sdpa is also timed unwindowed (is_causal=True) on the
 # same inputs: more pairs than the window keeps, but no S x S mask to read
-SDPA_UNWINDOWED_TOO = ("rg9b_hd256_mqa_w2048",)
+SDPA_UNWINDOWED_TOO = ("rg9b_hd256_mqa_w2048", "rg9b_train_hd256_mqa_w2048")
 # (label, B, S, H, KVH, hd, dtype, window, softcap, backward route); the
 # first is the train path's shape
 FLASH_BWD_CASES = [
@@ -215,6 +244,13 @@ FLASH_BWD_CASES = [
     ("phi3v_hd96", 2, 1024, 32, 32, 96, "bfloat16", None, None, "mma_sync"),
     ("padded_hd12_gqa6_2", 2, 1024, 6, 2, 12, "bfloat16", None, None, "mma_sync"),
     ("padded_hd8_gqa7_1", 2, 1024, 7, 1, 8, "bfloat16", None, None, "mma_sync"),
+    # recurrentgemma-9b's local attention at the train_recurrentgemma pod's
+    # shape (1 x 4096, 16 heads over 1, window 2048), a ragged one whose
+    # window cuts mid-tile, hd 256 unwindowed, and float32 at 256
+    ("rg9b_train_hd256_mqa_w2048", 1, 4096, 16, 1, 256, "bfloat16", 2048, None, "wgmma"),
+    ("hd256_ragged_s300_w128", 1, 300, 16, 1, 256, "bfloat16", 128, None, "wgmma"),
+    ("hd256_h4_kvh1", 2, 1024, 4, 1, 256, "bfloat16", None, None, "wgmma"),
+    ("hd256_f32_w128", 1, 512, 4, 1, 256, "float32", 128, None, "f32"),
 ]
 # head dims the wrappers zero-pad to 16 (each such launch also moves PADDED_LAUNCHES)
 PADDED_HDS = (8, 12)
@@ -282,6 +318,12 @@ RGLRU_CASES = [
     ("lam_minus10_t300", 2, 300, 4096, "bfloat16", "lam_minus10"),
 ]
 RGLRU_LAST_TOL = 1e-4  # h_last is float32 on both sides
+# (label, B, T, Dr, dtype, gates): the RG-LRU backward at train_recurrentgemma's
+# per-pod 1 x 4096 x 4096 and at 4 x 4096 x 4096 (both timed), then the
+# forward's edge shapes; cotangents on h and h_last
+RGLRU_BWD_CASES = [("train_pod_1x4096", 1, 4096, 4096, "bfloat16", None)] + RGLRU_CASES
+RGLRU_BWD_TIMED = 2  # the first cases, their plain version timed too
+RGLRU_DLAM_TOL = 1e-3  # dlam: a float32 sum over B x T in another order
 WKV_BWD_TIMED = 2  # the first cases, timed
 # train_rwkv: rwkv6-7b at full width, depth cut from 32 layers
 RWKV_TRAIN_LAYERS, B_RWKV_TRAIN, SEQ_RWKV_TRAIN, RWKV_TRAIN_STEPS = 4, 4, 4096, 6
@@ -296,6 +338,11 @@ RG_SCANS, RG_FLASH = 26, 12
 RG_CHECK_WINDOW, RG_CHECK_PROMPT = 128, 256  # card against CPU: one group, the window cut so the prompt crosses it
 RG_CHECK_F32_RATIO = 1.5  # card's share of SERVE_TOL from the CPU float32 run, over the CPU bf16 run's own
 RG_CARRY_GROUPS = (1, 4, 8)  # the state carry also at the first 3, 12 and 24 layers
+# train_recurrentgemma: full width, depth cut to one group (recurrent,
+# recurrent, local attention); one 4096-token row a pod
+RG_TRAIN_LAYERS, B_RG_TRAIN, SEQ_RG_TRAIN, RG_TRAIN_STEPS = 3, 2, 4096, 6
+RG_TRAIN_PARAMS, RG_TRAIN_LEAVES = 1_705_062_400, 37  # launch/shapes.py::params_specs of the cut
+RG_TRAIN_CHECK_SEQ = 256  # card against CPU: one sequence, four 64-step chunks, past RG_CHECK_WINDOW
 NPODS, B_TRAIN, SEQ_TRAIN, STEPS, WARMUP = 2, 16, 1024, 12, 2
 
 
@@ -448,6 +495,18 @@ def rglru_bound(b, t, dr, dtype):
     return bound(4 * elems * isz + dr * 4 + 2 * b * dr * 4, 13 * elems, "float32")
 
 
+def rglru_bwd_bound(b, t, dr, dtype):
+    """Bytes: x, r, i and dy read and dx, dr, di written once in ``dtype``;
+    lam, h0, dh_last and the forward's chunk states read, dlam and dh0
+    written in float32.  Operations: ~20 float32 a (b, t, channel): a and
+    exp(2 log_a), beta, the gated x, dlog_a (a division among them), dg, dx,
+    di, dr, the dlam term, the carry and h_{t-1} recomputed (an exp, sqrt or
+    division counted as one)."""
+    isz = {"bfloat16": 2, "float32": 4}[dtype]
+    elems, chunks = b * t * dr, -(-t // 64)
+    return bound(7 * elems * isz + (2 * dr + 3 * b * dr + b * (chunks - 1) * dr) * 4, 20 * elems, "float32")
+
+
 def phase_env(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -466,8 +525,12 @@ def phase_env(torch):
 PTXAS_KEEP = ("registers", "spill", "C7513", "C7515", "C7520", "Compiling entry")
 
 
-# the hd-256 wgmma flash instances' mangled names hold this
+# the hd-256 wgmma flash instances' mangled names hold this (forward), and
+# the backward's (dK/dV and dQ, each softcap off and on); the float32
+# instances at 256 (forward, dK/dV, dQ)
 HD256_ENTRY = "flash_fwd_wgmmaILi256E"
+HD256_BWD_ENTRY = "_wgmmaILi256E"
+F32_HD256_ENTRY = "f32ILi256E"
 
 
 def ptxas_entries(lines, pattern):
@@ -503,14 +566,20 @@ def phase_build():
     }
     serialised = [ln for lines in ptxas.values() for ln in lines if any(k in ln for k in PTXAS_KEEP[2:5])]
     hd256 = ptxas_entries(ptxas["flash_fwd"], HD256_ENTRY) if "flash_fwd" in ptxas else None
+    hd256_bwd = ptxas_entries(ptxas["flash_bwd"], HD256_BWD_ENTRY) if "flash_bwd" in ptxas else None
+    f32_hd256 = [e for n in ("flash_fwd", "flash_bwd") if n in ptxas for e in ptxas_entries(ptxas[n], F32_HD256_ENTRY)]
+    rglru_bwd = ptxas_entries(ptxas["rglru_scan_bwd"], "") if "rglru_scan_bwd" in ptxas else None
     emit({
         "phase": "build", "seconds": time.perf_counter() - t0,
         "compiled": {n: sec for n, (sec, _) in report.items()}, "ptxas": ptxas,
-        "wgmma_serialised": serialised, "flash_fwd_wgmma_hd256": hd256,
+        "wgmma_serialised": serialised, "flash_fwd_wgmma_hd256": hd256, "flash_bwd_wgmma_hd256": hd256_bwd,
+        "flash_f32_hd256": f32_hd256, "rglru_scan_bwd": rglru_bwd,
     })
-    if hd256 is not None and (len(hd256) != 2 or any(e.get("spill_stores", 1) or e.get("spill_loads", 1)
-                                                     or e.get("stack", 1) for e in hd256)):
-        raise AssertionError(f"build: the hd-256 wgmma flash instances (softcap off, on) spill or are missing: {hd256}")
+    for name, entries, count in (("forward", hd256, 2), ("backward (dK/dV, dQ)", hd256_bwd, 4)):
+        if entries is not None and (len(entries) != count or any(
+                e.get("spill_stores", 1) or e.get("spill_loads", 1) or e.get("stack", 1) for e in entries)):
+            raise AssertionError(f"build: the hd-256 wgmma flash {name} instances (softcap off, on) spill or are "
+                                 f"missing: {entries}")
 
 
 def phase_kernels(torch):
@@ -639,12 +708,22 @@ def phase_kernels_bwd(torch):
             if not bool((diff <= tol + tol * want.abs()).all()):
                 raise AssertionError(f"flash_attention_bwd {label} {name}: max_abs_err {errs[name]}, rtol=atol={tol}")
         library_ms = library_call_ms = library_bwd_ms = None
-        if window is None and cap is None:  # sdpa's forward plus its backward: one pair
+        library_is, more = "scaled_dot_product_attention forward + backward", {}
+        if cap is None:  # sdpa's forward plus its backward: one pair
             qc, kc, vc = (t.detach().contiguous().requires_grad_(True) for t in heads[:3])
             doc = heads[4].contiguous()
+            mask = None
+            if window is not None:  # key j kept for query i where 0 <= i - j < window
+                pos = torch.arange(s, device="cuda")
+                back = pos[:, None] - pos[None, :]
+                mask = (back >= 0) & (back < window)
+                library_is += (f" with attn_mask=banded causal bool [S, S]: all S x S pairs, "
+                               f"{s * s / attention_pairs(s, s, True, window):.2f}x the pairs the window keeps")
 
-            def sdpa():
-                return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
+            def sdpa(unwindowed=False):
+                if mask is None or unwindowed:
+                    return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
+                return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask, enable_gqa=h != kvh)
 
             def library():
                 torch.autograd.grad(sdpa(), (qc, kc, vc), doc)
@@ -659,6 +738,15 @@ def phase_kernels_bwd(torch):
             library_bwd_ms = device_ms(
                 lambda: torch.autograd.grad(o, (qc, kc, vc), doc, retain_graph=True), stream=side)
             del o
+            if label in SDPA_UNWINDOWED_TOO:  # a second reading: sdpa's causal kernels, no window
+                more = {
+                    "library_unwindowed_ms": device_ms(lambda: torch.autograd.grad(sdpa(True), (qc, kc, vc), doc)),
+                    "library_unwindowed_is": (
+                        "scaled_dot_product_attention(is_causal=True) forward + backward, no window: a different "
+                        f"function on the same inputs, {attention_pairs(s, s, True, None) / attention_pairs(s, s, True, window):.2f}x"
+                        " the pairs the window keeps"),
+                }
+            del qc, kc, vc, doc, mask
         bound_ms, bound_by = flash_bwd_bound(b, s, h, kvh, hd, dtype, window)
 
         def kernel():
@@ -674,10 +762,10 @@ def phase_kernels_bwd(torch):
             "tflops": 10 * b * h * hd * attention_pairs(s, s, True, window) / (ms * 1e-3) / 1e12,
             "plain_ms": time_ms(lambda: flash_attention_bwd_ref(*heads[:4], lse, heads[4], **kw), runs=5),
             "library_ms": library_ms, "library_call_ms": library_call_ms,
-            "library_is": "scaled_dot_product_attention forward + backward",
+            "library_is": library_is if cap is None else "none: no PyTorch call takes a softcap",
             "library_bwd_ms": library_bwd_ms,
             "library_bwd_is": "scaled_dot_product_attention backward alone (device time)",
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, **more,
         })
         del q, k, v, do, out, lse, heads, grads, plain
     emit({"phase": "kernels", "kernel": "flash_attention_bwd", "checks": checks})
@@ -912,31 +1000,37 @@ def phase_kernels_wkv_bwd(torch):
     return checks
 
 
+def rglru_inputs(torch, gen, b, t, dr, dtype, gates):
+    """x, r, i [B, T, Dr] in ``dtype``, lam [Dr] and h0 [B, Dr] float32 on
+    the card: the gates in (0, 1), lam the JAX init's logits jittered, or
+    the extreme gates RGLRU_CASES name."""
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    dt = getattr(torch, dtype)
+    x = draw((b, t, dr)).to(dt)
+    r = torch.sigmoid(draw((b, t, dr))).to(dt)
+    i = torch.sigmoid(draw((b, t, dr))).to(dt)
+    # the JAX init's logits of a^(1/8) over (0.9, 0.999), jittered
+    lam = torch.logit(torch.linspace(0.9, 0.999, dr, device="cuda") ** (1 / 8)) + 0.1 * draw((dr,))
+    if gates == "r_zero":
+        r = torch.zeros_like(r)
+    elif gates == "r_one_lam10":
+        r, lam = torch.ones_like(r), torch.full_like(lam, 10.0)
+    elif gates == "lam_minus10":
+        lam = torch.full_like(lam, -10.0)
+    return x, r, i, lam, draw((b, dr))
+
+
 def phase_kernels_rglru(torch):
     """rglru_scan against its plain version at the recurrentgemma-9b prefill
     and decode shapes and the variants; two calls must give equal bits."""
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-
-    def draw(shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-
     checks = []
     for label, b, t, dr, dtype, gates in RGLRU_CASES:
-        dt = getattr(torch, dtype)
-        x = draw((b, t, dr)).to(dt)
-        r = torch.sigmoid(draw((b, t, dr))).to(dt)
-        i = torch.sigmoid(draw((b, t, dr))).to(dt)
-        # the JAX init's logits of a^(1/8) over (0.9, 0.999), jittered
-        lam = torch.logit(torch.linspace(0.9, 0.999, dr, device="cuda") ** (1 / 8)) + 0.1 * draw((dr,))
-        if gates == "r_zero":
-            r = torch.zeros_like(r)
-        elif gates == "r_one_lam10":
-            r, lam = torch.ones_like(r), torch.full_like(lam, 10.0)
-        elif gates == "lam_minus10":
-            lam = torch.full_like(lam, -10.0)
-        h0 = draw((b, dr))
+        x, r, i, lam, h0 = rglru_inputs(torch, gen, b, t, dr, dtype, gates)
         plain_h, plain_last = rglru_scan_ref(x, r, i, lam, h0)
         h, last = rglru_scan(x, r, i, lam, h0)
         again, again_last = rglru_scan(x, r, i, lam, h0)
@@ -969,6 +1063,61 @@ def phase_kernels_rglru(torch):
         })
         del x, r, i, lam, h0, h, last, again, again_last, plain_h, plain_last
     emit({"phase": "kernels", "kernel": "rglru_scan", "checks": checks})
+    return checks
+
+
+def phase_kernels_rglru_bwd(torch):
+    """rglru_scan_bwd against rglru_scan_bwd_chunked_ref (its algorithm in
+    plain torch) on the same inputs and the forward kernel's chunk states,
+    at train_recurrentgemma's per-pod shape, 4 x 4096 x 4096 and the
+    forward's edge shapes, with cotangents on h and h_last; two calls must
+    give equal bits."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan_bwd, rglru_scan_bwd_chunked_ref, rglru_scan_bwd_ref,
+                                                rglru_scan_fwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    checks = []
+    for n, (label, b, t, dr, dtype, gates) in enumerate(RGLRU_BWD_CASES):
+        x, r, i, lam, h0 = rglru_inputs(torch, gen, b, t, dr, dtype, gates)
+        dy = torch.randn((b, t, dr), generator=gen, device="cuda").to(x.dtype)
+        dh_last = torch.randn((b, dr), generator=gen, device="cuda")
+        _, _, states = rglru_scan_fwd(x, r, i, lam, h0)
+
+        def kernel():
+            return rglru_scan_bwd(x, r, i, lam, h0, dy, dh_last, states=states)
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            raise AssertionError(f"rglru_scan_bwd {label}: two calls on the same inputs differ")
+        want = rglru_scan_bwd_chunked_ref(x, r, i, lam, h0, dy, dh_last)
+        errs, tols = {}, dict(dx=TOL[dtype], dr=TOL[dtype], di=TOL[dtype], dlam=RGLRU_DLAM_TOL, dh0=RGLRU_LAST_TOL)
+        for name, a, w in zip(tols, got, want):
+            diff = (a.float() - w.float()).abs()
+            errs[name] = diff.max().item()
+            if not (a.dtype == w.dtype and torch.isfinite(a).all()
+                    and bool((diff <= tols[name] + tols[name] * w.float().abs()).all())):
+                raise AssertionError(f"rglru_scan_bwd {label} {name}: max_abs_err {errs[name]}, "
+                                     f"rtol=atol={tols[name]}, dtypes {a.dtype} / {w.dtype}")
+        del got, again, want
+        bound_ms, bound_by = rglru_bwd_bound(b, t, dr, dtype)
+        timed = n < RGLRU_BWD_TIMED
+        checks.append({
+            "label": label, "shape": {"B": b, "T": t, "Dr": dr}, "dtype": dtype, "gates": gates,
+            "cotangents": "h and h_last", "two_calls_equal": True,
+            "max_abs_err": errs["dx"] if dtype == "bfloat16" else max(errs.values()), "max_abs_err_by_output": errs,
+            "tol": TOL[dtype], "tol_by_output": tols,
+            "vs": "rglru_scan_bwd_chunked_ref (the kernel's algorithm in plain torch), same inputs and chunk states",
+            "ms": device_ms(kernel), "call_ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda: rglru_scan_bwd_ref(x, r, i, lam, h0, dy, dh_last), runs=1, warmup=0)
+            if timed else None,
+            "plain_ms_is": "rglru_scan_bwd_ref: the reverse recurrence step by step, one call" if timed
+            else "not timed at this shape",
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_why": "no single PyTorch call computes the RG-LRU recurrence's gradient",
+        })
+        del x, r, i, lam, h0, dy, dh_last, states
+    emit({"phase": "kernels", "kernel": "rglru_scan_bwd", "checks": checks})
     return checks
 
 
@@ -2334,6 +2483,28 @@ def phase_checkpoint(torch):
     return launches
 
 
+def no_checkpoint_trainer(cfg, directory, tc, *, donate=False):
+    """A GeoTrainer on the card that writes no checkpoint: at the last step
+    the big training phases' would hold tens of GB (the float32 parameters,
+    AdamW's two moments and the two pods' int8 error feedback).  The
+    checkpoint path is the train and checkpoint phases'.  ``donate``: its
+    step is built with ``donate=True`` (parameters, moments and error
+    feedback updated in their own storage; the same values), without which
+    the old and new training state do not fit on the card together."""
+    from repro_torch.distributed import make_train_step
+    from repro_torch.runtime import GeoTrainer
+
+    class NoCheckpointTrainer(GeoTrainer):
+        def _save(self, step, params, state):
+            pass
+
+    trainer = NoCheckpointTrainer(cfg, device="cuda", checkpoint_dir=str(directory), trainer_cfg=tc)
+    if donate:
+        trainer.step_fn = make_train_step(cfg, npods=tc.npods, strategy=tc.strategy, num_channels=tc.num_channels,
+                                          opt_cfg=tc.opt, diloco_cfg=tc.diloco, device="cuda", donate=True)
+    return trainer
+
+
 def rwkv_card_vs_cpu_step(torch, full):
     """One sequence of RWKV_CHECK_SEQ tokens through a RWKV_CHECK_LAYERS-layer
     cut at full width, from the same weights on the card and on the CPU,
@@ -2405,17 +2576,8 @@ def phase_train_rwkv(torch):
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.rwkv6_wkv import WKV_BWD_ROUTE_LAUNCHES, bwd_route
     from repro_torch.optim import AdamWConfig
-    from repro_torch.runtime import GeoTrainer, TrainerConfig
+    from repro_torch.runtime import TrainerConfig
     from repro_torch.tree import tree_leaves
-
-    class NoCheckpointTrainer(GeoTrainer):
-        """Writes no checkpoint: at the last step this run's would hold 28 GB
-        (1.41 B float32 parameters, AdamW's two moments and the two pods'
-        int8 error feedback).  The checkpoint path is the train and
-        checkpoint phases'."""
-
-        def _save(self, step, params, state):
-            pass
 
     full = get_config("rwkv6-7b")
     cfg = dataclasses.replace(full, num_layers=RWKV_TRAIN_LAYERS)
@@ -2423,7 +2585,7 @@ def phase_train_rwkv(torch):
     tc = TrainerConfig(seq_len=SEQ_RWKV_TRAIN, global_batch=B_RWKV_TRAIN, steps=RWKV_TRAIN_STEPS,
                        strategy="hier_int8", npods=NPODS, log_every=RWKV_TRAIN_STEPS, seed=0, opt=opt)
     directory = ckpt_dir("train_rwkv")
-    trainer = NoCheckpointTrainer(cfg, device="cuda", checkpoint_dir=str(directory), trainer_cfg=tc)
+    trainer = no_checkpoint_trainer(cfg, directory, tc)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.clear()
@@ -2460,7 +2622,7 @@ def phase_train_rwkv(torch):
         "d_model": cfg.d_model, "heads": cfg.d_model // cfg.rwkv_head_dim, "head_dim": cfg.rwkv_head_dim,
         "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "remat": cfg.remat, "params": n_params, "leaves": n_leaves,
         "pods": NPODS, "strategy": "hier_int8", "global_batch": B_RWKV_TRAIN, "seq_len": SEQ_RWKV_TRAIN,
-        "steps": RWKV_TRAIN_STEPS, "warmup_steps_untimed": WARMUP, "checkpoint": "none written (see NoCheckpointTrainer)",
+        "steps": RWKV_TRAIN_STEPS, "warmup_steps_untimed": WARMUP, "checkpoint": "none written (no_checkpoint_trainer)",
         "adamw": {"lr": opt.lr, "warmup_steps": opt.warmup_steps, "total_steps": opt.total_steps},
         "step_ms_median": step_ms, "step_ms": timed,
         "tokens_per_s": B_RWKV_TRAIN * SEQ_RWKV_TRAIN / (step_ms / 1e3),
@@ -2469,6 +2631,161 @@ def phase_train_rwkv(torch):
         "wan_bytes_per_pod_step": wan[-1], "wan_bytes_per_step_analytic": analytic,
         "launches_main_path": launches, "launches_per_step": per_step, "wkv6_bwd_routes": bwd_routes,
         "card_vs_cpu": rwkv_card_vs_cpu_step(torch, full),
+    })
+    return launches
+
+
+def rg_card_vs_cpu_step(torch, full):
+    """One sequence of RG_TRAIN_CHECK_SEQ tokens through train_recurrentgemma's
+    one-group cut at full width, its window cut to RG_CHECK_WINDOW so the
+    sequence crosses it (four 64-step scan chunks), from the same weights
+    on the card in bf16, on the card in float32 (the f32 flash routes at
+    head_dim 256) and on the CPU in bf16: the loss at rtol TRAIN_TOL, each
+    leaf's gradient by its relative norm at TRAIN_TOL, or at 1.5 x the CPU
+    bf16 gradient's own distance from the card's float32 one where bf16
+    resolves the leaf no better.  Each card run's launches and flash
+    backward route are held too."""
+    import dataclasses
+
+    from repro_torch.data import loader_for_model
+    from repro_torch.distributed import pod_grads
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, bwd_route
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
+
+    cut = dataclasses.replace(full, num_layers=RG_TRAIN_LAYERS, local_window=RG_CHECK_WINDOW)
+    params = init_params(cut, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    batch = loader_for_model(cut, seq_len=RG_TRAIN_CHECK_SEQ, global_batch=1, seed=1).next_batch()
+    sides, launches, cpu_s = {}, {}, None
+    runs = (("card", params, cut), ("card_f32", params, dataclasses.replace(cut, dtype="float32")),
+            ("cpu", tree_map(lambda t: t.cpu(), params), cut))
+    recurrent = sum(k == "recurrent" for k in cut.pattern)
+    # remat="full" runs each forward kernel again in the backward
+    want = {"rglru_scan": 2 * recurrent, "rglru_scan_bwd": recurrent,
+            "flash_attention_fwd": 2 * (RG_TRAIN_LAYERS - recurrent),
+            "flash_attention_bwd": RG_TRAIN_LAYERS - recurrent}
+    for name, p, cfg in runs:
+        dev = "cpu" if name == "cpu" else "cuda"
+        LAUNCHES.clear()
+        BWD_ROUTE_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        loss, _, grads = pod_grads(p, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg, 1)
+        sides[name] = (loss.item(), tree_map(lambda g: g[0].float().cpu(), grads))
+        if dev == "cuda":
+            route = bwd_route(getattr(torch, cfg.dtype), cfg.head_dim)
+            launches[name] = (dict(LAUNCHES), dict(BWD_ROUTE_LAUNCHES))
+            if launches[name] != (want, {route: want["flash_attention_bwd"]}):
+                raise AssertionError(f"train_recurrentgemma card vs CPU, {name}: launches and flash backward "
+                                     f"routes {launches[name]}, expected {want} and all on {route}")
+        else:
+            cpu_s = time.perf_counter() - t0
+        del grads
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params
+
+    def rel(a, b):
+        return {path: ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+                for (path, x), (_, y) in zip(tree_items(sides[a][1]), tree_items(sides[b][1]))}
+
+    leaf_err, bf16_floor = rel("card", "cpu"), rel("cpu", "card_f32")
+    bar = {path: max(TRAIN_TOL, 1.5 * bf16_floor[path]) for path in leaf_err}
+    g_loss, c_loss = sides["card"][0], sides["cpu"][0]
+    if abs(g_loss - c_loss) > TRAIN_TOL * abs(c_loss) or any(leaf_err[k] > bar[k] for k in bar):
+        raise AssertionError(f"train_recurrentgemma card vs CPU: loss {g_loss} / {c_loss}, leaf relative errors "
+                             f"{leaf_err}, bars {bar}")
+    return {"layers": RG_TRAIN_LAYERS, "local_window": cut.local_window, "params": n_params,
+            "batch": [1, RG_TRAIN_CHECK_SEQ], "loss": [g_loss, c_loss], "loss_f32_card": sides["card_f32"][0],
+            "leaf_rel_err_max": max(leaf_err.values()), "leaf_rel_err_worst": max(leaf_err, key=leaf_err.get),
+            "tol": TRAIN_TOL, "leaves_beyond_tol": {k: {"card_vs_cpu": leaf_err[k], "cpu_bf16_vs_f32": bf16_floor[k],
+                                                         "bar": bar[k]} for k in bar if leaf_err[k] > TRAIN_TOL},
+            "cpu_bf16_vs_f32_max": max(bf16_floor.values()),
+            "card_launches_and_bwd_routes": launches, "cpu_s": cpu_s}
+
+
+def phase_train_recurrentgemma(torch):
+    """recurrentgemma-9b at full width, its depth cut to one group
+    (recurrent, recurrent, local attention), through GeoTrainer: 2 pods,
+    hier_int8, global batch 2 x 4096, AdamW, 2 untimed and 4 timed steps,
+    no checkpoint written; then one step of the cut with its window cut to
+    128 on the card (bf16 and float32) against the CPU."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import wan_bytes_per_step
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, bwd_route
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    full = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(full, num_layers=RG_TRAIN_LAYERS)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=WARMUP, total_steps=RG_TRAIN_STEPS)
+    tc = TrainerConfig(seq_len=SEQ_RG_TRAIN, global_batch=B_RG_TRAIN, steps=RG_TRAIN_STEPS,
+                       strategy="hier_int8", npods=NPODS, log_every=RG_TRAIN_STEPS, seed=0, opt=opt)
+    directory = ckpt_dir("train_recurrentgemma")
+    # 1.71 B float32 parameters, AdamW's moments and two pods' error
+    # feedback take 31.8 GiB; a functional step holds a second copy beside
+    # the gradients (measured: out of memory in AdamW), so the step donates
+    trainer = no_checkpoint_trainer(cfg, directory, tc, donate=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    BWD_ROUTE_LAUNCHES.clear()
+    result = trainer.run()
+    launches, bwd_routes = dict(LAUNCHES), dict(BWD_ROUTE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rows = result["metrics"]
+    leaves = tree_leaves(trainer.params)
+    n_leaves, n_params = len(leaves), sum(t.numel() for t in leaves)
+    del leaves
+    if (n_params, n_leaves) != (RG_TRAIN_PARAMS, RG_TRAIN_LEAVES):
+        raise AssertionError(f"train_recurrentgemma: {n_params} parameters in {n_leaves} leaves, "
+                             f"expected {RG_TRAIN_PARAMS} in {RG_TRAIN_LEAVES}")
+    recurrent = sum(k == "recurrent" for k in cfg.pattern) * cfg.num_groups
+    local = cfg.num_layers - recurrent
+    # remat="full": the recomputed forward launches each forward kernel again
+    per_step = {"rglru_scan": 2 * NPODS * recurrent, "rglru_scan_bwd": NPODS * recurrent,
+                "flash_attention_fwd": 2 * NPODS * local, "flash_attention_bwd": NPODS * local,
+                "wan_quant": n_leaves, "wan_dequant": n_leaves}
+    expected = {k: RG_TRAIN_STEPS * n for k, n in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"train_recurrentgemma: launches {launches} over {RG_TRAIN_STEPS} steps, "
+                             f"expected {expected}")
+    path_route = bwd_route(getattr(torch, cfg.dtype), cfg.head_dim)
+    if bwd_routes != {path_route: expected["flash_attention_bwd"]}:
+        raise AssertionError(f"train_recurrentgemma: flash backward routes {bwd_routes}, expected all "
+                             f"{expected['flash_attention_bwd']} on {path_route}")
+    losses = falling_losses("train_recurrentgemma", rows)
+    analytic = wan_bytes_per_step(n_params * 4, "hier_int8", npods=NPODS)
+    wan = [r["wan_bytes"] for r in rows]
+    if any(abs(x - analytic) > 0.01 * analytic for x in wan):
+        raise AssertionError(f"train_recurrentgemma: WAN payload {wan} B/pod/step vs wan_bytes_per_step {analytic}")
+    timed = [r["step_s"] * 1e3 for r in rows[WARMUP:]]
+    step_ms = statistics.median(timed)
+    del trainer, result
+    shutil.rmtree(directory, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "train_recurrentgemma", "arch": full.name, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+        "reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
+        "d_model": cfg.d_model, "d_rnn": cfg.d_rnn, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "local_window": cfg.local_window, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "remat": cfg.remat, "params": n_params, "leaves": n_leaves,
+        "pods": NPODS, "strategy": "hier_int8", "global_batch": B_RG_TRAIN, "seq_len": SEQ_RG_TRAIN,
+        "steps": RG_TRAIN_STEPS, "warmup_steps_untimed": WARMUP, "checkpoint": "none written (no_checkpoint_trainer)",
+        "step_donates": True,
+        "adamw": {"lr": opt.lr, "warmup_steps": opt.warmup_steps, "total_steps": opt.total_steps},
+        "step_ms_median": step_ms, "step_ms": timed,
+        "tokens_per_s": B_RG_TRAIN * SEQ_RG_TRAIN / (step_ms / 1e3),
+        "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+        "grad_norm_last": rows[-1]["grad_norm"], "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9,
+        "wan_bytes_per_pod_step": wan[-1], "wan_bytes_per_step_analytic": analytic,
+        "launches_main_path": launches, "launches_per_step": per_step, "flash_bwd_routes": bwd_routes,
+        "card_vs_cpu": rg_card_vs_cpu_step(torch, full),
     })
     return launches
 
@@ -2537,6 +2854,9 @@ def main() -> int:
     wkv = phase_kernels_wkv(torch)
     wkv_bwd = phase_kernels_wkv_bwd(torch)
     rglru = phase_kernels_rglru(torch)
+    rglru_bwd = phase_kernels_rglru_bwd(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     serve = phase_serve(torch)
     train, train_losses, train_step_ms = phase_train(torch)
     trains, one_process_losses = {}, {"hier_int8": train_losses}
@@ -2571,6 +2891,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_rwkv = phase_train_rwkv(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rg = phase_train_recurrentgemma(torch)
     quick = phase_quickstart(torch)
 
     def entry(name, source, replaces, check, **more):
@@ -2590,6 +2913,8 @@ def main() -> int:
             "launches_serve_mesh_per_rank": [r.get(name, 0) for r in mesh_serve],
             "launches_train_rwkv": train_rwkv.get(name, 0), "launches_quickstart": quick.get(name, 0),
             "launches_serve_recurrentgemma": serve_rg.get(name, 0),
+            "launches_train_recurrentgemma": train_rg.get(name, 0),
+            "launches_per_train_recurrentgemma_step": train_rg.get(name, 0) // RG_TRAIN_STEPS,
             **more,
         }
 
@@ -2641,6 +2966,12 @@ def main() -> int:
                    rglru[0], library_why=rglru[0]["library_why"], tol_h_last=RGLRU_LAST_TOL, shapes=rglru),
              launches=serve_rg["rglru_scan"], launches_per_prefill=RG_SCANS,
              launches_per_decode_step=RG_SCANS, launches_per_train_step=0),
+        dict(entry("rglru_scan_bwd", "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu",
+                   "none: the JAX package differentiates jax.lax.associative_scan (src/repro/models/rglru.py:67-92, "
+                   "rg_lru; no Pallas kernel)", rglru_bwd[0], library_why=rglru_bwd[0]["library_why"],
+                   plain_ms_is=rglru_bwd[0]["plain_ms_is"], tol_by_output=rglru_bwd[0]["tol_by_output"],
+                   shapes=rglru_bwd),
+             launches=train_rg["rglru_scan_bwd"], launches_per_train_step=0),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -262,14 +262,14 @@ def pod_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, npods: i
     return loss, mean, stacked
 
 
-def sync_grads(grads, ef, *, strategy: str, num_channels: int = 4) -> Tuple[Any, Any, int]:
+def sync_grads(grads, ef, *, strategy: str, num_channels: int = 4, in_place: bool = False) -> Tuple[Any, Any, int]:
     """Cross-pod sync of ``[npods, ...]`` grads -> (synced, new ef, WAN bytes per pod).
 
     ``local_sgd`` sends nothing: its grads come back as they went in, one
-    per pod."""
+    per pod.  ``in_place``: ``hier_int8`` writes the new ef into ``ef``."""
     _check_strategy(strategy)
     if strategy == "hier_int8":
-        return sync_hier_int8(grads, ef)
+        return sync_hier_int8(grads, ef, in_place=in_place)
     if strategy == "ps":
         return sync_ps(grads), ef, ps_bytes(grads)
     if strategy == "local_sgd":
@@ -290,6 +290,7 @@ def make_train_step(
     opt_cfg: Optional[AdamWConfig] = None,
     diloco_cfg: Optional[DilocoConfig] = None,
     device: DeviceLike = "cuda",
+    donate: bool = False,
 ):
     """step(params, state, batch) -> (params, state, metrics).
 
@@ -309,12 +310,21 @@ def make_train_step(
     the float32 deltas, 0 on the inner steps.  ``grad_norm`` and ``lr`` are
     pod 0's, which is what the JAX step's unreduced optimizer metrics give
     under ``out_specs=P()``.
+
+    ``donate`` (the JAX step's ``donate_argnums``): the step may update
+    ``params`` and ``state`` in their own storage, so the caller must not
+    use them afterwards; it needs no second copy of the parameters, the
+    moments and the error feedback (recurrentgemma-9b's one-group cut does
+    not fit on one card without it).  The values are the same.  One
+    process, strategies other than ``local_sgd``.
     """
     _check_strategy(strategy)
     npods = _pods(mesh, npods)
     device = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig()
     diloco_cfg = diloco_cfg or DilocoConfig()
+    if donate and (is_group_mesh(mesh) or _per_pod(strategy, npods)):
+        raise ValueError("donate is implemented for the one-process step of a strategy other than local_sgd")
     if is_group_mesh(mesh):
         return _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, device)
 
@@ -325,10 +335,11 @@ def make_train_step(
         loss, metrics, grads = pod_grads(params, batch, cfg, npods)
         new_ef, wan = state.ef, 0
         if npods > 1:
-            grads, new_ef, wan = sync_grads(grads, state.ef, strategy=strategy, num_channels=num_channels)
+            grads, new_ef, wan = sync_grads(grads, state.ef, strategy=strategy, num_channels=num_channels,
+                                            in_place=donate)
         else:
             grads = tree_map(lambda g: g[0], grads)
-        new_params, new_adam, opt_metrics = adamw_update(opt_cfg, grads, state.adam, params)
+        new_params, new_adam, opt_metrics = adamw_update(opt_cfg, grads, state.adam, params, in_place=donate)
         metrics = dict(metrics, loss=loss, wan_bytes=wan, **opt_metrics)
         return new_params, TrainState(new_adam, new_ef, state.diloco), metrics
 

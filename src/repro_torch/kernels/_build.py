@@ -33,6 +33,7 @@ SOURCES: Dict[str, Path] = {
     "wkv6": _PKG / "rwkv6_wkv" / "csrc" / "wkv6.cu",
     "wkv6_bwd": _PKG / "rwkv6_wkv" / "csrc" / "wkv6_bwd.cu",
     "rglru_scan": _PKG / "rglru_scan" / "csrc" / "rglru_scan.cu",
+    "rglru_scan_bwd": _PKG / "rglru_scan" / "csrc" / "rglru_scan_bwd.cu",
 }
 
 NVCC_FLAGS = (

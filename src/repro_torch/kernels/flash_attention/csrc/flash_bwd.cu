@@ -23,16 +23,19 @@
 // recompute P from q, k and lse; neither stores it.  The caller names the
 // route (ops.py::bwd_route), and a route that does not fit the dtype and
 // head_dim is refused:
-//   * "wgmma" (bf16, head_dim 64 and 128): flash_bwd_dkdv_wgmma and
+//   * "wgmma" (bf16, head_dim 64, 128 and 256): flash_bwd_dkdv_wgmma and
 //     flash_bwd_dq_wgmma below, the Hopper design.  Every full-width
-//     training path runs it.
+//     training path runs it, recurrentgemma-9b's local attention at 256
+//     among them.
 //   * "mma_sync" (bf16, head_dim 16 and 96): flash_bwd_dkdv_bf16 and
 //     flash_bwd_dq_bf16, the first port's kernels (a block per 64-row tile,
 //     four warps, mma.sync m16n8k16, synchronous loads with transposed
 //     shared-memory copies), kept for the smoke configs' 16-wide heads
 //     (8 and 12 zero-padded to 16 by the wrapper) and phi-3-vision's 96.
-//   * "f32" (float32, head_dim 16, 64, 96, 128): one thread per key row (dK/dV)
-//     or query row (dQ), scalar FMA in float32 (no TF32).
+//   * "f32" (float32, head_dim 16, 64, 96, 128, 256): one thread per key
+//     row (dK/dV) or query row (dQ), scalar FMA in float32 (no TF32); at 256
+//     the streamed tiles hold 32 rows and a thread's rows live in local
+//     memory (float32 checks, not a path).
 // All tensors go in through element strides (batch, seq, head; head_dim
 // contiguous), as in the forward.  P and dS are rounded to bf16 as operands
 // of the bf16 products (the plain version keeps them in float32: inside the
@@ -82,6 +85,18 @@
 //     their zero K rows would not cancel an overflowing P), then dQ += dS K
 //     with K MN-major, in flight while the next tile's S and dP are issued.
 //     Epilogue: dQ * scale in bf16 by TMA store.
+//   * Head_dim 256 (recurrentgemma-9b: 16 heads over 1, window 2048).  A dK
+//     or dV accumulator of 64 keys x 256 takes 128 registers a thread, so
+//     a consumer cannot hold both.  In flash_bwd_dkdv_wgmma an item is 64
+//     keys that both consumers share: K and V resident (32 KB each), Q and
+//     dO through a ring of two 64 KB stages.  Consumer 0 forms S^T and P^T
+//     and accumulates dV; it hands P^T (times the softcap factor) to
+//     consumer 1 through two float32 buffers in shared memory (16 KB each,
+//     named barriers for full and empty), which forms dP^T, dS^T and
+//     accumulates dK: four products a tile, as at 64 and 128.  Each 256-
+//     wide product is two m64n128 ones over the atoms 0-1 and 2-3.  In
+//     flash_bwd_dq_wgmma the item's Q and dO take 128 KB, so there is one
+//     query buffer and K and V stream as 32-key tiles (ring of three).
 // Masked pairs get P = 0 directly: exp(-1e30 - lse) is 0 in float32 for
 // every lse a row that sees a key can have (the wrappers refuse rows that
 // see none).  The tensor maps are encoded on the host (hopper.cuh, no
@@ -538,34 +553,43 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_bf16(const Args a) {
   }
 }
 
+// Rows of the streamed tiles of the float32 kernels (query rows in dK/dV,
+// keys in dQ): 32 at head_dim 256, where 64-row tiles of all four tensors
+// would pass the 227 KB a block can have.
+template <int HD>
+constexpr int kF32Rows = HD == 256 ? 32 : 64;
+
 template <int HD>
 constexpr size_t f32_smem() {
-  return (size_t(2) * 64 * (HD + 1) + size_t(2) * 64 * HD) * sizeof(float) +
+  return (size_t(2) * 64 * (HD + 1) + size_t(2) * kF32Rows<HD> * HD) * sizeof(float) +
          2 * kBlockM * sizeof(float);
 }
 
-// float32 rows [r0, r0 + 64) of a [seq, HD] slice into a shared tile with
+// float32 rows [r0, r0 + ROWS) of a [seq, HD] slice into a shared tile with
 // row stride ld_s, zeros past n_valid.
-template <int HD>
+template <int HD, int ROWS = 64>
 __device__ __forceinline__ void load_rows_f32(float* dst, int ld_s, const float* src,
                                               long long ld_g, int r0, int n_valid) {
-  for (int i = threadIdx.x; i < 64 * HD; i += blockDim.x) {
+  for (int i = threadIdx.x; i < ROWS * HD; i += blockDim.x) {
     const int r = i / HD, c = i % HD;
     dst[r * ld_s + c] = (r0 + r < n_valid) ? src[(long long)(r0 + r) * ld_g + c] : 0.f;
   }
 }
 
 // One thread per key row; its k and v rows padded by one float so the
-// threads of a warp read 32 distinct banks, the query rows read as broadcasts.
+// threads of a warp read 32 distinct banks, the query rows read as
+// broadcasts.  At head_dim 256 a thread's dK and dV rows (512 floats) live
+// in local memory: the route serves float32 checks, not a training path.
 template <int HD>
 __global__ void __launch_bounds__(kBlockN) flash_bwd_dkdv_f32(const Args a) {
   constexpr int LDK = HD + 1;
+  constexpr int QM = kF32Rows<HD>;  // query rows a pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sK = reinterpret_cast<float*>(smem_raw);
   float* sV = sK + kBlockN * LDK;
   float* sQ = sV + kBlockN * LDK;
-  float* sdO = sQ + kBlockM * HD;
-  float* sL = sdO + kBlockM * HD;
+  float* sdO = sQ + QM * HD;
+  float* sL = sdO + QM * HD;
   float* sD = sL + kBlockM;
 
   const int tid = threadIdx.x;
@@ -589,17 +613,17 @@ __global__ void __launch_bounds__(kBlockN) flash_bwd_dkdv_f32(const Args a) {
     const float* dop = static_cast<const float*>(a.dout) + b * a.sdo[0] + h * a.sdo[2];
     const float* lp = a.lse + ((long long)b * a.H + h) * a.Sq;
     const float* dlp = a.delta + ((long long)b * a.H + h) * a.Sq;
-    for (int q0 = qbeg; q0 < qend; q0 += kBlockM) {
+    for (int q0 = qbeg; q0 < qend; q0 += QM) {
       __syncthreads();
-      load_rows_f32<HD>(sQ, HD, qp, a.sq[1], q0, a.Sq);
-      load_rows_f32<HD>(sdO, HD, dop, a.sdo[1], q0, a.Sq);
-      for (int i = tid; i < kBlockM; i += kBlockN) {
+      load_rows_f32<HD, QM>(sQ, HD, qp, a.sq[1], q0, a.Sq);
+      load_rows_f32<HD, QM>(sdO, HD, dop, a.sdo[1], q0, a.Sq);
+      for (int i = tid; i < QM; i += kBlockN) {
         const bool in = q0 + i < a.Sq;
         sL[i] = in ? lp[q0 + i] : 0.f;
         sD[i] = in ? dlp[q0 + i] : 0.f;
       }
       __syncthreads();
-      const int jn = min(kBlockM, a.Sq - q0);
+      const int jn = min(QM, a.Sq - q0);
       for (int j = 0; j < jn; ++j) {
         float s = 0.f, dp = 0.f;
 #pragma unroll
@@ -633,11 +657,12 @@ __global__ void __launch_bounds__(kBlockN) flash_bwd_dkdv_f32(const Args a) {
 template <int HD>
 __global__ void __launch_bounds__(kBlockM) flash_bwd_dq_f32(const Args a) {
   constexpr int LDQ = HD + 1;
+  constexpr int KN = kF32Rows<HD>;  // keys a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);
   float* sdO = sQ + kBlockM * LDQ;
   float* sK = sdO + kBlockM * LDQ;
-  float* sV = sK + kBlockN * HD;
+  float* sV = sK + KN * HD;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kBlockM, h = blockIdx.y, b = blockIdx.z;
@@ -659,12 +684,12 @@ __global__ void __launch_bounds__(kBlockM) flash_bwd_dq_f32(const Args a) {
 
   int kbeg, kend;
   key_range(a, q0, &kbeg, &kend);
-  for (int k0 = kbeg; k0 < kend; k0 += kBlockN) {
+  for (int k0 = kbeg; k0 < kend; k0 += KN) {
     __syncthreads();
-    load_rows_f32<HD>(sK, HD, kp, a.sk[1], k0, a.Sk);
-    load_rows_f32<HD>(sV, HD, vp, a.sv[1], k0, a.Sk);
+    load_rows_f32<HD, KN>(sK, HD, kp, a.sk[1], k0, a.Sk);
+    load_rows_f32<HD, KN>(sV, HD, vp, a.sv[1], k0, a.Sk);
     __syncthreads();
-    const int jn = min(kBlockN, kend - k0);
+    const int jn = min(KN, kend - k0);
     for (int j = 0; j < jn; ++j) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
@@ -696,7 +721,7 @@ using hopper::kLog2e;
 
 struct Params {
   // 4-D (hd, heads, seq, batch) maps; the number is the box's rows
-  CUtensorMap tq64, tdo64, tk128, tv128;  // dK/dV kernel: query tiles, the item's keys
+  CUtensorMap tq64, tdo64, tk_kv, tv_kv;  // dK/dV kernel: query tiles, the item's keys
   CUtensorMap tq128, tdo128, tk_dq, tv_dq;  // dQ kernel: the item's queries, key tiles
   CUtensorMap tdq, tdk, tdv;               // stores, 64 rows
   const float* lse;                        // [B, H, Sq], natural log
@@ -704,44 +729,52 @@ struct Params {
   int B, H, KVH, Sq, Sk;
   int causal, window;
   float softcap, softcap_inv, sm_scale;
-  int n_ktiles, n_qtiles;  // 128-key items (dK/dV), 128-row items (dQ)
+  int n_ktiles, n_qtiles;  // key items (dK/dV: KvShape::kKeys), 128-row items (dQ)
 };
 
-// dK/dV kernel: an item is 128 keys (64 per consumer) of one (kv head,
-// batch); 64-row query tiles stream through a ring of kStages.
+// dK/dV kernel: an item is kKeys keys of one (kv head, batch); 64-row
+// query tiles stream through a ring of kStages.  At head_dim 64 and 128 an
+// item is 128 keys, 64 per consumer.  At 256 it is 64 keys that both
+// consumers share (K and V 32 KB each, a ring of two 64 KB Q + dO stages,
+// and the P^T exchange buffers: 226 KB).
 template <int HD>
 struct KvShape {
+  static constexpr int kKeys = HD == 256 ? 64 : 128;
   static constexpr int kAtoms = HD / 64;
-  static constexpr int kKVAtom = 128 * kRowBytes;    // a 64-column atom of the item's K or V
+  static constexpr int kKVAtom = kKeys * kRowBytes;  // a 64-column atom of the item's K or V
   static constexpr int kKVTile = kAtoms * kKVAtom;
   static constexpr int kQAtom = 64 * kRowBytes;      // a 64-column atom of a query tile
   static constexpr int kQTile = kAtoms * kQAtom;
   static constexpr int kBufs = HD == 64 ? 2 : 1;     // K/V item buffers
-  static constexpr int kStages = 4;
+  static constexpr int kStages = HD == 256 ? 2 : 4;
   static constexpr int kK = 0;                       // + buffer * kKVTile
   static constexpr int kV = kK + kBufs * kKVTile;
   static constexpr int kQ = kV + kBufs * kKVTile;    // + stage * kQTile
   static constexpr int kdO = kQ + kStages * kQTile;
-  static constexpr int kL = kdO + kStages * kQTile;  // float [stage][64]: lse * log2 e, +inf past Sq
+  static constexpr int kP = kdO + kStages * kQTile;  // float [2][64 x 64] (head_dim 256): P^T times the softcap factor
+  static constexpr int kL = kP + (HD == 256 ? 2 * 64 * 64 * 4 : 0);  // float [stage][64]: lse * log2 e, +inf past Sq
   static constexpr int kD = kL + kStages * 64 * 4;   // float [stage][64]: D, 0 past Sq
   static constexpr int kBar = kD + kStages * 64 * 4;
   // barriers: full, empty [kStages]; K/V full, K/V empty [kBufs]
   static constexpr int kAlloc = kBar + 8 * (2 * kStages + 2 * kBufs) + 1024;  // + room to align
+  static_assert(kAlloc <= 232448, "more shared memory than a block can have");
 };
 
 // dQ kernel: an item is 128 query rows (64 per consumer) of one (batch,
 // head); kN-key K and V tiles stream through a ring of kStages.  64-key
 // tiles keep S, dP and dQ in the consumers' 240 registers at hd 128 and
-// measured faster than 128-key ones at hd 64 (PERF.md).
+// measured faster than 128-key ones at hd 64 (PERF.md).  At 256 the Q and
+// dO of an item take 128 KB: one query buffer, and 32-key tiles (16 KB
+// each of K and V) in a ring of three.
 template <int HD>
 struct DqShape {
-  static constexpr int kN = 64;
+  static constexpr int kN = HD == 256 ? 32 : 64;
   static constexpr int kAtoms = HD / 64;
   static constexpr int kQAtom = 128 * kRowBytes;
   static constexpr int kQTile = kAtoms * kQAtom;
   static constexpr int kKAtom = kN * kRowBytes;
   static constexpr int kKTile = kAtoms * kKAtom;
-  static constexpr int kBufs = 2;  // query buffers, Q and dO each
+  static constexpr int kBufs = HD == 256 ? 1 : 2;  // query buffers, Q and dO each
   static constexpr int kStages = HD == 64 ? 6 : 3;
   static constexpr int kQ = 0;     // + buffer * kQTile
   static constexpr int kdO = kQ + kBufs * kQTile;
@@ -750,6 +783,7 @@ struct DqShape {
   static constexpr int kBar = kV + kStages * kKTile;
   // barriers: Q full, Q empty [kBufs]; full, empty [kStages]
   static constexpr int kAlloc = kBar + 8 * (2 * kBufs + 2 * kStages) + 1024;
+  static_assert(kAlloc <= 232448, "more shared memory than a block can have");
 };
 
 // The CTA's i-th item: rounds of gridDim.x items, taken in order in even
@@ -759,22 +793,23 @@ __device__ __forceinline__ int item_index(int i) {
   return i * gridDim.x + lane;
 }
 
-// A dK/dV item and the 64-row query tiles [qt_beg, qt_end) that see its
-// keys (empty when no query does: its dK and dV are then zeros).  Items
-// are numbered by key tile first: under the causal mask the first key
-// tiles, which every later query sees, are the heaviest.
+// A dK/dV item of kKeys keys and the 64-row query tiles [qt_beg, qt_end)
+// that see them (empty when no query does: its dK and dV are then zeros).
+// Items are numbered by key tile first: under the causal mask the first
+// key tiles, which every later query sees, are the heaviest.
 struct KvItem {
   int b, kvh, k0, qt_beg, qt_end;
 };
 
+template <int kKeys>
 __device__ __forceinline__ KvItem kv_item(const Params& p, int w) {
   KvItem it;
   const int per_tile = p.B * p.KVH;
   const int rest = w % per_tile;
   it.b = rest / p.KVH;
   it.kvh = rest % p.KVH;
-  it.k0 = (w / per_tile) * 128;
-  const int k_last = min(it.k0 + 127, p.Sk - 1);
+  it.k0 = (w / per_tile) * kKeys;
+  const int k_last = min(it.k0 + kKeys - 1, p.Sk - 1);
   const int q_beg = p.causal ? it.k0 : 0;                        // k <= q
   const int q_end = p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;  // q < k + window
   it.qt_beg = q_beg / 64;
@@ -906,10 +941,192 @@ __device__ __forceinline__ void ds_tile(const Params& p, float (&s)[N / 2], floa
   }
 }
 
+// Named barriers of the hd-256 dK/dV consumers (1 and 2 are each
+// consumer's own): both consumers, before the epilogue writes over K and
+// V; P^T exchange buffer b full (consumer 0 arrives, 1 syncs) and empty
+// (1 arrives, 0 syncs).
+constexpr int kBarPair = 3, kBarPFull = 4, kBarPEmpty = 6;
+
+// P^T over the item's 64 keys x one 64-query tile (in place of S^T) and,
+// into the exchange buffer `pf` (float4 [8][128 threads]), P^T times the
+// softcap's 1 - tanh^2 (1 without one), from which consumer 1 forms dS^T.
+// Rows are keys (key0, key0 + 8 for this thread), columns queries from q0;
+// sL the queries' lse * log2 e.  P as p_ds forms it.
+template <bool kSoftcap, bool kMask>
+__device__ __forceinline__ void p_t_tile(const Params& p, float (&st)[32], float4* pf, const float* sL,
+                                         int key0, int q0, int t, int tid) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * j + 2 * t);
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = q0 + 8 * j + 2 * t + (e & 1);
+      const bool keep = !kMask || visible(p, q, key0 + (e >> 1) * 8);
+      const float lse2 = (e & 1) ? l2.y : l2.x;
+      float pr;
+      f[e] = 1.f;
+      if (kSoftcap) {
+        const float th = hopper::tanh_fast(st[4 * j + e] * p.sm_scale * p.softcap_inv);
+        pr = hopper::ex2(fmaf(p.softcap * kLog2e, th, -lse2));
+        f[e] = 1.f - th * th;
+      } else {
+        pr = hopper::ex2(fmaf(st[4 * j + e], p.sm_scale * kLog2e, -lse2));
+      }
+      pr = keep ? pr : 0.f;
+      st[4 * j + e] = pr;
+      f[e] *= pr;
+    }
+    pf[j * 128 + tid] = make_float4(f[0], f[1], f[2], f[3]);
+  }
+}
+
+// dS^T = pf (dP^T - D) in place of dP^T, from consumer 0's exchange buffer
+// (0 on masked pairs and on query rows past Sq); sD the queries' D.
+__device__ __forceinline__ void ds_t_from(float (&dpt)[32], const float4* pf, const float* sD, int t, int tid) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 f = pf[j * 128 + tid];
+    const float2 dd = *reinterpret_cast<const float2*>(sD + 8 * j + 2 * t);
+    dpt[4 * j + 0] = f.x * (dpt[4 * j + 0] - dd.x);
+    dpt[4 * j + 1] = f.y * (dpt[4 * j + 1] - dd.y);
+    dpt[4 * j + 2] = f.z * (dpt[4 * j + 2] - dd.x);
+    dpt[4 * j + 3] = f.w * (dpt[4 * j + 3] - dd.y);
+  }
+}
+
+// The consumers of flash_bwd_dkdv_wgmma at head_dim 256.  Both take the
+// item's 64 keys; a dK or dV accumulator of 64 keys x 256 takes 128 of
+// the 240 registers, so each consumer owns one: consumer 0 forms S^T = K
+// Q^T and P^T, hands P^T (times the softcap factor) to consumer 1 through
+// shared memory, and accumulates dV += P^T dO; consumer 1 forms dP^T = V
+// dO^T, takes P^T, and accumulates dK += dS^T Q.  Two products each a
+// query tile, the four a tile needs.
+template <bool kSoftcap>
+__device__ __forceinline__ void dkdv_consumers_hd256(const Params& p, uint32_t base, unsigned char* gbase,
+                                                     uint32_t bar_full, uint32_t bar_empty, uint32_t bar_kv,
+                                                     uint32_t bar_kv_empty, int n_items, int groups) {
+  using L = KvShape<256>;
+  constexpr int kStages = L::kStages, kBufs = L::kBufs;
+  const int c = threadIdx.x / 128 - 1;  // 0: P^T and dV; 1: dP^T, dS^T and dK
+  const int tid = threadIdx.x % 128, lane = threadIdx.x % 32;
+  const int warp = tid / 32, g = lane / 4, t = lane % 4;
+  float acc[128], s[32];
+  uint32_t fa[4][4];
+  int tiles = 0, passed = 0;  // ring tiles; P^T tiles exchanged (equal on both consumers)
+  auto release = [&](int stage) {
+    if (lane == 0) hopper::mbar_arrive(bar_empty + 8 * stage);
+  };
+  for (int i = 0; item_index(i) < n_items; ++i) {
+    const KvItem it = kv_item<L::kKeys>(p, item_index(i));
+    const int kb = i % kBufs;
+    const int key0 = it.k0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+    const uint32_t sK = base + L::kK + kb * L::kKVTile;
+    const uint32_t sV = base + L::kV + kb * L::kKVTile;
+#pragma unroll
+    for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+    hopper::mbar_wait(bar_kv + 8 * kb, (i / kBufs) % 2);
+    int pending = -1;  // the stage the product in flight reads
+    for (int hh = 0; hh < groups; ++hh) {
+      for (int qt = it.qt_beg; qt < it.qt_end; ++qt, ++tiles) {
+        const int stage = tiles % kStages;
+        const int q0 = qt * 64;
+        hopper::mbar_wait(bar_full + 8 * stage, (tiles / kStages) % 2);
+        if (it.k0 >= p.Sk || (p.causal && it.k0 > q0 + 63) || (p.window > 0 && it.k0 + 63 <= q0 - p.window)) {
+          // no key of the item is seen by a query of the tile (the same
+          // tiles for both consumers): free it, and the one the product in
+          // flight reads
+          release(stage);
+          if (pending >= 0) {
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(acc);
+            release(pending);
+            pending = -1;
+          }
+          continue;
+        }
+        const uint32_t sQ = base + L::kQ + stage * L::kQTile;
+        const uint32_t sdO = base + L::kdO + stage * L::kQTile;
+        // S^T = K Q^T (consumer 0) or dP^T = V dO^T (consumer 1): 64 keys x
+        // 64 queries, both K-major; the previous tile's dV or dK product
+        // may still run.
+        const uint32_t sa = c == 0 ? sK : sV, sb = c == 0 ? sQ : sdO;
+        hopper::fence_regs(s);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk) {
+          const uint32_t col = (kk % 4) * 32;
+          hopper::wgmma_ss<64>(s, kmajor(sa + (kk / 4) * L::kKVAtom + col), kmajor(sb + (kk / 4) * L::kQAtom + col),
+                               kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        hopper::fence_regs(acc);
+        hopper::fence_regs(fa);
+        if (pending >= 0) release(pending);  // the previous tile's stage
+        float4* pf = reinterpret_cast<float4*>(gbase + L::kP) + (passed % 2) * 8 * 128;
+        if (c == 0) {
+          const float* sL = reinterpret_cast<const float*>(gbase + L::kL) + stage * 64;
+          if (passed >= 2) hopper::named_barrier_sync(kBarPEmpty + passed % 2, 256);
+          if ((p.causal && it.k0 + 63 > q0) || (p.window > 0 && it.k0 <= q0 + 63 - p.window)) {
+            p_t_tile<kSoftcap, true>(p, s, pf, sL, key0, q0, t, tid);
+          } else {
+            p_t_tile<kSoftcap, false>(p, s, pf, sL, key0, q0, t, tid);
+          }
+          __threadfence_block();
+          hopper::named_barrier_arrive(kBarPFull + passed % 2, 256);
+        } else {
+          const float* sD = reinterpret_cast<const float*>(gbase + L::kD) + stage * 64;
+          hopper::named_barrier_sync(kBarPFull + passed % 2, 256);
+          ds_t_from(s, pf, sD, t, tid);
+          __threadfence_block();
+          hopper::named_barrier_arrive(kBarPEmpty + passed % 2, 256);
+        }
+        ++passed;
+        pack_a<4>(fa, s);
+        // dV += P^T dO (consumer 0) or dK += dS^T Q (consumer 1): 4 steps of
+        // 16 queries, dO or Q MN-major.
+        const uint32_t sm = c == 0 ? sdO : sQ;
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs_hd<256>(acc, fa[kk], sm + kk * 16 * kRowBytes, L::kQAtom);
+        hopper::wgmma_commit();
+        pending = stage;
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::fence_regs(fa);
+    if (pending >= 0) release(pending);
+
+    // Epilogue, once both consumers are done reading K and V: dV into V's
+    // buffer (consumer 0), dK * scale into K's (consumer 1), as bf16 in the
+    // swizzled layout, then TMA stores (rows past Sk dropped).
+    hopper::named_barrier_sync(kBarPair, 256);
+    const uint32_t dst = c == 0 ? sV : sK;
+    store_acc<256>(dst, L::kKVAtom, acc, c == 0 ? 1.f : p.sm_scale, warp, g, t);
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(1 + c, 128);
+    if (tid == 0) {
+      if (it.k0 < p.Sk) {
+        for (int a = 0; a < L::kAtoms; ++a)
+          hopper::tma_store_4d(c == 0 ? &p.tdv : &p.tdk, dst + a * L::kKVAtom, a * 64, it.kvh, it.k0, it.b);
+        hopper::tma_store_wait_read();
+      }
+      hopper::mbar_arrive(bar_kv_empty + 8 * kb);
+    }
+  }
+  // consumer 1's last two arrivals on the empty barriers, taken
+  if (c == 0)
+    for (int n = max(0, passed - 2); n < passed; ++n) hopper::named_barrier_sync(kBarPEmpty + n % 2, 256);
+}
+
 template <int HD, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv_wgmma(const __grid_constant__ Params p) {
-  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256, "head_dim 64, 128 or 256");
   using L = KvShape<HD>;
   constexpr int kStages = L::kStages, kBufs = L::kBufs;
   constexpr int NO = HD / 2;  // dK, dV accumulator floats per thread
@@ -951,15 +1168,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x < 32) {
       int tiles = 0;
       for (int i = 0; item_index(i) < n_items; ++i) {
-        const KvItem it = kv_item(p, item_index(i));
+        const KvItem it = kv_item<L::kKeys>(p, item_index(i));
         const int kb = i % kBufs;
         hopper::mbar_wait(bar_kv_empty + 8 * kb, ((i / kBufs) % 2) ^ 1);
         if (lane == 0) {
           hopper::mbar_arrive_expect_tx(bar_kv + 8 * kb, 2 * L::kKVTile);
           for (int a = 0; a < L::kAtoms; ++a) {
             const uint32_t off = kb * L::kKVTile + a * L::kKVAtom;
-            hopper::tma_load_4d(base + L::kK + off, &p.tk128, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
-            hopper::tma_load_4d(base + L::kV + off, &p.tv128, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
+            hopper::tma_load_4d(base + L::kK + off, &p.tk_kv, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
+            hopper::tma_load_4d(base + L::kV + off, &p.tv_kv, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
           }
         }
         for (int hh = 0; hh < groups; ++hh) {
@@ -989,6 +1206,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
+  } else if constexpr (HD == 256) {
+    hopper::setmaxnreg_inc<240>();
+    dkdv_consumers_hd256<kSoftcap>(p, base, gbase, bar_full, bar_empty, bar_kv, bar_kv_empty, n_items, groups);
   } else {
     // ---- consumers: 64 keys of each item ----
     hopper::setmaxnreg_inc<240>();
@@ -1001,7 +1221,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) hopper::mbar_arrive(bar_empty + 8 * stage);
     };
     for (int i = 0; item_index(i) < n_items; ++i) {
-      const KvItem it = kv_item(p, item_index(i));
+      const KvItem it = kv_item<L::kKeys>(p, item_index(i));
       const int kb = i % kBufs;
       const int kc0 = it.k0 + 64 * c;      // this consumer's first key
       const int key0 = kc0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
@@ -1112,7 +1332,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int HD, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ Params p) {
-  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256, "head_dim 64, 128 or 256");
   using L = DqShape<HD>;
   constexpr int kStages = L::kStages, kBufs = L::kBufs, kN = L::kN;
   constexpr int NO = HD / 2;  // dQ accumulator floats per thread
@@ -1225,8 +1445,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t col = (kk % 4) * 32;
-          hopper::wgmma_ss_m64n64(s, kmajor(sQ + (kk / 4) * L::kQAtom + col), kmajor(sK + (kk / 4) * L::kKAtom + col), kk > 0);
-          hopper::wgmma_ss_m64n64(dp, kmajor(sdO + (kk / 4) * L::kQAtom + col), kmajor(sV + (kk / 4) * L::kKAtom + col), kk > 0);
+          hopper::wgmma_ss<kN>(s, kmajor(sQ + (kk / 4) * L::kQAtom + col), kmajor(sK + (kk / 4) * L::kKAtom + col), kk > 0);
+          hopper::wgmma_ss<kN>(dp, kmajor(sdO + (kk / 4) * L::kQAtom + col), kmajor(sV + (kk / 4) * L::kKAtom + col), kk > 0);
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -1247,7 +1467,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk)
-          hopper::wgmma_rs<HD>(dq, da[kk], hopper::smem_desc(sK + kk * 16 * kRowBytes, L::kKAtom, 1024), 1);
+          hopper::wgmma_rs_hd<HD>(dq, da[kk], sK + kk * 16 * kRowBytes, L::kKAtom);
         hopper::wgmma_commit();
         pending = stage;
       }
@@ -1294,6 +1514,7 @@ int launch(const Args& a, cudaStream_t stream) {
   if (e != cudaSuccess) return static_cast<int>(e);
   Params p;
   constexpr int kN = DqShape<HD>::kN;
+  constexpr int kKeys = KvShape<HD>::kKeys;
   const struct {
     CUtensorMap* map;
     const void* ptr;
@@ -1302,7 +1523,7 @@ int launch(const Args& a, cudaStream_t stream) {
     int rows;
   } maps[] = {
       {&p.tq64, a.q, a.H, a.Sq, a.sq, 64},      {&p.tdo64, a.dout, a.H, a.Sq, a.sdo, 64},
-      {&p.tk128, a.k, a.KVH, a.Sk, a.sk, 128},  {&p.tv128, a.v, a.KVH, a.Sk, a.sv, 128},
+      {&p.tk_kv, a.k, a.KVH, a.Sk, a.sk, kKeys}, {&p.tv_kv, a.v, a.KVH, a.Sk, a.sv, kKeys},
       {&p.tq128, a.q, a.H, a.Sq, a.sq, 128},    {&p.tdo128, a.dout, a.H, a.Sq, a.sdo, 128},
       {&p.tk_dq, a.k, a.KVH, a.Sk, a.sk, kN},   {&p.tv_dq, a.v, a.KVH, a.Sk, a.sv, kN},
       {&p.tdq, a.dq, a.H, a.Sq, a.sdq, 64},     {&p.tdk, a.dk, a.KVH, a.Sk, a.sdk, 64},
@@ -1324,7 +1545,7 @@ int launch(const Args& a, cudaStream_t stream) {
   p.softcap = a.softcap;
   p.softcap_inv = a.softcap > 0.f ? 1.f / a.softcap : 0.f;
   p.sm_scale = a.sm_scale;
-  p.n_ktiles = (a.Sk + 127) / 128;
+  p.n_ktiles = (a.Sk + kKeys - 1) / kKeys;
   p.n_qtiles = (a.Sq + 127) / 128;
   const long long kv_items = static_cast<long long>(p.n_ktiles) * a.B * a.KVH;
   const long long q_items = static_cast<long long>(p.n_qtiles) * a.B * a.H;
@@ -1363,11 +1584,12 @@ int dispatch(int route, const Args& a, cudaStream_t stream) {
   const dim3 grid_kv((a.Sk + kBlockN - 1) / kBlockN, a.KVH, a.B);
   const dim3 grid_q((a.Sq + kBlockM - 1) / kBlockM, a.H, a.B);
   cudaError_t e;
-  if (route == kRouteWgmma && (a.hd == 64 || a.hd == 128)) {
+  if (route == kRouteWgmma && (a.hd == 64 || a.hd == 128 || a.hd == 256)) {
     const dim3 grid_vec(static_cast<unsigned>((rows * (a.hd / 8) + 255) / 256));
-    e = launch(a.hd == 64 ? delta_kernel_vec<64> : delta_kernel_vec<128>, a, grid_vec, 256, 0, stream);
+    e = launch(a.hd == 64 ? delta_kernel_vec<64> : a.hd == 128 ? delta_kernel_vec<128> : delta_kernel_vec<256>, a,
+               grid_vec, 256, 0, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
-    return a.hd == 64 ? wg::launch<64>(a, stream) : wg::launch<128>(a, stream);
+    return a.hd == 64 ? wg::launch<64>(a, stream) : a.hd == 128 ? wg::launch<128>(a, stream) : wg::launch<256>(a, stream);
   }
   if (route == kRouteMmaSync && (a.hd == 16 || a.hd == 96)) {
     e = launch(delta_kernel<bf16>, a, grid_delta, 256, 0, stream);
@@ -1383,7 +1605,7 @@ int dispatch(int route, const Args& a, cudaStream_t stream) {
     }
     return static_cast<int>(e);
   }
-  if (route == kRouteF32 && (a.hd == 16 || a.hd == 64 || a.hd == 96 || a.hd == 128)) {
+  if (route == kRouteF32 && (a.hd == 16 || a.hd == 64 || a.hd == 96 || a.hd == 128 || a.hd == 256)) {
     e = launch(delta_kernel<float>, a, grid_delta, 256, 0, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
     switch (a.hd) {
@@ -1399,9 +1621,13 @@ int dispatch(int route, const Args& a, cudaStream_t stream) {
         e = launch(flash_bwd_dkdv_f32<96>, a, grid_kv, kBlockN, f32_smem<96>(), stream);
         if (e == cudaSuccess) e = launch(flash_bwd_dq_f32<96>, a, grid_q, kBlockM, f32_smem<96>(), stream);
         break;
-      default:
+      case 128:
         e = launch(flash_bwd_dkdv_f32<128>, a, grid_kv, kBlockN, f32_smem<128>(), stream);
         if (e == cudaSuccess) e = launch(flash_bwd_dq_f32<128>, a, grid_q, kBlockM, f32_smem<128>(), stream);
+        break;
+      default:
+        e = launch(flash_bwd_dkdv_f32<256>, a, grid_kv, kBlockN, f32_smem<256>(), stream);
+        if (e == cudaSuccess) e = launch(flash_bwd_dq_f32<256>, a, grid_q, kBlockM, f32_smem<256>(), stream);
     }
     return static_cast<int>(e);
   }
@@ -1415,8 +1641,8 @@ extern "C" {
 // returns 0 on success, else the first cudaError_t of an attribute call or
 // a launch, or hopper::kEncodeError plus the CUresult of a failed
 // tensor-map encode (see repro_cuda_error_string).
-// route: 0 "f32" (float32, head_dim 16/64/96/128), 1 "mma_sync" (bf16,
-// 16/96), 2 "wgmma" (bf16, 64/128); any other pairing is refused.
+// route: 0 "f32" (float32, head_dim 16/64/96/128/256), 1 "mma_sync" (bf16,
+// 16/96), 2 "wgmma" (bf16, 64/128/256); any other pairing is refused.
 // dims = {B, H, KVH, Sq, Sk}; strides = element strides {batch, seq, head}
 // of q, k, v, o, dO, dQ, dK, dV in that order.  lse (the forward's) and
 // delta (scratch the wrapper allocates) are contiguous float32 [B, H, Sq].

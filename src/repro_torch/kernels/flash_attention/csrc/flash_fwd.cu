@@ -21,12 +21,13 @@
 // and a route that does not fit the dtype and head_dim is refused:
 //   * "wgmma" (bf16, head_dim 64, 128 and 256): flash_fwd_wgmma below, the
 //     Hopper design.  It serves every full-width path, recurrentgemma-9b's
-//     local attention at 256 among them (forward only; no backward kernel
-//     takes 256).
+//     local attention at 256 among them.
 //   * "mma_sync" (bf16, head_dim 16 and 96): flash_fwd_bf16, the first
 //     port's Ampere-style kernel, kept for the smoke configs' 16-wide heads
 //     (8 and 12 zero-padded to 16 by the wrapper) and phi-3-vision's 96.
-//   * "f32" (float32, head_dim 16, 64, 96, 128): flash_fwd_f32, scalar FMA.
+//   * "f32" (float32, head_dim 16, 64, 96, 128, 256): flash_fwd_f32, scalar
+//     FMA.  At 256 a thread's accumulator row (256 floats) lives in local
+//     memory: that instance serves float32 checks, not a path.
 //
 // What bounds it on the H100.  At the serving path's shape (B=8, H=12,
 // S=1024, hd=64, bf16, causal) it must move ~50 MB (q, k, v, o once each:
@@ -953,6 +954,8 @@ int dispatch(int route, int head_dim, const Args& a, int batch, cudaStream_t s) 
     return static_cast<int>(launch(flash_fwd_f32<96>, a, batch, kBlockM, f32_smem_bytes<96>(), s));
   if (route == kRouteF32 && head_dim == 128)
     return static_cast<int>(launch(flash_fwd_f32<128>, a, batch, kBlockM, f32_smem_bytes<128>(), s));
+  if (route == kRouteF32 && head_dim == 256)
+    return static_cast<int>(launch(flash_fwd_f32<256>, a, batch, kBlockM, f32_smem_bytes<256>(), s));
   return static_cast<int>(cudaErrorInvalidValue);  // a route that does not fit the head_dim
 }
 
@@ -963,7 +966,7 @@ extern "C" {
 // Launches the forward pass on `stream` and returns 0 on success, else a
 // cudaError_t of the attribute call or the launch, or kEncodeError plus the
 // CUresult of a failed tensor-map encode (see repro_cuda_error_string).
-// route: 0 "f32" (float32, head_dim 16/64/96/128), 1 "mma_sync" (bf16, 16/96),
+// route: 0 "f32" (float32, head_dim 16/64/96/128/256), 1 "mma_sync" (bf16, 16/96),
 // 2 "wgmma" (bf16, 64/128/256); any other pairing is refused.  dims = {B, H,
 // KVH, Sq, Sk}; strides = element strides {batch, seq, head} of q, k, v, o
 // in that order.  sm_scale is head_dim**-0.5 rounded once to float32, as the

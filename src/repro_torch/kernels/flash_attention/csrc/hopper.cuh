@@ -120,6 +120,12 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrives at barrier `id` without waiting: the threads that bar.sync on it
+// go on once `threads` have arrived or synced.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------
 
 // Shared-memory matrix descriptor for a 128-byte-swizzled operand.
@@ -291,6 +297,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     wgmma_rs_m64n64(d, a, b, scale_d);
   } else {
     wgmma_rs_m64n128(d, a, b, scale_d);
+  }
+}
+
+// D (64 x HD) += A (64 x 16, registers) . B (16 x HD from shared memory,
+// MN-major, its 64-column atoms `atom` bytes apart): one product at
+// head_dim 64 or 128, two N-128 products (atoms 0-1, then 2-3) at 256.
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2], const uint32_t (&a)[4], uint32_t b,
+                                            uint32_t atom) {
+  if constexpr (HD == 256) {
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, smem_desc(b, atom, 1024), 1);
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, smem_desc(b + 2 * atom, atom, 1024), 1);
+  } else {
+    wgmma_rs<HD>(d, a, smem_desc(b, atom, 1024), 1);
   }
 }
 

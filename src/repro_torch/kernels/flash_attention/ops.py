@@ -33,15 +33,11 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
-#: head dims a kernel is built for (256: the bf16 forward alone)
+#: head dims a kernel is built for
 HEAD_DIMS = (16, 64, 96, 128, 256)
 #: head dims that run zero-padded on head_dim to ``PAD_TO``
 PADDED_HEAD_DIMS = (8, 12)
 PAD_TO = 16
-ITEM_19 = (
-    "head_dim 256 (recurrentgemma-9b) has the bf16 forward alone: its backward and its "
-    "float32 route wait for ROADMAP queue 1, item 19"
-)
 _DTYPES = (torch.bfloat16, torch.float32)
 #: route -> the code ``repro_flash_fwd`` and ``repro_flash_bwd`` take for it
 ROUTES = {"f32": 0, "mma_sync": 1, "wgmma": 2}
@@ -80,7 +76,7 @@ def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     Hopper kernel (TMA ring, wgmma, warp specialisation) that every
     full-width path runs.  ``"mma_sync"``: bf16 at head_dim 96
     (phi-3-vision-4.2b) and 16 (the smoke configs; 8 and 12 padded to 16).
-    ``"f32"``: float32 at 16, 64, 96 and 128 (8 and 12 padded).
+    ``"f32"``: float32 at 16, 64, 96, 128 and 256 (8 and 12 padded).
     """
     return _route(dtype, head_dim, "forward")
 
@@ -88,11 +84,11 @@ def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which backward kernels serve (dtype, head_dim); raises for any other.
 
-    ``"wgmma"``: bf16 at head_dim 64 and 128, the Hopper kernels (TMA rings,
-    wgmma, warp specialisation) that every full-width training path runs.
-    ``"mma_sync"``: bf16 at head_dim 96 and 16 (8 and 12 padded to 16).
-    ``"f32"``: float32 at 16, 64, 96 and 128 (8 and 12 padded).  No
-    backward takes head_dim 256 yet.
+    ``"wgmma"``: bf16 at head_dim 64, 128 and 256 (recurrentgemma-9b), the
+    Hopper kernels (TMA rings, wgmma, warp specialisation) that every
+    full-width training path runs.  ``"mma_sync"``: bf16 at head_dim 96 and
+    16 (8 and 12 padded to 16).  ``"f32"``: float32 at 16, 64, 96, 128 and
+    256 (8 and 12 padded).
     """
     return _route(dtype, head_dim, "backward")
 
@@ -102,8 +98,6 @@ def _route(dtype: torch.dtype, head_dim: int, which: str) -> str:
         hd = kernel_head_dim(head_dim)
     except ValueError as e:
         raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim {head_dim}: {e}") from None
-    if hd == 256 and (which == "backward" or dtype != torch.bfloat16):
-        raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim 256: {ITEM_19}")
     if dtype == torch.bfloat16:
         return "wgmma" if hd in (64, 128, 256) else "mma_sync"
     if dtype == torch.float32:

@@ -57,20 +57,13 @@
 // chunk were slower; the chain of waits costs little (removing it saves
 // ~3%).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "rglru.cuh"
 
 namespace {
 
-constexpr int kSeg = 8;                // steps a warp walks (ref.py SEGMENT)
-constexpr int kWarps = 8;              // segments a chunk
-constexpr int kChunk = kSeg * kWarps;  // steps a block takes (ref.py CHUNK)
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlocks = 4;             // resident blocks a SM: 64 registers a thread
-constexpr int kSlice = 64;             // channels a block, two a lane (ops.py SLICE)
-constexpr float kC = 8.0f;             // LRU_C
+using namespace rglru;
+
+constexpr int kBlocks = 4;  // resident blocks a SM: 64 registers a thread
 
 struct Args {
   const void* x;
@@ -85,68 +78,6 @@ struct Args {
   int* flags;                     // [NC, B, NS] ready flags, then the ticket: zero on entry; or null
   int B, T, Dr, NC, NS;
 };
-
-template <typename T>
-struct Pair;
-
-// Two adjacent channels: loaded as one 8-byte float2 or 4-byte bf16x2 (Raw),
-// widened to float2 when used.
-template <>
-struct Pair<float> {
-  using Raw = float2;
-  static __device__ __forceinline__ Raw load(const float* p) { return *reinterpret_cast<const float2*>(p); }
-  static __device__ __forceinline__ float2 wide(Raw v) { return v; }
-  static __device__ __forceinline__ void store(float* p, float2 v) {
-    *reinterpret_cast<float2*>(p) = v;
-  }
-  static __device__ __forceinline__ float mul(float a, float b) { return a * b; }
-};
-
-template <>
-struct Pair<__nv_bfloat16> {
-  using Raw = __nv_bfloat162;
-  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const __nv_bfloat162*>(p);
-  }
-  static __device__ __forceinline__ float2 wide(Raw v) { return __bfloat1622float2(v); }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float2 v) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
-  }
-  // i * x in bf16: the float product of two bf16 values is exact; round it once
-  static __device__ __forceinline__ float mul(float a, float b) {
-    return __bfloat162float(__float2bfloat16_rn(a * b));
-  }
-};
-
-__device__ __forceinline__ float log_sigmoid(float v) {
-  return fminf(v, 0.f) - log1pf(expf(-fabsf(v)));
-}
-
-// One step's coefficients for one channel: h <- a h + b.  c8lsl is
-// 8 * log_sigmoid(lam); r * c8lsl has the bits of (8 r) * log_sigmoid(lam),
-// since scaling by 8 is exact.
-template <typename T>
-__device__ __forceinline__ void coeff(float r, float ig, float x, float c8lsl, float* a, float* b) {
-  const float log_a = r * c8lsl;
-  *a = expf(log_a);
-  const float beta = sqrtf(fmaxf(1.f - expf(2.f * log_a), 1e-12f));
-  *b = beta * Pair<T>::mul(ig, x);
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
-}
-
-// h <- a h + b for both channels.
-__device__ __forceinline__ float2 step(float2 a, float2 h, float2 b) {
-  return make_float2(fmaf(a.x, h.x, b.x), fmaf(a.y, h.y, b.y));
-}
 
 // Grid: NC * B * NS blocks, one ticket each.
 template <typename T>
@@ -283,9 +214,10 @@ extern "C" {
 // strides (elements, strides = {x: b, t; r: b, t; i: b, t}) aligned for
 // two-element loads.  lam [Dr], h0 and h_last [B, Dr]: contiguous float32,
 // 8-byte aligned.  h [B, T, Dr] contiguous in x's type.  With more than
-// one chunk of 128 steps (NC = ceil(T / 128) > 1), state is float32
-// scratch of [B, NC, Dr] and flags int32 of NC * B * ceil(Dr / 64) + 1,
-// zeroed; otherwise both may be null.
+// one chunk of 64 steps (NC = ceil(T / 64) > 1), state is float32
+// scratch of [B, NC, Dr] (which the wrapper keeps for the backward,
+// rglru_scan_bwd.cu) and flags int32 of NC * B * ceil(Dr / 64) + 1, zeroed;
+// otherwise both may be null.
 int repro_rglru_scan(int device, int is_bf16, const void* x, const void* r, const void* i,
                      const long long* strides, const void* lam, const void* h0, void* h,
                      void* h_last, void* state, void* flags, int batch, int T, int Dr,

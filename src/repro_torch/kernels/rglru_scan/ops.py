@@ -1,32 +1,34 @@
-"""The RG-LRU recurrence of RecurrentGemma in the model's [B, T, Dr] layout.
+"""The RG-LRU recurrence of RecurrentGemma in the model's [B, T, Dr] layout,
+with its gradient.
 
 On CUDA tensors :func:`rglru_scan` launches the hand-written kernel
 ``csrc/rglru_scan.cu`` (which replaces no Pallas kernel: the JAX package
 runs the recurrence as ``jax.lax.associative_scan``,
-``repro/models/rglru.py::rg_lru``), or raises if the inputs are ones it
-cannot take.  On CPU tensors it computes the plain version (:mod:`.ref`),
-through which autograd also runs.  There is no other fallback.  The kernel
-has no backward yet: under autograd on the card the wrapper raises.
+``repro/models/rglru.py::rg_lru``), and :func:`rglru_scan_bwd` the
+backward kernel ``csrc/rglru_scan_bwd.cu`` (JAX differentiates the
+associative scan), or they raise if the inputs are ones they cannot take.
+On CPU tensors they compute the plain versions (:mod:`.ref`).  There is
+no other fallback.  Where autograd needs a gradient :func:`rglru_scan`
+goes through :class:`RGLRUScanFn`: on the card its forward keeps the
+chunks' float32 states that the kernel publishes, and its backward
+recomputes each chunk's h from them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import LAUNCHES, _build
-from .ref import CHUNK, rglru_scan_ref
+from .ref import CHUNK, chunk_states, rglru_scan_bwd_ref, rglru_scan_ref
 
 KERNEL = "rglru_scan"
+BWD_KERNEL = "rglru_scan_bwd"
 #: channels a block of the kernel takes (``csrc/rglru_scan.cu``, ``kSlice``)
 SLICE = 64
 _DTYPES = (torch.bfloat16, torch.float32)
-NO_BACKWARD = (
-    "the rglru_scan kernel has no backward yet: recurrentgemma-9b training on the card waits "
-    "for ROADMAP queue 1, item 19"
-)
 
 
 def _check(x, r_gate, i_gate, lam, h0) -> None:
@@ -75,9 +77,10 @@ def _paired(a: torch.Tensor) -> torch.Tensor:
     return a if a.is_contiguous() and a.data_ptr() % 8 == 0 else a.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Launch the kernel on checked inputs -> (h [B, T, Dr] in x's dtype,
-    h_last [B, Dr] float32)."""
+    h_last [B, Dr] float32, the chunks' published states [B, NC, Dr]
+    float32, or None for one chunk)."""
     b, t, dr = x.shape
     lam, h0 = _paired(lam), _paired(h0)
     h = torch.empty((b, t, dr), dtype=x.dtype, device=x.device)
@@ -91,8 +94,7 @@ def _launch(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     fn = lib.repro_rglru_scan
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    flat = [s for a in (x, r_gate, i_gate) for s in a.stride()[:2]]
-    strides = (ctypes.c_longlong * len(flat))(*flat)
+    strides = _strides(x, r_gate, i_gate)
     err = fn(
         x.device.index, int(x.dtype == torch.bfloat16), x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
         ctypes.addressof(strides), lam.data_ptr(), h0.data_ptr(), h.data_ptr(), h_last.data_ptr(),
@@ -101,7 +103,111 @@ def _launch(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     )
     _build.check(lib, err, KERNEL)
     LAUNCHES[KERNEL] += 1
-    return h, h_last
+    return h, h_last, state
+
+
+def _strides(x, r_gate, i_gate) -> ctypes.Array:
+    flat = [s for a in (x, r_gate, i_gate) for s in a.stride()[:2]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _ptr(a: Optional[torch.Tensor]):
+    return None if a is None else a.data_ptr()
+
+
+def _launch_bwd(x, r_gate, i_gate, lam, h0, states, dy, dh_last):
+    """Launch the backward kernel on checked inputs -> (dx, dr, di, dlam,
+    dh0)."""
+    b, t, dr = x.shape
+    lam, h0 = _paired(lam), _paired(h0)
+    dx, d_r, di = (torch.empty((b, t, dr), dtype=x.dtype, device=x.device) for _ in range(3))
+    dlam = torch.empty(dr, dtype=torch.float32, device=x.device)
+    dh0 = torch.empty((b, dr), dtype=torch.float32, device=x.device)
+    nc = -(-t // CHUNK)
+    # dlam's partial sums, one row a (chunk, batch row), summed in order by a second kernel
+    partial = torch.empty((nc * b, dr), dtype=torch.float32, device=x.device)
+    carry = flags = None
+    if nc > 1:  # the chunks' published carries; their ready flags and the block ticket, zeroed
+        carry = torch.empty((b, nc, dr), dtype=torch.float32, device=x.device)
+        flags = torch.zeros(nc * b * -(-dr // SLICE) + 1, dtype=torch.int32, device=x.device)
+    lib = _build.load("rglru_scan_bwd")
+    fn = lib.repro_rglru_scan_bwd
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    strides = _strides(x, r_gate, i_gate)
+    err = fn(
+        x.device.index, int(x.dtype == torch.bfloat16), x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
+        ctypes.addressof(strides), lam.data_ptr(), h0.data_ptr(), _ptr(states), _ptr(dy), _ptr(dh_last),
+        dx.data_ptr(), d_r.data_ptr(), di.data_ptr(), dlam.data_ptr(), dh0.data_ptr(),
+        _ptr(carry), _ptr(flags), partial.data_ptr(),
+        b, t, dr, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(lib, err, BWD_KERNEL)
+    LAUNCHES[BWD_KERNEL] += 1
+    return dx, d_r, di, dlam, dh0
+
+
+def rglru_scan_fwd(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The forward alone -> (h, h_last, the chunks' published float32
+    states [B, NC, Dr] that :func:`rglru_scan_bwd` takes, or None where T
+    fits one chunk)."""
+    _check(x, r_gate, i_gate, lam, h0)
+    if x.device.type == "cpu":
+        h, h_last = rglru_scan_ref(x, r_gate, i_gate, lam, h0)
+        states = chunk_states(x, r_gate, i_gate, lam, h0)
+        return h, h_last, torch.stack(states, dim=1) if states else None
+    _check_cuda(x, r_gate, i_gate)
+    return _launch(x, r_gate, i_gate, lam, h0)
+
+
+def rglru_scan_bwd(x, r_gate, i_gate, lam, h0, dy, dh_last, *, states=None):
+    """-> (dx, dr, di [B, T, Dr] in x's dtype, dlam [Dr] float32, dh0 [B, Dr]
+    float32) from the forward's inputs and the cotangents of h (``dy``, in
+    x's dtype) and of h_last (``dh_last``, float32); either may be None (no
+    cotangent).  On the card ``states`` are :func:`rglru_scan_fwd`'s (None
+    where T fits one chunk); the CPU recomputes h and ignores them."""
+    _check(x, r_gate, i_gate, lam, h0)
+    b, t, dr = x.shape
+    if dy is not None and (tuple(dy.shape) != (b, t, dr) or dy.dtype != x.dtype or dy.device != x.device):
+        raise ValueError(f"dy must be {x.dtype} {(b, t, dr)} on {x.device}, got {dy.dtype} {tuple(dy.shape)}")
+    if dh_last is not None and (tuple(dh_last.shape) != (b, dr) or dh_last.dtype != torch.float32
+                                or dh_last.device != x.device):
+        raise ValueError(f"dh_last must be float32 {(b, dr)} on {x.device}, got {dh_last.dtype} "
+                         f"{tuple(dh_last.shape)}")
+    if x.device.type == "cpu":
+        return rglru_scan_bwd_ref(x, r_gate, i_gate, lam, h0, dy, dh_last)
+    _check_cuda(x, r_gate, i_gate)
+    nc = -(-t // CHUNK)
+    if nc > 1 and (states is None or tuple(states.shape) != (b, nc, dr) or states.dtype != torch.float32
+                   or not states.is_contiguous()):
+        got = None if states is None else (states.dtype, tuple(states.shape))
+        raise ValueError(f"states must be rglru_scan_fwd's contiguous float32 {(b, nc, dr)}, got {got}")
+    dy = None if dy is None else _paired(dy)
+    dh_last = None if dh_last is None else _paired(dh_last)
+    return _launch_bwd(x, r_gate, i_gate, lam, h0, states if nc > 1 else None, dy, dh_last)
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """The RG-LRU scan with the kernel backward (plain versions on the CPU).
+
+    Under ``remat="full"`` (non-reentrant ``torch.utils.checkpoint``) the
+    recomputation runs the forward again: the kernel gives the same bits
+    on every call, so nothing needs replaying."""
+
+    @staticmethod
+    def forward(ctx, x, r_gate, i_gate, lam, h0):
+        if x.device.type == "cpu":
+            h, h_last = rglru_scan_ref(x, r_gate, i_gate, lam, h0)
+            states = None  # the plain backward recomputes h
+        else:
+            h, h_last, states = rglru_scan_fwd(x, r_gate, i_gate, lam, h0)
+        ctx.save_for_backward(x, r_gate, i_gate, lam, h0, states)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, r_gate, i_gate, lam, h0, states = ctx.saved_tensors
+        return rglru_scan_bwd(x, r_gate, i_gate, lam, h0, dy, dh_last, states=states)
 
 
 def rglru_scan(
@@ -113,13 +219,15 @@ def rglru_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (h [B, T, Dr] in x's dtype, h_last [B, Dr] float32).
 
-    Where autograd needs a gradient the CPU path records it through the
-    plain loop; the card's raises (no backward kernel yet).
+    Where autograd needs a gradient it goes through :class:`RGLRUScanFn`;
+    otherwise the forward alone runs.
     """
     _check(x, r_gate, i_gate, lam, h0)
+    if x.device.type == "cuda":
+        _check_cuda(x, r_gate, i_gate)  # raise before autograd records anything
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, r_gate, i_gate, lam, h0)):
+        return RGLRUScanFn.apply(x, r_gate, i_gate, lam, h0)
     if x.device.type == "cpu":
         return rglru_scan_ref(x, r_gate, i_gate, lam, h0)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, r_gate, i_gate, lam, h0)):
-        raise NotImplementedError(NO_BACKWARD)
-    _check_cuda(x, r_gate, i_gate)
-    return _launch(x, r_gate, i_gate, lam, h0)
+    h, h_last, _ = _launch(x, r_gate, i_gate, lam, h0)
+    return h, h_last

@@ -10,7 +10,9 @@ the conv tail ``[B, 3, Dr]``.
 The projections and the conv are eager torch, as the JAX package leaves
 them to XLA; the recurrence (``rg_lru`` there) runs in the hand-written
 kernel :mod:`repro_torch.kernels.rglru_scan` on the card, its plain version
-on the CPU.  Decode (``in_place=True``) writes the new state into the
+on the CPU; where autograd needs a gradient, through
+:class:`~repro_torch.kernels.rglru_scan.RGLRUScanFn` (the backward kernel
+on the card, the reverse recurrence on the CPU).  Decode (``in_place=True``) writes the new state into the
 cache's tensors.  On a mesh (DTensor arguments) the block raises: the scan
 on each rank's channel shard waits for ROADMAP queue 1, item 20.
 """

@@ -17,7 +17,9 @@ Entry points:
 Training takes gradients through autograd; attention's comes from the
 flash backward kernel (:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`),
 the WKV recurrence's from the WKV backward kernel
-(:class:`~repro_torch.kernels.rwkv6_wkv.WKV6Fn`).
+(:class:`~repro_torch.kernels.rwkv6_wkv.WKV6Fn`), the RG-LRU's from the
+RG-LRU scan's backward kernel
+(:class:`~repro_torch.kernels.rglru_scan.RGLRUScanFn`).
 ``cfg.remat`` "full" recomputes each group in the backward pass
 (``torch.utils.checkpoint``, as ``jax.checkpoint``), all but the WKV
 recurrence, whose recomputation takes the first forward's outputs
@@ -29,11 +31,12 @@ RWKV6 layers (rwkv6-7b) train and serve: the WKV recurrence runs in the
 hand-written kernels (:mod:`repro_torch.kernels.rwkv6_wkv`), and decode
 updates their state in place.
 Recurrent (RG-LRU) layers (recurrentgemma-9b, with its local-attention
-layers at head_dim 256) serve on the card: the recurrence runs in the
-hand-written kernel :mod:`repro_torch.kernels.rglru_scan`, and decode
-updates the LRU state and conv tail in place; they train on the CPU
-through the plain version (the kernel's backward waits for ROADMAP queue
-1, item 19).  Mixture-of-experts FFNs have their parameters and decode
+layers at head_dim 256) train and serve: the recurrence runs in the
+hand-written kernels :mod:`repro_torch.kernels.rglru_scan` (its gradient
+through :class:`~repro_torch.kernels.rglru_scan.RGLRUScanFn`, whose
+forward runs again under remat: the kernel gives the same bits on every
+call), local attention's gradient in the flash backward at head_dim 256,
+and decode updates the LRU state and conv tail in place.  Mixture-of-experts FFNs have their parameters and decode
 state (:func:`init_params`, :func:`init_decode_cache`, so the sizing hooks
 of :mod:`repro_torch.launch.shapes` cover every arch), but a pass through
 them raises: MoE waits for item 11.

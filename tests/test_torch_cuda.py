@@ -30,7 +30,8 @@ from repro_torch.kernels.rwkv6_wkv import (GRAD_CHUNK, WKV_BWD_ROUTE_LAUNCHES, w
                                            wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_fwd, wkv6_ref)
 from repro_torch.kernels.rwkv6_wkv.ops import bwd_route as wkv_bwd_route
 from repro_torch.kernels.rwkv6_wkv.ops import CHUNK as WKV_CHUNK
-from repro_torch.kernels.rglru_scan import CHUNK, rglru_scan, rglru_scan_ref
+from repro_torch.kernels.rglru_scan import (CHUNK, rglru_scan, rglru_scan_bwd, rglru_scan_bwd_chunked_ref,
+                                            rglru_scan_bwd_ref, rglru_scan_fwd, rglru_scan_ref)
 from repro_torch.kernels.wan_quant import wan_dequant, wan_dequant_ref, wan_quant, wan_quant_ref
 from repro_torch.launch.batches import synthetic_prompt_batch
 from repro_torch.models import decode_step, init_params, prefill
@@ -130,21 +131,33 @@ def test_kernel_reads_strided_inputs(cuda):
 @pytest.mark.parametrize("case", [(1, 300, 300, 16, 1, 128), (2, 256, 256, 4, 1, None), (1, 37, 37, 2, 2, 16)],
                          ids=str)
 def test_head_dim_256_forward_runs_and_refuses_backward(cuda, case):
-    """head_dim 256 (recurrentgemma-9b's local attention): the bf16 forward
-    runs on wgmma against the plain version; float32, and a forward that
-    would need the backward, raise naming ROADMAP item 19."""
+    """head_dim 256 (recurrentgemma-9b's local attention), which until the
+    hd-256 backward was ported refused its gradient and float32: the bf16
+    forward runs on wgmma against the plain version, the float32 forward on
+    f32 (1e-4), and under autograd the gradients come from the wgmma
+    backward, against the plain backward (2e-2)."""
     b, sq, sk, h, kvh, window = case
     q, k, v = _qkv(1, b, sq, sk, h, kvh, 256, "bfloat16", cuda)
-    before = ROUTE_LAUNCHES["wgmma"]
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    before = dict(ROUTE_LAUNCHES)
     out = flash_attention(q, k, v, window=window)
+    out32 = flash_attention(q.float(), k.float(), v.float(), window=window)
     torch.cuda.synchronize()
-    assert ROUTE_LAUNCHES["wgmma"] == before + 1
-    plain, _ = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window)
+    assert ROUTE_LAUNCHES["wgmma"] == before.get("wgmma", 0) + 1 and ROUTE_LAUNCHES["f32"] == before.get("f32", 0) + 1
+    plain, lse = flash_attention_ref(*heads, window=window)
     torch.testing.assert_close(out.float(), plain.transpose(1, 2).float(), rtol=2e-2, atol=2e-2)
-    with pytest.raises(ValueError, match="head_dim 256.*item 19"):
-        flash_attention(q.float(), k.float(), v.float(), window=window)
-    with pytest.raises(ValueError, match="head_dim 256.*item 19"):
-        flash_attention(q.requires_grad_(True), k, v, window=window)
+    plain32, _ = flash_attention_ref(*(t.float() for t in heads), window=window)
+    torch.testing.assert_close(out32, plain32.transpose(1, 2), rtol=1e-4, atol=1e-4)
+    do = _qkv(2, b, sq, sq, h, h, 256, "bfloat16", cuda)[0]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    bwd_before = BWD_ROUTE_LAUNCHES["wgmma"]
+    flash_attention(*leaves, window=window).backward(do)
+    torch.cuda.synchronize()
+    assert BWD_ROUTE_LAUNCHES["wgmma"] == bwd_before + 1
+    want = flash_attention_bwd_ref(*heads, plain, lse, do.transpose(1, 2), window=window)
+    for name, t, w in zip("qkv", leaves, want):
+        torch.testing.assert_close(t.grad.float(), w.transpose(1, 2).float(), rtol=2e-2, atol=2e-2,
+                                   msg=lambda m, name=name: f"d{name}: {m}")
 
 
 # (b, sq, sk, h, kvh, causal, window, softcap): edges of the hd-256 wgmma
@@ -158,6 +171,54 @@ HD256_CASES = [
     (3, 333, 333, 5, 5, True, None, None),  # items that divide evenly into no grid
     (1, 2100, 2100, 16, 1, True, 2048, None),  # recurrentgemma-9b's heads and window, past it
 ]
+
+
+@pytest.mark.parametrize("case", HD256_CASES, ids=str)
+def test_head_dim_256_wgmma_backward_matches_plain_and_is_deterministic(cuda, case):
+    """The hd-256 wgmma backward (64-key items, consumer 0 handing P^T to
+    consumer 1; the dQ kernel's 32-key ring) against the plain backward on
+    the kernel forward's output and lse (bf16, 2e-2), on the wgmma route
+    alone; two calls give equal bits."""
+    b, sq, sk, h, kvh, causal, window, cap = case
+    q, k, v = _qkv(4, b, sq, sk, h, kvh, 256, "bfloat16", cuda)
+    do = _qkv(5, b, sq, sq, h, h, 256, "bfloat16", cuda)[0]
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    routes = dict(BWD_ROUTE_LAUNCHES)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    took = {r: n - routes.get(r, 0) for r, n in BWD_ROUTE_LAUNCHES.items() if n != routes.get(r, 0)}
+    assert took == {"wgmma": 2}
+    plain = flash_attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, out)), lse, do.transpose(1, 2), **kw)
+    for name, got, want, same in zip("qkv", grads, plain, again):
+        assert torch.equal(got, same), f"d{name} differs between two calls"
+        torch.testing.assert_close(got.float(), want.transpose(1, 2).float(), rtol=2e-2, atol=2e-2,
+                                   msg=lambda m, name=name: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("case", [(1, 300, 300, 4, 1, True, 100, None), (1, 100, 100, 2, 2, True, None, 30.0),
+                                  (1, 37, 70, 2, 1, False, None, None)], ids=str)
+def test_head_dim_256_f32_forward_and_backward_match_plain(cuda, case):
+    """The float32 route at head_dim 256 (the card's float32 check runs):
+    the forward, its lse and the backward against the plain versions at
+    1e-4."""
+    b, sq, sk, h, kvh, causal, window, cap = case
+    q, k, v = _qkv(6, b, sq, sk, h, kvh, 256, "float32", cuda)
+    do = _qkv(7, b, sq, sq, h, h, 256, "float32", cuda)[0]
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    before = (ROUTE_LAUNCHES["f32"], BWD_ROUTE_LAUNCHES["f32"])
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (ROUTE_LAUNCHES["f32"], BWD_ROUTE_LAUNCHES["f32"]) == (before[0] + 1, before[1] + 1)
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    plain, plain_lse = flash_attention_ref(*heads, **kw)
+    torch.testing.assert_close(out, plain.transpose(1, 2), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, plain_lse, rtol=1e-4, atol=1e-4)
+    want = flash_attention_bwd_ref(*heads, out.transpose(1, 2), lse, do.transpose(1, 2), **kw)
+    for name, got, w in zip("qkv", grads, want):
+        torch.testing.assert_close(got, w.transpose(1, 2), rtol=1e-4, atol=1e-4, msg=lambda m, name=name: f"d{name}: {m}")
 
 
 @pytest.mark.parametrize("case", HD256_CASES, ids=str)
@@ -732,14 +793,106 @@ def test_rglru_kernel_reads_strided_inputs(cuda):
 
 
 def test_rglru_wrapper_rejects_what_the_kernel_cannot_take(cuda):
+    """The kernels' refusals (the backward's too: it needs the forward's
+    chunk states past one chunk); under autograd the wrapper now takes the
+    backward kernel, whose gradient must match the plain one."""
     x, r, i, lam, h0 = _rglru_inputs(3, 2, 8, 64, "float32")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        rglru_scan(x.requires_grad_(True), r, i, lam, h0)
+    leaves = [x.clone().requires_grad_(True), r, i, lam, h0]
+    h, last = rglru_scan(*leaves)
+    (h.sum() + last.sum()).backward()
+    want = rglru_scan_bwd_ref(x, r, i, lam, h0, torch.ones_like(x), torch.ones_like(h0))[0]
+    torch.testing.assert_close(leaves[0].grad, want, rtol=1e-4, atol=1e-4)
+    long = _rglru_inputs(3, 2, CHUNK + 1, 64, "float32")
+    with pytest.raises(ValueError, match="states must be"):
+        rglru_scan_bwd(*long, None, None)
     odd = _rglru_inputs(3, 2, 8, 63, "float32")
     with pytest.raises(ValueError, match="Dr must be even"):
         rglru_scan(*odd)
     with pytest.raises(ValueError, match="one dtype"):
         rglru_scan(x.detach().to(torch.bfloat16), r, i, lam, h0)
+
+
+# (b, t, dr, dtype, gates, cotangents): T = 1, one chunk, one past it, the
+# carry through many chunks (T 300, 4097), r = 0 (the clamp), lam = +-10,
+# Dr 200 (a block's slice cut) and 4096; cotangents on h and h_last, on h
+# alone, on h_last alone
+RGLRU_BWD_CASES = [
+    (2, 1, 256, "bfloat16", None, "both"),
+    (2, CHUNK, 256, "float32", None, "both"),
+    (2, CHUNK + 1, 200, "float32", None, "h_last"),
+    (3, CHUNK + 1, 4096, "bfloat16", None, "both"),
+    (2, 300, 256, "bfloat16", "r_zero", "both"),
+    (2, 300, 256, "float32", "r_one_lam10", "h"),
+    (2, 300, 256, "bfloat16", "lam_minus10", "both"),
+    (1, 4097, 512, "bfloat16", None, "h"),
+]
+
+
+@pytest.mark.parametrize("case", RGLRU_BWD_CASES, ids=str)
+def test_rglru_bwd_kernel_matches_plain_and_is_deterministic(cuda, case):
+    """The backward kernel (the carry through the chunks from the last, h
+    recomputed from the forward's chunk states) against the plain reverse
+    recurrence and its chunked model on the card: dx, dr, di at the dtype's
+    bar, dh0 at 1e-4, dlam (a sum over B x T in another order) at 1e-3;
+    two calls give equal bits."""
+    b, t, dr, dtype, gates, uses = case
+    x, r, i, lam, h0 = _rglru_inputs(4, b, t, dr, dtype, gates)
+    g = torch.Generator(cuda).manual_seed(5)
+    dy = torch.randn((b, t, dr), generator=g, device=cuda).to(x.dtype) if uses != "h_last" else None
+    dh_last = torch.randn((b, dr), generator=g, device=cuda) if uses != "h" else None
+    _, _, states = rglru_scan_fwd(x, r, i, lam, h0)
+    before = LAUNCHES["rglru_scan_bwd"]
+    got = rglru_scan_bwd(x, r, i, lam, h0, dy, dh_last, states=states)
+    again = rglru_scan_bwd(x, r, i, lam, h0, dy, dh_last, states=states)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rglru_scan_bwd"] == before + 2
+    for plain in (rglru_scan_bwd_ref, rglru_scan_bwd_chunked_ref):
+        want = plain(x, r, i, lam, h0, dy, dh_last)
+        tols = (TOL[dtype],) * 3 + (1e-3, 1e-4)
+        for name, a, w, same, tol in zip(("dx", "dr", "di", "dlam", "dh0"), got, want, again, tols):
+            assert a.dtype == w.dtype and torch.equal(a, same), name
+            torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol,
+                                       msg=lambda m, name=name, plain=plain: f"{plain.__name__} {name}: {m}")
+
+
+def test_rglru_gradient_on_the_card_matches_autograd_through_the_plain_loop(cuda):
+    """rglru_scan under grad (the forward kernel keeping its chunk states,
+    then the backward kernel) against autograd through rglru_scan_ref's
+    loop on the card, float32 at 1e-4; one launch of each kernel."""
+    leaves = [a.requires_grad_(True) for a in _rglru_inputs(6, 2, 150, 64, "float32")]
+    w = torch.randn((2, 150, 64), generator=torch.Generator(cuda).manual_seed(7), device=cuda)
+    before = dict(LAUNCHES)
+    h, last = rglru_scan(*leaves)
+    got = torch.autograd.grad((h * w).sum() + last.square().sum(), leaves)
+    torch.cuda.synchronize()
+    assert {n: LAUNCHES[n] - before.get(n, 0) for n in ("rglru_scan", "rglru_scan_bwd")} == {
+        "rglru_scan": 1, "rglru_scan_bwd": 1}
+    ph, plast = rglru_scan_ref(*leaves)
+    want = torch.autograd.grad((ph * w).sum() + plast.square().sum(), leaves)
+    for name, a, b in zip(("x", "r", "i", "lam", "h0"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=lambda m, name=name: f"d{name}: {m}")
+
+
+def test_recurrentgemma_smoke_loss_and_grads_card_match_cpu(cuda):
+    """recurrentgemma-9b's smoke config in float32: the loss and every
+    gradient leaf on the card (4 rglru_scan and 4 rglru_scan_bwd launches,
+    1 flash forward and backward) against the CPU at 1e-4."""
+    cfg = get_smoke_config("recurrentgemma-9b")
+    params = init_params(cfg, generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+    cpu_params = _tree(params, lambda t: t.cpu())
+    batch = loader_for_model(cfg, seq_len=80, global_batch=2, seed=3).next_batch()
+    out = {}
+    for name, p, dev in (("card", params, cuda), ("cpu", cpu_params, "cpu")):
+        before = dict(LAUNCHES)
+        loss, _, grads = pod_grads(p, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg, 1)
+        out[name] = (loss.item(), tree_map(lambda t: t.cpu(), grads),
+                     {n: c - before.get(n, 0) for n, c in LAUNCHES.items() if c != before.get(n, 0)})
+    assert out["card"][2] == {"rglru_scan": 4, "rglru_scan_bwd": 4, "flash_attention_fwd": 1,
+                              "flash_attention_bwd": 1}
+    assert out["cpu"][2] == {}
+    torch.testing.assert_close(out["card"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    for (path, g), (_, c) in zip(tree_items(out["card"][1]), tree_items(out["cpu"][1])):
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-4, msg=lambda m, path=path: f"{path}: {m}")
 
 
 def test_recurrentgemma_smoke_prefill_and_decode_card_matches_cpu(cuda):

@@ -120,6 +120,7 @@ BWD = [
     (1, 64, 64, 2, 2, 64, True, None, 30.0),  # softcap
     (1, 37, 100, 2, 2, 16, False, None, 30.0),  # cross lengths, no mask
     (1, 100, 37, 2, 1, 16, True, None, None),  # more queries than keys
+    (1, 100, 100, 4, 1, 256, True, 48, None),  # recurrentgemma-9b's hd 256: GQA 4 over 1, window, ragged
 ]
 
 
@@ -215,6 +216,7 @@ ROUTES = {
     (torch.float32, 64): "f32",
     (torch.float32, 96): "f32",
     (torch.float32, 128): "f32",
+    (torch.float32, 256): "f32",
 }
 
 
@@ -230,10 +232,10 @@ def test_forward_route(dtype, head_dim):
 
 
 # Which backward kernels each (dtype, head_dim) pair reaches on the card;
-# None: refused.  bf16 at 64 and 128 (every full-width training path) must
-# stay on wgmma.  The forward's table but for head_dim 256, which has no
-# backward yet (ROADMAP queue 1, item 19).
-BWD_ROUTES = {key: route for key, route in ROUTES.items() if key[1] != 256}
+# None: refused.  bf16 at 64, 128 and 256 (every full-width training path,
+# recurrentgemma-9b's local attention at 256) must stay on wgmma.  The
+# forward's table.
+BWD_ROUTES = dict(ROUTES)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16], ids=str)
@@ -248,11 +250,12 @@ def test_backward_route(dtype, head_dim):
 
 
 def test_head_dim_256_is_refused_naming_its_item():
-    """recurrentgemma-9b's head_dim 256: its backward and the float32
-    forward raise naming ROADMAP item 19."""
-    for route, dtype in ((bwd_route, torch.bfloat16), (bwd_route, torch.float32), (fwd_route, torch.float32)):
-        with pytest.raises(ValueError, match="head_dim 256.*item 19"):
-            route(dtype, 256)
+    """recurrentgemma-9b's head_dim 256, whose backward and float32 routes
+    were once refused naming their ROADMAP item: the bf16 backward runs on
+    wgmma (the training path's) and float32 forward and backward on f32
+    (the card's float32 check run)."""
+    assert bwd_route(torch.bfloat16, 256) == "wgmma"
+    assert fwd_route(torch.float32, 256) == bwd_route(torch.float32, 256) == "f32"
 
 
 def test_head_dim_256_bf16_forward_runs_on_wgmma():

@@ -4,7 +4,10 @@ Inputs are made with numpy from a seed and handed to both sides.  The
 recurrence's plain version (what ``rglru_scan`` computes on a CPU tensor)
 is held against JAX ``rg_lru`` (an associative scan); the kernel's chunked
 algorithm (``rglru_scan_chunked_ref``) against the step-by-step loop in
-float64; the conv, the block and the whole smoke model (forward, prefill
+float64; the plain backward (``rglru_scan_bwd_ref``, the reverse
+recurrence) and ``RGLRUScanFn`` against ``jax.grad`` of ``rg_lru``, and the
+backward kernel's chunked algorithm (``rglru_scan_bwd_chunked_ref``)
+against the plain backward in float64; the conv, the block and the whole smoke model (forward, prefill
 with every cache leaf, decode, the loss and every gradient leaf) against
 the JAX functions, on the same weights (drawn by the port's init, through
 ``convert.py``).  The init sets the conv bias and the norm scales to
@@ -15,6 +18,7 @@ version on the card.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,11 +34,14 @@ from repro.models import prefill as jax_prefill
 from repro.models import rglru as jrg
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import cache_to_numpy, params_from_numpy, params_to_numpy
-from repro_torch.kernels.rglru_scan import CHUNK, SEGMENT, rglru_scan, rglru_scan_chunked_ref, rglru_scan_ref
+from repro_torch.kernels.rglru_scan import (CHUNK, SEGMENT, RGLRUScanFn, rglru_scan, rglru_scan_bwd,
+                                            rglru_scan_bwd_chunked_ref, rglru_scan_bwd_ref, rglru_scan_chunked_ref,
+                                            rglru_scan_fwd, rglru_scan_ref)
 from repro_torch.kernels.rglru_scan.ops import _check, _check_cuda
 from repro_torch.models import decode_step, forward, init_params, loss_fn, prefill
 from repro_torch.models import rglru as trg
 
+ROOT = Path(__file__).resolve().parents[1]
 ARCH = "recurrentgemma-9b"
 # TestRgLru's bar for float32; bf16 inputs round at other points
 F32 = dict(rtol=2e-4, atol=2e-5)
@@ -158,6 +165,115 @@ def test_scan_grad_on_the_cpu_matches_jax_grad():
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), rtol=1e-4, atol=1e-5, err_msg=name)
 
 
+# -- the gradient -------------------------------------------------------------------
+
+
+def _jax_grads(arrays, dy, dh_last, dtype):
+    """jax.grad of sum(h * dy) + sum(h_last * dh_last) over rg_lru's five
+    inputs, as float32 numpy."""
+    jargs, _ = _both(arrays, dtype)
+
+    def jloss(x, r, i, lam, h0):
+        h, last = jrg.rg_lru(x, r, i, lam, h0=h0)
+        return jnp.sum(h.astype(jnp.float32) * dy) + jnp.sum(last * dh_last)
+
+    grads = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3, 4)))(*jargs)
+    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+def _cotangents(seed, b, t, dr, dtype):
+    """dy (rounded to ``dtype``, as the cotangent of h in that dtype is) and
+    dh_last, float32 numpy."""
+    rng = np.random.default_rng(seed)
+    dy = rng.standard_normal((b, t, dr)).astype(np.float32)
+    dy = np.array(jnp.asarray(dy, JDT[dtype]).astype(jnp.float32))
+    return dy, rng.standard_normal((b, dr)).astype(np.float32)
+
+
+# (T, gates, dtype): T at 1, one below, at and one past the kernel's 64-step
+# chunk, and past several; r = 0 (the clamp), lam = 10 and -10; bf16 at
+# the suite's bf16 tolerance
+GRAD_CASES = ([(t, None, "float32") for t in (1, 63, CHUNK, CHUNK + 1, 300)]
+              + [(t, g, "float32") for t in (1, CHUNK + 1, 300) for g in ("r_zero", "r_one_lam10", "lam_minus10")]
+              + [(t, None, "bfloat16") for t in (CHUNK + 1, 300)] + [(300, "r_zero", "bfloat16")])
+
+
+@pytest.mark.parametrize("t,gates,dtype", GRAD_CASES, ids=str)
+def test_bwd_ref_and_autograd_function_match_jax_grad(t, gates, dtype):
+    """The plain backward (the reverse recurrence) and the autograd function
+    (``rglru_scan`` under grad) against ``jax.grad`` of ``rg_lru``, with
+    cotangents on both h and h_last, from a non-zero h0: float32 at rtol
+    1e-4 / atol 1e-5, bf16 at the suite's bf16 bar."""
+    arrays = _scan_inputs(100 + t, 2, t, 8, gates)
+    dy, dh_last = _cotangents(200 + t, 2, t, 8, dtype)
+    want = _jax_grads(arrays, dy, dh_last, dtype)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == "float32" else BF16
+    _, targs = _both(arrays, dtype)
+    tdy = torch.from_numpy(dy).to(TDT[dtype])
+    plain = rglru_scan_bwd_ref(*targs, tdy, torch.from_numpy(dh_last))
+    leaves = [a.clone().requires_grad_(True) for a in targs]
+    h, last = rglru_scan(*leaves)
+    assert type(h.grad_fn).__name__ == "RGLRUScanFnBackward"
+    auto = torch.autograd.grad((h.float() * torch.from_numpy(dy)).sum() + (last * torch.from_numpy(dh_last)).sum(),
+                               leaves)
+    for name, p, a, w, leaf in zip(("x", "r", "i", "lam", "h0"), plain, auto, want, targs):
+        assert p.dtype == a.dtype == leaf.dtype, name
+        np.testing.assert_allclose(_np(p), w, **tol, err_msg=f"plain d{name}")
+        np.testing.assert_allclose(_np(a), w, **tol, err_msg=f"RGLRUScanFn d{name}")
+
+
+@pytest.mark.parametrize("t,chunk,segment", [
+    (1, 8, 4), (8, 8, 4), (9, 8, 4), (37, 8, 8),
+    (37, CHUNK, SEGMENT), (CHUNK, CHUNK, SEGMENT), (CHUNK + 1, CHUNK, SEGMENT), (2 * CHUNK + 44, CHUNK, SEGMENT),
+])
+@pytest.mark.parametrize("gates", [None, "r_zero", "lam_minus10"])
+def test_bwd_chunked_ref_matches_step_by_step_in_float64(t, chunk, segment, gates):
+    """The backward kernel's algorithm: the carry through the chunks from
+    the last, each segment's carry from its zero-carry walk folded in, h
+    recomputed from each chunk's published start; equal to the reverse
+    recurrence in float64, dh_last and no dh_last."""
+    x, r, i, lam, h0 = (torch.from_numpy(a.astype(np.float64)) for a in _scan_inputs(9, 2, t, 6, gates))
+    rng = np.random.default_rng(t)
+    dy = torch.from_numpy(rng.standard_normal((2, t, 6)))
+    for dh_last in (torch.from_numpy(rng.standard_normal((2, 6))), None):
+        want = rglru_scan_bwd_ref(x, r, i, lam, h0, dy, dh_last)
+        got = rglru_scan_bwd_chunked_ref(x, r, i, lam, h0, dy, dh_last, chunk=chunk, segment=segment)
+        for name, g, w in zip(("x", "r", "i", "lam", "h0"), got, want):
+            torch.testing.assert_close(g, w, rtol=1e-10, atol=1e-10, msg=f"d{name}")
+
+
+def test_autograd_function_matches_autograd_through_the_loop():
+    """``RGLRUScanFn`` on the CPU (the plain forward, then the reverse
+    recurrence) against autograd through ``rglru_scan_ref``'s loop, float32
+    (the two sum in other orders); h alone, h_last alone and both as what
+    the loss reads."""
+    arrays = [torch.from_numpy(a) for a in _scan_inputs(11, 3, 70, 10)]
+    w = torch.from_numpy(np.random.default_rng(12).standard_normal((3, 70, 10)).astype(np.float32))
+    for uses in ("h", "h_last", "both"):
+        sides = []
+        for fn in (RGLRUScanFn.apply, rglru_scan_ref):
+            leaves = [a.clone().requires_grad_(True) for a in arrays]
+            h, last = fn(*leaves)
+            loss = {"h": (h * w).sum(), "h_last": last.square().sum(), "both": (h * w).sum() + last.sum()}[uses]
+            sides.append(torch.autograd.grad(loss, leaves))
+        for name, got, want in zip(("x", "r", "i", "lam", "h0"), *sides):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, msg=f"{uses}: d{name}")
+
+
+def test_fwd_states_are_the_chunks_published_states():
+    """``rglru_scan_fwd`` on the CPU: h and h_last as ``rglru_scan``, and the
+    states the backward kernel starts its chunks from (the chunked
+    algorithm's published ones), None where T fits one chunk."""
+    x, r, i, lam, h0 = (torch.from_numpy(a) for a in _scan_inputs(13, 2, 2 * CHUNK + 5, 6))
+    h, last, states = rglru_scan_fwd(x, r, i, lam, h0)
+    want_h, want_last = rglru_scan(x, r, i, lam, h0)
+    assert torch.equal(h, want_h) and torch.equal(last, want_last)
+    assert states.shape == (2, 3 - 1, 6) and states.dtype == torch.float32
+    torch.testing.assert_close(states[:, 0], h[:, CHUNK - 1], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(states[:, 1], h[:, 2 * CHUNK - 1], rtol=1e-5, atol=1e-6)
+    assert rglru_scan_fwd(x[:, :CHUNK], r[:, :CHUNK], i[:, :CHUNK], lam, h0)[2] is None
+
+
 # -- the wrapper's checks ---------------------------------------------------------
 
 
@@ -176,6 +292,10 @@ def test_checks_refuse_what_the_kernel_cannot_take():
     odd = [torch.from_numpy(a) for a in _scan_inputs(0, 2, 5, 7)]
     with pytest.raises(ValueError, match="Dr must be even"):
         _check_cuda(*odd[:3])
+    with pytest.raises(ValueError, match="dy must be"):
+        rglru_scan_bwd(x, r, i, lam, h0, x.to(torch.bfloat16), None)
+    with pytest.raises(ValueError, match="dh_last must be float32"):
+        rglru_scan_bwd(x, r, i, lam, h0, None, h0.double())
     strided = torch.zeros((2, 5, 16))[..., ::2]
     with pytest.raises(ValueError, match="x: the last dimension must be contiguous"):
         _check_cuda(strided, r, i)
@@ -356,9 +476,15 @@ def test_smoke_state_carry_matches_a_longer_prefill(t):
     np.testing.assert_allclose(_np(carried), _np(whole), rtol=MODEL_TOL["float32"], atol=MODEL_TOL["float32"])
 
 
-def test_smoke_loss_and_every_grad_leaf_match_jax():
+def test_smoke_loss_and_every_grad_leaf_match_jax(monkeypatch):
     """``loss_fn`` and every leaf's gradient against ``jax.grad``, through
-    the plain scan on the CPU; 16 tokens cross the local window of 8."""
+    ``RGLRUScanFn`` on the CPU (the plain forward, then the reverse
+    recurrence: one backward a recurrent layer); 16 tokens cross the local
+    window of 8."""
+    from repro_torch.kernels.rglru_scan import ops
+
+    calls = []
+    monkeypatch.setattr(ops, "rglru_scan_bwd", lambda *a, **k: calls.append(1) or rglru_scan_bwd(*a, **k))
     jcfg, tcfg, jparams, tparams = _model("float32", seed=6)
     tokens = np.random.default_rng(8).integers(0, jcfg.vocab_size, (2, 17))
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
@@ -369,6 +495,8 @@ def test_smoke_loss_and_every_grad_leaf_match_jax():
         leaf.requires_grad_(True)
     loss, _ = loss_fn(tparams, {k: torch.from_numpy(v) for k, v in batch.items()}, tcfg)
     grads = torch.autograd.grad(loss, leaves)
+    kinds = list(tcfg.pattern) * tcfg.num_groups + list(tcfg.remainder)
+    assert len(calls) == kinds.count("recurrent") == 4
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-4, atol=1e-4)
     jflat = [(jax.tree_util.keystr(p), np.asarray(g)) for p, g in jax.tree_util.tree_flatten_with_path(jgrads)[0]]
     assert len(jflat) == len(grads) == len(leaves)
@@ -383,3 +511,25 @@ def test_serve_cli_runs_recurrentgemma_on_cpu(capsys):
     serve.main(["--arch", ARCH, "--device", "cpu", "--gen", "2"])
     out = capsys.readouterr().out
     assert out.startswith("prefill: 4x32 in ") and "decode: 2 steps in " in out
+
+
+def test_chip_smoke_train_cut_sizes_are_the_configs():
+    """``chip_smoke.py``'s train_recurrentgemma cut (one group at full
+    width): the parameter count and leaves it holds the card run to are the
+    sizing hooks' (meta device) and the JAX package's analytic count."""
+    import importlib.util
+
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import params_specs
+    from repro_torch.tree import tree_leaves
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cut = dataclasses.replace(get_config(ARCH), num_layers=smoke.RG_TRAIN_LAYERS)
+    leaves = tree_leaves(params_specs(cut))
+    assert (sum(t.numel() for t in leaves), len(leaves)) == (smoke.RG_TRAIN_PARAMS, smoke.RG_TRAIN_LEAVES)
+    assert cut.num_groups == 1 and not cut.remainder and cut.remat == "full"
+    jcut = dataclasses.replace(jax_get_config(ARCH), num_layers=smoke.RG_TRAIN_LAYERS)
+    assert jcut.param_count() == cut.param_count()

@@ -317,6 +317,42 @@ def test_three_hier_int8_steps_match_jax():
         np.testing.assert_allclose(free["loss"].item(), float(jloss), rtol=tol, atol=tol, err_msg=f"free loss {i}")
 
 
+@pytest.mark.parametrize("strategy", ["hier_int8", "ps", "allreduce", "hier"])
+def test_donating_step_gives_the_same_bits_in_the_same_storage(strategy):
+    """``make_train_step(donate=True)`` (the JAX step's ``donate_argnums``):
+    two steps from the same parameters and state give bit-equal
+    parameters, moments, error feedback and metrics to the functional
+    step's, in the donated parameters' and state's own storage."""
+    npods, cfg = 2, get_smoke_config("distilgpt2-82m")
+    from repro_torch.models import init_params
+
+    base = init_params(cfg, generator=torch.Generator().manual_seed(4), device="cpu")
+    opt = AdamWConfig(**OPT)
+    runs = {}
+    for donate in (False, True):
+        params = tree_map(torch.clone, base)
+        state = init_train_state(params, opt, strategy=strategy, npods=npods)
+        ptrs = [t.data_ptr() for t in tree_leaves((params, state.adam.m, state.adam.v, state.ef))]
+        step = make_train_step(cfg, npods=npods, strategy=strategy, opt_cfg=opt, device="cpu", donate=donate)
+        loader = loader_for_model(cfg, seq_len=32, global_batch=4, seed=6)
+        metrics = []
+        for _ in range(2):
+            params, state, m = step(params, state, loader.next_batch())
+            metrics.append({k: float(v) for k, v in m.items()})
+        after = [t.data_ptr() for t in tree_leaves((params, state.adam.m, state.adam.v, state.ef))]
+        assert (after == ptrs) == donate
+        runs[donate] = (tree_leaves((params, state)), metrics)
+    assert runs[True][1] == runs[False][1]
+    for a, b in zip(runs[True][0], runs[False][0]):
+        assert torch.equal(a, b)
+
+
+def test_donating_step_refuses_local_sgd():
+    with pytest.raises(ValueError, match="donate"):
+        make_train_step(get_smoke_config("distilgpt2-82m"), npods=2, strategy="local_sgd", device="cpu",
+                        donate=True)
+
+
 def test_musicgen_hier_int8_step_matches_jax():
     """One whole 2-pod hier_int8 step of musicgen-large's smoke config from
     the JAX state.  Its untied ``embed`` is a leaf the loss never reads: a
@@ -585,6 +621,18 @@ def test_train_cli_trains_musicgen_on_cpu(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert "final loss" in out.stdout and "after 1 steps" in out.stdout
+
+
+def test_train_cli_trains_recurrentgemma_on_cpu(tmp_path):
+    """recurrentgemma-9b's smoke config trains through the CLI: the RG-LRU
+    gradient from RGLRUScanFn (its plain backward on the CPU)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "recurrentgemma-9b", "--device", "cpu",
+         "--steps", "2", "--checkpoint-dir", str(tmp_path)],
+        env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "final loss" in out.stdout and "after 2 steps" in out.stdout
 
 
 def test_train_cli_defaults_to_cuda_and_raises_without_it():

@@ -226,6 +226,7 @@ FLASH_CASES = [
     # mid-tile, and hd 256 with no window (sdpa beside it); float32 at 256
     # (the train_recurrentgemma float32 check's route)
     ("rg9b_hd256_mqa_w2048", 4, 4096, 16, 1, 256, "bfloat16", 2048, None, "wgmma"),
+    ("rg9b_train_hd256_mqa_w2048", 1, 4096, 16, 1, 256, "bfloat16", 2048, None, "wgmma"),
     ("hd256_ragged_s300_w128", 1, 300, 16, 1, 256, "bfloat16", 128, None, "wgmma"),
     ("hd256_h4_kvh1", 2, 1024, 4, 1, 256, "bfloat16", None, None, "wgmma"),
     ("hd256_f32_w128", 1, 512, 4, 1, 256, "float32", 128, None, "f32"),
@@ -302,12 +303,15 @@ WKV_BWD_CASES = [
 ]
 WKV_SMALL_W = {"1e-30": 1e-30, "denormal": 1e-40, "zero": 0.0}
 # (label, B, T, Dr, dtype, gates): the recurrentgemma-9b prefill's shape
-# (non-zero h0), its decode step, T one past a multiple of the kernel's
-# 64-step chunk and one past one chunk, two float32 shapes, and extreme gates:
-# r = 0 everywhere (a = 1, beta at the 1e-6 clamp), r = 1 with lam = 10
-# (a = sigmoid(10)^8) and lam = -10 (a near 0)
+# (non-zero h0), train_recurrentgemma's per-pod row, its decode step, T one
+# past a multiple of the kernel's 64-step chunk and one past one chunk, two
+# float32 shapes, and extreme gates: r = 0 everywhere (a = 1, beta at the
+# 1e-6 clamp), r = 1 with lam = 10 (a = sigmoid(10)^8) and lam = -10 (a
+# near 0)
+RGLRU_TRAIN_POD = ("train_pod_1x4096", 1, 4096, 4096, "bfloat16", None)
 RGLRU_CASES = [
     ("path_prefill", 4, 4096, 4096, "bfloat16", None),
+    RGLRU_TRAIN_POD,
     ("path_decode_t1", 4, 1, 4096, "bfloat16", None),
     ("ragged_t4097", 1, 4097, 4096, "bfloat16", None),
     ("t65_one_chunk_plus_1", 4, 65, 4096, "bfloat16", None),
@@ -321,7 +325,7 @@ RGLRU_LAST_TOL = 1e-4  # h_last is float32 on both sides
 # (label, B, T, Dr, dtype, gates): the RG-LRU backward at train_recurrentgemma's
 # per-pod 1 x 4096 x 4096 and at 4 x 4096 x 4096 (both timed), then the
 # forward's edge shapes; cotangents on h and h_last
-RGLRU_BWD_CASES = [("train_pod_1x4096", 1, 4096, 4096, "bfloat16", None)] + RGLRU_CASES
+RGLRU_BWD_CASES = [RGLRU_TRAIN_POD] + [c for c in RGLRU_CASES if c != RGLRU_TRAIN_POD]
 RGLRU_BWD_TIMED = 2  # the first cases, their plain version timed too
 RGLRU_DLAM_TOL = 1e-3  # dlam: a float32 sum over B x T in another order
 WKV_BWD_TIMED = 2  # the first cases, timed
@@ -404,6 +408,36 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+# the flash backward's launches, as the profiler names their kernels
+FLASH_BWD_PARTS = {"D": "delta_kernel", "dK_dV": "flash_bwd_dkdv", "dQ": "flash_bwd_dq"}
+PARTS_MS_IS = ("device time of each part's kernel a call: torch.profiler's CUDA kernel events over "
+               "PARTS_CALLS calls, by name, in the last phase (a profiler session raises later device "
+               "times by 1-2%)")
+PARTS_CALLS = 5
+
+
+def parts_ms(fn, parts, calls: int = PARTS_CALLS):
+    """{part: device ms a call} of the kernels ``fn`` launches whose names
+    hold each of ``parts``' substrings, from torch.profiler's CUDA events
+    over ``calls`` calls (after one warm call); a part with no event is
+    "not measured" (the profiler saw no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for part, key in parts.items():
+        us = [e.time_range.elapsed_us() for e in kernels if key in e.name]
+        out[part] = sum(us) / 1e3 / calls if us else "not measured"
+    return out
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -679,7 +713,7 @@ def phase_kernels_bwd(torch):
         flash_attention_bwd_ref,
         flash_attention_fwd,
     )
-    from repro_torch.kernels.flash_attention.ops import PADDED_LAUNCHES
+    from repro_torch.kernels.flash_attention.ops import PADDED_LAUNCHES, dkdv_cluster
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     checks = []
@@ -752,6 +786,14 @@ def phase_kernels_bwd(torch):
         def kernel():
             return flash_attention_bwd(q, k, v, out, lse, do, **kw)
 
+        if hd == 256 and route == "wgmma":  # the dK/dV items' heads split over a cluster
+            more["kv_cluster"] = dkdv_cluster(b, kvh, s, h // kvh, torch.cuda.get_device_properties(0).multi_processor_count)
+            again = kernel()
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+                raise AssertionError(f"flash_attention_bwd {label}: two calls on the same inputs differ")
+            more["two_calls_equal"] = True
+            del again
         ms = device_ms(kernel)
         checks.append({
             "label": label, "shape": {"B": b, "S": s, "H": h, "KVH": kvh, "hd": hd},
@@ -770,6 +812,32 @@ def phase_kernels_bwd(torch):
         del q, k, v, do, out, lse, heads, grads, plain
     emit({"phase": "kernels", "kernel": "flash_attention_bwd", "checks": checks})
     return checks
+
+
+def phase_flash_bwd_parts(torch):
+    """The hd-256 bf16 flash backward cases' D, dK/dV and dQ launches timed
+    apart, and the dK/dV kernel's cluster size; run last, since the
+    profiler moves the device times that follow it."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ops import dkdv_cluster
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = []
+    for label, b, s, h, kvh, hd, dtype, window, cap, route in FLASH_BWD_CASES:
+        if hd != 256 or route != "wgmma":
+            continue
+        q, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn((b, s, kvh, hd), generator=gen, device="cuda").bfloat16() for _ in range(2))
+        kw = dict(causal=True, window=window, logit_softcap=cap)
+        out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+        cases.append({
+            "label": label, "kv_cluster": dkdv_cluster(b, kvh, s, h // kvh, sms),
+            "parts_ms": parts_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw), FLASH_BWD_PARTS),
+        })
+        del q, k, v, do, out, lse
+    emit({"phase": "flash_bwd_parts", "parts_ms_is": PARTS_MS_IS, "cases": cases})
+    return cases
 
 
 def phase_kernels_wan(torch):
@@ -2895,6 +2963,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rg = phase_train_recurrentgemma(torch)
     quick = phase_quickstart(torch)
+    parts = phase_flash_bwd_parts(torch)
 
     def entry(name, source, replaces, check, **more):
         return {
@@ -2931,7 +3000,7 @@ def main() -> int:
         entry("flash_attention_bwd", "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
               "none: the JAX package trains through autodiff of dense attention (no Pallas backward)",
               bwd[0], library_is=bwd[0]["library_is"], library_bwd_ms=bwd[0]["library_bwd_ms"],
-              bwd_route=bwd[0]["bwd_route"], shapes=bwd),
+              bwd_route=bwd[0]["bwd_route"], shapes=bwd, hd256_parts=parts),
         entry("wan_quant", "src/repro_torch/kernels/wan_quant/csrc/wan_quant.cu",
               "src/repro/kernels/wan_quant/kernel.py:44",
               dict(wan_err, ms=wan_step["quant_ms"], call_ms=wan_step["quant_call_ms"],

@@ -2,9 +2,9 @@
 
 Each kernel source (``<package>/csrc/<name>.cu``) becomes a shared library
 with a plain C interface, loaded with ``ctypes``.  The library's file name
-carries a hash of its source, of the headers (``*.cuh``) beside it, and of
-the compiler flags, so an edit rebuilds it and an unchanged checkout reuses
-it.  Libraries go to
+carries a hash of its source, of the headers it includes (``#include
+"..."``, followed into theirs), and of the compiler flags, so an edit
+rebuilds it and an unchanged checkout reuses it.  Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``).  Nothing is built when a module is imported: the CPU tests
 import every module on a machine with no ``nvcc``.
@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -54,10 +55,25 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME or /usr/local/cuda")
 
 
+def headers(src: Path) -> List[Path]:
+    """The headers ``src`` includes with ``#include "..."``, and theirs,
+    resolved beside the including file."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        for name in re.findall(r'^\s*#include\s+"([^"]+)"', path.read_text(), flags=re.M):
+            header = (path.parent / name).resolve()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
     src = SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in headers(src):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     digest = h.hexdigest()

@@ -51,7 +51,8 @@
 //
 // Design of the wgmma route.  Both kernels are persistent (one CTA per SM)
 // with 384 threads in three warpgroups: a producer (registers lowered to 24
-// with setmaxnreg) and two consumers (raised to 240).  Work items are
+// with setmaxnreg; 40 in the hd-256 dK/dV kernel) and two consumers (raised
+// to 240; 232 there).  Work items are
 // numbered heaviest first and dealt in rounds of alternating direction, as
 // in the forward.  Tiles arrive by TMA through 4-D tensor maps (hd, heads,
 // seq, batch) in the 128-byte swizzle, and every product is a wgmma: K-major
@@ -94,9 +95,18 @@
 //     consumer 1 through two float32 buffers in shared memory (16 KB each,
 //     named barriers for full and empty), which forms dP^T, dS^T and
 //     accumulates dK: four products a tile, as at 64 and 128.  Each 256-
-//     wide product is two m64n128 ones over the atoms 0-1 and 2-3.  In
-//     flash_bwd_dq_wgmma the item's Q and dO take 128 KB, so there is one
-//     query buffer and K and V stream as 32-key tiles (ring of three).
+//     wide product is two m64n128 ones over the atoms 0-1 and 2-3.  With
+//     one kv head (recurrentgemma-9b) there are few items, 64 at 1 x 4096:
+//     half the SMs would idle while each walked 16 query heads.  So an
+//     item goes to a cluster of 1, 2 or 4 CTAs (ops.py::dkdv_cluster, a
+//     divisor of G), each walking its share of the G query heads: the
+//     item's K and V are multicast to all of them (each CTA's producer
+//     loads its share of the atoms), and the float32 partials of dK and dV
+//     are summed in rank order through distributed shared memory (each CTA
+//     owns 256 / cluster columns; dkdv_consumers_hd256), with no atomics and
+//     no global scratch.  In flash_bwd_dq_wgmma the item's Q and dO take
+//     128 KB, so there is one query buffer and K and V stream as 32-key
+//     tiles (ring of three).
 // Masked pairs get P = 0 directly: exp(-1e30 - lse) is 0 in float32 for
 // every lse a row that sees a key can have (the wrappers refuse rows that
 // see none).  The tensor maps are encoded on the host (hopper.cuh, no
@@ -730,6 +740,7 @@ struct Params {
   int causal, window;
   float softcap, softcap_inv, sm_scale;
   int n_ktiles, n_qtiles;  // key items (dK/dV: KvShape::kKeys), 128-row items (dQ)
+  int cluster;             // dK/dV at head_dim 256: CTAs a cluster, each a share of an item's query heads
 };
 
 // dK/dV kernel: an item is kKeys keys of one (kv head, batch); 64-row
@@ -755,8 +766,11 @@ struct KvShape {
   static constexpr int kL = kP + (HD == 256 ? 2 * 64 * 64 * 4 : 0);  // float [stage][64]: lse * log2 e, +inf past Sq
   static constexpr int kD = kL + kStages * 64 * 4;   // float [stage][64]: D, 0 past Sq
   static constexpr int kBar = kD + kStages * 64 * 4;
-  // barriers: full, empty [kStages]; K/V full, K/V empty [kBufs]
-  static constexpr int kAlloc = kBar + 8 * (2 * kStages + 2 * kBufs) + 1024;  // + room to align
+  // barriers: full, empty [kStages]; K/V full, K/V empty [kBufs]; at head_dim
+  // 256 also the cluster's consumers done with the item, and each
+  // consumer's partials received
+  static constexpr int kBars = 2 * kStages + 2 * kBufs + (HD == 256 ? 3 : 0);
+  static constexpr int kAlloc = kBar + 8 * kBars + 1024;  // + room to align
   static_assert(kAlloc <= 232448, "more shared memory than a block can have");
 };
 
@@ -786,11 +800,14 @@ struct DqShape {
   static_assert(kAlloc <= 232448, "more shared memory than a block can have");
 };
 
-// The CTA's i-th item: rounds of gridDim.x items, taken in order in even
-// rounds and in reverse in odd ones, as in the forward.
-__device__ __forceinline__ int item_index(int i) {
-  const int lane = i % 2 == 0 ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
-  return i * gridDim.x + lane;
+// The i-th item of the CTA's cluster of `cs` CTAs (consecutive blockIdx.x;
+// 1 outside the hd-256 dK/dV kernel): rounds of gridDim.x / cs items,
+// taken in order in even rounds and in reverse in odd ones, as in the
+// forward.
+__device__ __forceinline__ int item_index(int i, int cs = 1) {
+  const int n = gridDim.x / cs, id = blockIdx.x / cs;
+  const int lane = i % 2 == 0 ? id : n - 1 - id;
+  return i * n + lane;
 }
 
 // A dK/dV item of kKeys keys and the 64-row query tiles [qt_beg, qt_end)
@@ -942,10 +959,9 @@ __device__ __forceinline__ void ds_tile(const Params& p, float (&s)[N / 2], floa
 }
 
 // Named barriers of the hd-256 dK/dV consumers (1 and 2 are each
-// consumer's own): both consumers, before the epilogue writes over K and
-// V; P^T exchange buffer b full (consumer 0 arrives, 1 syncs) and empty
-// (1 arrives, 0 syncs).
-constexpr int kBarPair = 3, kBarPFull = 4, kBarPEmpty = 6;
+// consumer's own): P^T exchange buffer b full (consumer 0 arrives, 1
+// syncs) and empty (1 arrives, 0 syncs).
+constexpr int kBarPFull = 4, kBarPEmpty = 6;
 
 // P^T over the item's 64 keys x one 64-query tile (in place of S^T) and,
 // into the exchange buffer `pf` (float4 [8][128 threads]), P^T times the
@@ -995,30 +1011,163 @@ __device__ __forceinline__ void ds_t_from(float (&dpt)[32], const float4* pf, co
   }
 }
 
+// rows [0, 64) of a 64 x 256 float32 accumulator, times `scale`, as bf16
+// into a swizzled tile (atoms `atom` bytes apart): only its 8-column blocks
+// [j_lo, j_hi), the columns this CTA of the cluster owns.
+__device__ __forceinline__ void store_acc_cols(uint32_t dst, int atom, const float (&acc)[128], float scale,
+                                               int warp, int g, int t, int j_lo, int j_hi) {
+  const int lr = 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (j < j_lo || j >= j_hi) continue;
+    const uint32_t a = dst + (j / 8) * atom + lr * kRowBytes + ((j % 8) ^ g) * 16 + 4 * t;
+    st_shared(a, hopper::pack_bf16x2(acc[4 * j + 0] * scale, acc[4 * j + 1] * scale));
+    st_shared(a + 8 * kRowBytes, hopper::pack_bf16x2(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale));
+  }
+}
+
+// The producer warp of flash_bwd_dkdv_wgmma at head_dim 256, in the 40
+// registers setmaxnreg leaves it (kProducerRegs256; what it needs is
+// recomputed from the parameters rather than kept).  Per item: once every
+// CTA of the cluster is done with the last one, its share of K's and V's atoms
+// (atoms rank, rank + cluster, ...) multicast to all of them; then, for
+// this CTA's query heads, each 64-row Q and dO tile by TMA and its lse *
+// log2 e (+inf past Sq) and D rows by the 32 lanes.
+__device__ __forceinline__ void dkdv_producer_hd256(const Params& p, uint32_t base, int n_items) {
+  using L = KvShape<256>;
+  constexpr int kStages = L::kStages;
+  static_assert(L::kBufs == 1, "one K/V buffer at head_dim 256");
+  const uint32_t bar_full = base + L::kBar, bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_kv = bar_empty + 8 * kStages, bar_kv_empty = bar_kv + 8;
+  const int lane = threadIdx.x % 32;
+  int tiles = 0;
+  for (int i = 0; item_index(i, p.cluster) < n_items; ++i) {
+    const KvItem it = kv_item<L::kKeys>(p, item_index(i, p.cluster));
+    const int rank = static_cast<int>(hopper::cluster_ctarank());
+    hopper::mbar_wait_cluster(bar_kv_empty, (i % 2) ^ 1);
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(bar_kv, 2 * L::kKVTile);
+      for (int a = rank; a < L::kAtoms; a += p.cluster) {
+        const uint32_t off = a * L::kKVAtom;
+        if (p.cluster == 1) {
+          hopper::tma_load_4d(base + L::kK + off, &p.tk_kv, bar_kv, a * 64, it.kvh, it.k0, it.b);
+          hopper::tma_load_4d(base + L::kV + off, &p.tv_kv, bar_kv, a * 64, it.kvh, it.k0, it.b);
+        } else {
+          const uint16_t all = static_cast<uint16_t>((1u << p.cluster) - 1);
+          hopper::tma_load_4d_multicast(base + L::kK + off, &p.tk_kv, bar_kv, a * 64, it.kvh, it.k0, it.b, all);
+          hopper::tma_load_4d_multicast(base + L::kV + off, &p.tv_kv, bar_kv, a * 64, it.kvh, it.k0, it.b, all);
+        }
+      }
+    }
+    const int nh = p.H / p.KVH / p.cluster;
+    const int h_beg = it.kvh * nh * p.cluster + rank * nh;  // this CTA's first query head
+    for (int h = h_beg; h < h_beg + nh; ++h) {
+      for (int qt = it.qt_beg; qt < it.qt_end; ++qt, ++tiles) {
+        const int stage = tiles % kStages;
+        hopper::mbar_wait(bar_empty + 8 * stage, ((tiles / kStages) % 2) ^ 1);
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(bar_full + 8 * stage, 2 * L::kQTile);
+          for (int a = 0; a < L::kAtoms; ++a) {
+            const uint32_t off = stage * L::kQTile + a * L::kQAtom;
+            hopper::tma_load_4d(base + L::kQ + off, &p.tq64, bar_full + 8 * stage, a * 64, h, qt * 64, it.b);
+            hopper::tma_load_4d(base + L::kdO + off, &p.tdo64, bar_full + 8 * stage, a * 64, h, qt * 64, it.b);
+          }
+        }
+        for (int r = lane; r < 64; r += 32) {
+          const int q = qt * 64 + r;
+          const long long at = (static_cast<long long>(it.b) * p.H + h) * p.Sq + q;
+          const bool in = q < p.Sq;
+          st_shared(base + L::kL + (stage * 64 + r) * 4, __float_as_uint(in ? p.lse[at] * kLog2e : INFINITY));
+          st_shared(base + L::kD + (stage * 64 + r) * 4, __float_as_uint(in ? p.delta[at] : 0.f));
+        }
+        hopper::mbar_arrive(bar_full + 8 * stage);
+      }
+    }
+  }
+}
+
+// The cluster's sum of one consumer's partials (dV for consumer 0, dK for
+// 1) after an item, for CS = 2 or 4 CTAs: each CTA owns the 8-column blocks
+// [rank 32 / CS, (rank + 1) 32 / CS); the blocks another CTA owns go into
+// this consumer's slot (its rank among the owner's others) of the owner's
+// receive area `recv`, then it arrives on the owner's bar_recv; once all
+// the others' have arrived the owned blocks are the CS partials added in
+// rank order, in place in acc.
+template <int CS>
+__device__ __forceinline__ void cluster_sum(float (&acc)[128], uint32_t recv, const unsigned char* grecv,
+                                            uint32_t bar_recv, int item, int tid) {
+  constexpr int kPer = 32 / CS;
+  const int rank = static_cast<int>(hopper::cluster_ctarank());
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int owner = j / kPer;
+    if (owner != rank) {
+      const int slot = rank < owner ? rank : rank - 1;
+      const uint32_t at = recv + ((slot * kPer + j % kPer) * 128 + tid) * 16;
+      hopper::st_cluster(hopper::mapa(at, owner), acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < CS; ++q)
+    if (q != rank) hopper::mbar_arrive_cluster(hopper::mapa(bar_recv, q));
+  hopper::mbar_wait_cluster(bar_recv, item % 2);
+  const float4* slots = reinterpret_cast<const float4*>(grecv);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (j / kPer != rank) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < CS; ++q) {
+      const float4 v = q == rank ? make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3])
+                                 : slots[((q < rank ? q : q - 1) * kPer + j % kPer) * 128 + tid];
+      sum = q == 0 ? v : make_float4(sum.x + v.x, sum.y + v.y, sum.z + v.z, sum.w + v.w);
+    }
+    acc[4 * j] = sum.x;
+    acc[4 * j + 1] = sum.y;
+    acc[4 * j + 2] = sum.z;
+    acc[4 * j + 3] = sum.w;
+  }
+}
+
 // The consumers of flash_bwd_dkdv_wgmma at head_dim 256.  Both take the
 // item's 64 keys; a dK or dV accumulator of 64 keys x 256 takes 128 of
-// the 240 registers, so each consumer owns one: consumer 0 forms S^T = K
+// the 232 registers, so each consumer owns one: consumer 0 forms S^T = K
 // Q^T and P^T, hands P^T (times the softcap factor) to consumer 1 through
 // shared memory, and accumulates dV += P^T dO; consumer 1 forms dP^T = V
 // dO^T, takes P^T, and accumulates dK += dS^T Q.  Two products each a
 // query tile, the four a tile needs.
+//
+// The item's G query heads are split over the cluster's `cs` CTAs (rank r
+// walks heads r G / cs .. (r + 1) G / cs - 1), so each CTA holds float32
+// partials of dK and dV.  After the item every consumer of the cluster
+// says it is done with its ring (bar_ready); rank r then owns columns
+// [r 256 / cs, (r + 1) 256 / cs): each consumer stores the columns it does
+// not own into their owner's ring, in its own slot (the sender's rank
+// among the others), and arrives on the owner's bar_recv; the owner adds
+// the cs partials of its columns in rank order (the same bits every
+// call), rounds them to bf16 over its own K or V buffer and TMA-stores its
+// columns.  Then each consumer arrives on every CTA's K/V empty barrier:
+// the next item's K and V are multicast into all of them.
 template <bool kSoftcap>
 __device__ __forceinline__ void dkdv_consumers_hd256(const Params& p, uint32_t base, unsigned char* gbase,
                                                      uint32_t bar_full, uint32_t bar_empty, uint32_t bar_kv,
-                                                     uint32_t bar_kv_empty, int n_items, int groups) {
+                                                     uint32_t bar_kv_empty, uint32_t bar_ready, uint32_t bar_recv,
+                                                     int n_items, int groups) {
   using L = KvShape<256>;
   constexpr int kStages = L::kStages, kBufs = L::kBufs;
   const int c = threadIdx.x / 128 - 1;  // 0: P^T and dV; 1: dP^T, dS^T and dK
   const int tid = threadIdx.x % 128, lane = threadIdx.x % 32;
   const int warp = tid / 32, g = lane / 4, t = lane % 4;
+  const int cs = p.cluster;
+  const int nh = groups / cs;  // this CTA's query heads of an item
   float acc[128], s[32];
   uint32_t fa[4][4];
   int tiles = 0, passed = 0;  // ring tiles; P^T tiles exchanged (equal on both consumers)
   auto release = [&](int stage) {
     if (lane == 0) hopper::mbar_arrive(bar_empty + 8 * stage);
   };
-  for (int i = 0; item_index(i) < n_items; ++i) {
-    const KvItem it = kv_item<L::kKeys>(p, item_index(i));
+  for (int i = 0; item_index(i, cs) < n_items; ++i) {
+    const KvItem it = kv_item<L::kKeys>(p, item_index(i, cs));
     const int kb = i % kBufs;
     const int key0 = it.k0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
     const uint32_t sK = base + L::kK + kb * L::kKVTile;
@@ -1027,29 +1176,16 @@ __device__ __forceinline__ void dkdv_consumers_hd256(const Params& p, uint32_t b
     for (int j = 0; j < 128; ++j) acc[j] = 0.f;
     hopper::mbar_wait(bar_kv + 8 * kb, (i / kBufs) % 2);
     int pending = -1;  // the stage the product in flight reads
-    for (int hh = 0; hh < groups; ++hh) {
+    for (int hh = 0; hh < nh; ++hh) {
       for (int qt = it.qt_beg; qt < it.qt_end; ++qt, ++tiles) {
         const int stage = tiles % kStages;
         const int q0 = qt * 64;
         hopper::mbar_wait(bar_full + 8 * stage, (tiles / kStages) % 2);
-        if (it.k0 >= p.Sk || (p.causal && it.k0 > q0 + 63) || (p.window > 0 && it.k0 + 63 <= q0 - p.window)) {
-          // no key of the item is seen by a query of the tile (the same
-          // tiles for both consumers): free it, and the one the product in
-          // flight reads
-          release(stage);
-          if (pending >= 0) {
-            hopper::wgmma_wait<0>();
-            hopper::fence_regs(acc);
-            release(pending);
-            pending = -1;
-          }
-          continue;
-        }
         const uint32_t sQ = base + L::kQ + stage * L::kQTile;
         const uint32_t sdO = base + L::kdO + stage * L::kQTile;
         // S^T = K Q^T (consumer 0) or dP^T = V dO^T (consumer 1): 64 keys x
         // 64 queries, both K-major; the previous tile's dV or dK product
-        // may still run.
+        // may still run.  (Every query tile of an item sees a key of it.)
         const uint32_t sa = c == 0 ? sK : sV, sb = c == 0 ? sQ : sdO;
         hopper::fence_regs(s);
         hopper::wgmma_fence();
@@ -1101,27 +1237,44 @@ __device__ __forceinline__ void dkdv_consumers_hd256(const Params& p, uint32_t b
     hopper::fence_regs(fa);
     if (pending >= 0) release(pending);
 
-    // Epilogue, once both consumers are done reading K and V: dV into V's
-    // buffer (consumer 0), dK * scale into K's (consumer 1), as bf16 in the
-    // swizzled layout, then TMA stores (rows past Sk dropped).
-    hopper::named_barrier_sync(kBarPair, 256);
+    // Every consumer of the cluster is done with its ring and its K and V.
+    hopper::named_barrier_sync(1 + c, 128);
+    if (tid == 0)
+      for (int q = 0; q < cs; ++q) hopper::mbar_arrive_cluster(hopper::mapa(bar_ready, q));
+    hopper::mbar_wait_cluster(bar_ready, i % 2);
+    // this consumer's receive area: its ring's Q (consumer 0) or dO (1) stages
+    const int recv = c == 0 ? L::kQ : L::kdO;
+    if (cs == 2) cluster_sum<2>(acc, base + recv, gbase + recv, bar_recv + 8 * c, i, tid);
+    if (cs == 4) cluster_sum<4>(acc, base + recv, gbase + recv, bar_recv + 8 * c, i, tid);
+
+    // Epilogue: this CTA's columns of dV into V's buffer (consumer 0), of
+    // dK * scale into K's (consumer 1), as bf16 in the swizzled layout, then
+    // TMA stores (rows past Sk dropped); then every CTA's K/V buffer may
+    // take the next item's multicast.
     const uint32_t dst = c == 0 ? sV : sK;
-    store_acc<256>(dst, L::kKVAtom, acc, c == 0 ? 1.f : p.sm_scale, warp, g, t);
+    const int rank = static_cast<int>(hopper::cluster_ctarank()), per = 32 / cs;
+    store_acc_cols(dst, L::kKVAtom, acc, c == 0 ? 1.f : p.sm_scale, warp, g, t, rank * per, (rank + 1) * per);
     hopper::fence_proxy_async();
     hopper::named_barrier_sync(1 + c, 128);
     if (tid == 0) {
       if (it.k0 < p.Sk) {
-        for (int a = 0; a < L::kAtoms; ++a)
+        for (int a = rank * L::kAtoms / cs; a < (rank + 1) * L::kAtoms / cs; ++a)
           hopper::tma_store_4d(c == 0 ? &p.tdv : &p.tdk, dst + a * L::kKVAtom, a * 64, it.kvh, it.k0, it.b);
         hopper::tma_store_wait_read();
       }
-      hopper::mbar_arrive(bar_kv_empty + 8 * kb);
+      for (int q = 0; q < cs; ++q) hopper::mbar_arrive_cluster(hopper::mapa(bar_kv_empty + 8 * kb, q));
     }
   }
   // consumer 1's last two arrivals on the empty barriers, taken
   if (c == 0)
     for (int n = max(0, passed - 2); n < passed; ++n) hopper::named_barrier_sync(kBarPEmpty + n % 2, 256);
 }
+
+// Registers of the hd-256 dK/dV kernel's producer and consumer warpgroups
+// after setmaxnreg (128 x producer + 256 x consumer = the 384 x 168 the
+// launch has).  The producer's multicast and head split spilled at 24
+// (24 bytes); the consumers fit 232 with no spill (ptxas, on the card).
+constexpr int kProducerRegs256 = 40, kConsumerRegs256 = 232;
 
 template <int HD, bool kSoftcap>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1145,9 +1298,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bar_empty = bar_full + 8 * kStages;
   const uint32_t bar_kv = bar_empty + 8 * kStages;  // + 8 * buffer
   const uint32_t bar_kv_empty = bar_kv + 8 * kBufs;
+  const uint32_t bar_ready = bar_kv_empty + 8 * kBufs;  // head_dim 256
+  const uint32_t bar_recv = bar_ready + 8;              // + 8 * consumer
   const int n_items = p.n_ktiles * p.B * p.KVH;
   const int groups = p.H / p.KVH;
   const int lane = threadIdx.x % 32;
+  // CTAs a cluster: at head_dim 256 each takes a share of an item's query heads
+  const int cs = HD == 256 ? p.cluster : 1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -1156,16 +1313,26 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     for (int b = 0; b < kBufs; ++b) {
       hopper::mbar_init(bar_kv + 8 * b, 1);
-      hopper::mbar_init(bar_kv_empty + 8 * b, 2);  // one thread of each consumer, after its store
+      hopper::mbar_init(bar_kv_empty + 8 * b, 2 * cs);  // one thread of each consumer (of the cluster), after its store
+    }
+    if constexpr (HD == 256) {
+      hopper::mbar_init(bar_ready, 2 * cs);  // one thread of each consumer of the cluster
+      for (int c = 0; c < 2; ++c) hopper::mbar_init(bar_recv + 8 * c, cs > 1 ? 128 * (cs - 1) : 1);  // the senders' threads
     }
     hopper::mbar_init_fence();
   }
-  __syncthreads();
+  if constexpr (HD == 256) {
+    hopper::cluster_sync();  // the cluster's barriers are initialised before any CTA uses another's
+  } else {
+    __syncthreads();
+  }
 
   if (threadIdx.x / 128 == 0) {
     // ---- producer: warp 0; lane 0 issues the TMA loads ----
-    hopper::setmaxnreg_dec<24>();
-    if (threadIdx.x < 32) {
+    hopper::setmaxnreg_dec<HD == 256 ? kProducerRegs256 : 24>();
+    if constexpr (HD == 256) {
+      if (threadIdx.x < 32) dkdv_producer_hd256(p, base, n_items);
+    } else if (threadIdx.x < 32) {
       int tiles = 0;
       for (int i = 0; item_index(i) < n_items; ++i) {
         const KvItem it = kv_item<L::kKeys>(p, item_index(i));
@@ -1207,8 +1374,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else if constexpr (HD == 256) {
-    hopper::setmaxnreg_inc<240>();
-    dkdv_consumers_hd256<kSoftcap>(p, base, gbase, bar_full, bar_empty, bar_kv, bar_kv_empty, n_items, groups);
+    hopper::setmaxnreg_inc<kConsumerRegs256>();
+    dkdv_consumers_hd256<kSoftcap>(p, base, gbase, bar_full, bar_empty, bar_kv, bar_kv_empty, bar_ready, bar_recv,
+                                   n_items, groups);
   } else {
     // ---- consumers: 64 keys of each item ----
     hopper::setmaxnreg_inc<240>();
@@ -1327,6 +1495,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
+  // no CTA of a cluster leaves while another may still arrive on its barriers
+  if constexpr (HD == 256) hopper::cluster_sync();
 }
 
 template <int HD, bool kSoftcap>
@@ -1506,9 +1676,35 @@ cudaError_t launch_persistent(Kernel kernel, const Params& p, long long n_items,
   return cudaGetLastError();
 }
 
+// The same in clusters of p.cluster CTAs, one cluster an item at a time:
+// as many clusters as fit the card at once (and no more than the items).
+template <typename Kernel>
+cudaError_t launch_clusters(Kernel kernel, const Params& p, long long n_items, int smem, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.gridDim = dim3(p.cluster);
+  int clusters = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;  // a cluster of this size does not fit
+  cfg.gridDim = dim3(p.cluster * static_cast<unsigned>(n_items < clusters ? n_items : clusters));
+  if ((e = cudaLaunchKernelEx(&cfg, kernel, p)) != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 // dK/dV, then dQ (D must be written already).
 template <int HD>
-int launch(const Args& a, cudaStream_t stream) {
+int launch(const Args& a, int kv_cluster, cudaStream_t stream) {
   hopper::EncodeTiled fn;
   cudaError_t e = hopper::encode_fn(&fn);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1547,12 +1743,17 @@ int launch(const Args& a, cudaStream_t stream) {
   p.sm_scale = a.sm_scale;
   p.n_ktiles = (a.Sk + kKeys - 1) / kKeys;
   p.n_qtiles = (a.Sq + 127) / 128;
+  p.cluster = kv_cluster;
+  if ((kv_cluster != 1 && kv_cluster != 2 && kv_cluster != 4) || (a.H / a.KVH) % kv_cluster ||
+      (HD != 256 && kv_cluster != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long kv_items = static_cast<long long>(p.n_ktiles) * a.B * a.KVH;
   const long long q_items = static_cast<long long>(p.n_qtiles) * a.B * a.H;
   if (kv_items > 0x7fffffffLL || q_items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const bool cap = a.softcap > 0.f;
-  e = launch_persistent(cap ? &flash_bwd_dkdv_wgmma<HD, true> : &flash_bwd_dkdv_wgmma<HD, false>, p,
-                        kv_items, KvShape<HD>::kAlloc, stream);
+  auto dkdv = cap ? &flash_bwd_dkdv_wgmma<HD, true> : &flash_bwd_dkdv_wgmma<HD, false>;
+  e = HD == 256 ? launch_clusters(dkdv, p, kv_items, KvShape<HD>::kAlloc, stream)
+                : launch_persistent(dkdv, p, kv_items, KvShape<HD>::kAlloc, stream);
   if (e == cudaSuccess)
     e = launch_persistent(cap ? &flash_bwd_dq_wgmma<HD, true> : &flash_bwd_dq_wgmma<HD, false>, p,
                           q_items, DqShape<HD>::kAlloc, stream);
@@ -1578,7 +1779,7 @@ constexpr int kRouteF32 = 0;
 constexpr int kRouteMmaSync = 1;
 constexpr int kRouteWgmma = 2;
 
-int dispatch(int route, const Args& a, cudaStream_t stream) {
+int dispatch(int route, const Args& a, int kv_cluster, cudaStream_t stream) {
   const long long rows = (long long)a.B * a.H * a.Sq;
   const dim3 grid_delta(static_cast<unsigned>((rows + 7) / 8));
   const dim3 grid_kv((a.Sk + kBlockN - 1) / kBlockN, a.KVH, a.B);
@@ -1589,8 +1790,11 @@ int dispatch(int route, const Args& a, cudaStream_t stream) {
     e = launch(a.hd == 64 ? delta_kernel_vec<64> : a.hd == 128 ? delta_kernel_vec<128> : delta_kernel_vec<256>, a,
                grid_vec, 256, 0, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
-    return a.hd == 64 ? wg::launch<64>(a, stream) : a.hd == 128 ? wg::launch<128>(a, stream) : wg::launch<256>(a, stream);
+    return a.hd == 64    ? wg::launch<64>(a, kv_cluster, stream)
+           : a.hd == 128 ? wg::launch<128>(a, kv_cluster, stream)
+                         : wg::launch<256>(a, kv_cluster, stream);
   }
+  if (kv_cluster != 1) return static_cast<int>(cudaErrorInvalidValue);  // only the wgmma route at 256 splits
   if (route == kRouteMmaSync && (a.hd == 16 || a.hd == 96)) {
     e = launch(delta_kernel<bf16>, a, grid_delta, 256, 0, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -1643,13 +1847,16 @@ extern "C" {
 // tensor-map encode (see repro_cuda_error_string).
 // route: 0 "f32" (float32, head_dim 16/64/96/128/256), 1 "mma_sync" (bf16,
 // 16/96), 2 "wgmma" (bf16, 64/128/256); any other pairing is refused.
+// kv_cluster: CTAs that split a dK/dV item's query heads on the wgmma route
+// at head_dim 256 (1, 2 or 4, dividing H / KVH; ops.py::dkdv_cluster); 1
+// everywhere else.
 // dims = {B, H, KVH, Sq, Sk}; strides = element strides {batch, seq, head}
 // of q, k, v, o, dO, dQ, dK, dV in that order.  lse (the forward's) and
 // delta (scratch the wrapper allocates) are contiguous float32 [B, H, Sq].
 int repro_flash_bwd(int device, int route, int head_dim, const void* q, const void* k,
                     const void* v, const void* o, const void* dout, const void* lse, void* delta,
                     void* dq, void* dk, void* dv, const long long* strides, const int* dims,
-                    int causal, int window, float softcap, float sm_scale, void* stream) {
+                    int causal, int window, float softcap, float sm_scale, int kv_cluster, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   Args a;
@@ -1676,7 +1883,7 @@ int repro_flash_bwd(int device, int route, int head_dim, const void* q, const vo
   a.window = window;
   a.softcap = softcap;
   a.sm_scale = sm_scale;
-  return dispatch(route, a, static_cast<cudaStream_t>(stream));
+  return dispatch(route, a, kv_cluster, static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) { return hopper::error_string(err); }

@@ -105,6 +105,27 @@ def _route(dtype: torch.dtype, head_dim: int, which: str) -> str:
     raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim {head_dim}")
 
 
+#: CTAs a cluster may split a dK/dV item's query heads over (hd 256, ``wgmma``)
+KV_CLUSTERS = (1, 2, 4)
+#: dK/dV keys an item takes at head_dim 256 (``csrc/flash_bwd.cu``, ``KvShape<256>::kKeys``)
+KV_ITEM_KEYS_256 = 64
+
+
+def dkdv_cluster(batch: int, kv_heads: int, seq_k: int, groups: int, sms: int) -> int:
+    """CTAs a cluster of the hd-256 dK/dV kernel splits each item's
+    ``groups`` query heads over: the size in :data:`KV_CLUSTERS` dividing
+    ``groups`` whose clusters finish soonest, counting per CTA the rounds
+    of items (``sms // size`` clusters at once) times its share of the heads;
+    on a tie the smaller (less to sum).  An item is 64 keys of one (kv
+    head, batch row)."""
+    items = batch * kv_heads * -(-seq_k // KV_ITEM_KEYS_256)
+
+    def cost(size):
+        return -(-items // max(sms // size, 1)) * (groups // size)
+
+    return min((s for s in KV_CLUSTERS if groups % s == 0), key=lambda s: (cost(s), s))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, logit_softcap) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, S, H, hd]")
@@ -189,11 +210,11 @@ def _launch_fwd(q, k, v, out, lse, *, scale, causal, window, logit_softcap) -> N
     ROUTE_LAUNCHES[route] += 1
 
 
-def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, scale, causal, window, logit_softcap) -> None:
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, scale, causal, window, logit_softcap, kv_cluster) -> None:
     lib = _build.load("flash_bwd")
     fn = lib.repro_flash_bwd
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
@@ -205,7 +226,7 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, scale, causal, window, logit
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         ctypes.addressof(strides), ctypes.addressof(dims),
-        int(causal), window or 0, logit_softcap or 0.0, scale,
+        int(causal), window or 0, logit_softcap or 0.0, scale, kv_cluster,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, BWD_KERNEL)
@@ -239,8 +260,11 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, logit_softcap=None
     return (out, lse) if with_lse else out
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, logit_softcap=None):
-    """dq, dk, dv [B, S, H, hd] from the forward's inputs, output and lse."""
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, logit_softcap=None, kv_cluster=None):
+    """dq, dk, dv [B, S, H, hd] from the forward's inputs, output and lse.
+
+    ``kv_cluster`` (tests and timing only) forces the hd-256 ``wgmma``
+    dK/dV kernel's cluster size, else :func:`dkdv_cluster` picks it."""
     _check(q, k, v, window, logit_softcap)
     kw = dict(causal=causal, window=window, logit_softcap=logit_softcap)
     if q.device.type == "cpu":
@@ -258,11 +282,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, logit_
     if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 [B, H, Sq], got {tuple(lse.shape)} {lse.dtype}")
     hd = q.shape[3]
+    groups = q.shape[2] // k.shape[2]
+    split = hd == 256 and bwd_route(q.dtype, hd) == "wgmma"
+    if kv_cluster is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        kv_cluster = dkdv_cluster(q.shape[0], k.shape[2], k.shape[1], groups, sms) if split else 1
+    elif kv_cluster not in KV_CLUSTERS or groups % kv_cluster or (kv_cluster > 1 and not split):
+        raise ValueError(f"kv_cluster {kv_cluster}: the hd-256 wgmma backward takes {KV_CLUSTERS} dividing "
+                         f"{groups} query heads a kv head; every other backward 1")
     q, k, v, o, do = pad_head_dim(q, k, v, o, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scale=hd ** -0.5, **kw)
+    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scale=hd ** -0.5, kv_cluster=kv_cluster, **kw)
     if q.shape[3] != hd:
         PADDED_LAUNCHES[BWD_KERNEL] += 1
         return dq[..., :hd], dk[..., :hd], dv[..., :hd]

@@ -115,32 +115,54 @@ def _ptr(a: Optional[torch.Tensor]):
     return None if a is None else a.data_ptr()
 
 
+def _tma_rows(a: torch.Tensor, ld: int) -> torch.Tensor:
+    """``a`` [B, T, Dr] itself where the backward kernel's TMA maps can read
+    it (channels contiguous, the address and the batch and time strides
+    multiples of 16 bytes), else a copy into the first Dr channels of rows
+    of ``ld`` that they can."""
+    esz = a.element_size()
+    if a.stride(2) == 1 and a.data_ptr() % 16 == 0 and all(
+            n == 1 or s * esz % 16 == 0 for n, s in zip(a.shape[:2], a.stride()[:2])):
+        return a
+    return _rows(a.shape, a.dtype, a.device, ld).copy_(a)
+
+
+def _rows(shape, dtype, device, ld: int) -> torch.Tensor:
+    """An empty [B, T, Dr] tensor: the first Dr channels of rows of ``ld``."""
+    b, t, dr = shape
+    buf = torch.empty((b, t, ld), dtype=dtype, device=device)
+    return buf if ld == dr else buf[..., :dr]
+
+
 def _launch_bwd(x, r_gate, i_gate, lam, h0, states, dy, dh_last):
     """Launch the backward kernel on checked inputs -> (dx, dr, di, dlam,
     dh0)."""
     b, t, dr = x.shape
     lam, h0 = _paired(lam), _paired(h0)
-    dx, d_r, di = (torch.empty((b, t, dr), dtype=x.dtype, device=x.device) for _ in range(3))
+    ld = -(-dr * x.element_size() // 16) * 16 // x.element_size()  # rows of 16-byte multiples for the TMA maps
+    x, r_gate, i_gate = (_tma_rows(a, ld) for a in (x, r_gate, i_gate))
+    if dy is not None and (dy.stride() != (t * ld, ld, 1) or dy.data_ptr() % 16):  # dy shares the outputs' rows
+        dy = _rows(dy.shape, dy.dtype, dy.device, ld).copy_(dy)
+    dx, d_r, di = (_rows((b, t, dr), x.dtype, x.device, ld) for _ in range(3))
     dlam = torch.empty(dr, dtype=torch.float32, device=x.device)
     dh0 = torch.empty((b, dr), dtype=torch.float32, device=x.device)
     nc = -(-t // CHUNK)
     # dlam's partial sums, one row a (chunk, batch row), summed in order by a second kernel
     partial = torch.empty((nc * b, dr), dtype=torch.float32, device=x.device)
-    carry = flags = None
-    if nc > 1:  # the chunks' published carries; their ready flags and the block ticket, zeroed
-        carry = torch.empty((b, nc, dr), dtype=torch.float32, device=x.device)
-        flags = torch.zeros(nc * b * -(-dr // SLICE) + 1, dtype=torch.int32, device=x.device)
+    # the block ticket, zeroed; the chunks' published carries, each word unset (0xffffffff) until written
+    ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
+    carry = torch.full((b, nc, dr), -1, dtype=torch.int32, device=x.device).view(torch.float32) if nc > 1 else None
     lib = _build.load("rglru_scan_bwd")
     fn = lib.repro_rglru_scan_bwd
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     strides = _strides(x, r_gate, i_gate)
     err = fn(
         x.device.index, int(x.dtype == torch.bfloat16), x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
         ctypes.addressof(strides), lam.data_ptr(), h0.data_ptr(), _ptr(states), _ptr(dy), _ptr(dh_last),
         dx.data_ptr(), d_r.data_ptr(), di.data_ptr(), dlam.data_ptr(), dh0.data_ptr(),
-        _ptr(carry), _ptr(flags), partial.data_ptr(),
-        b, t, dr, torch.cuda.current_stream(x.device).cuda_stream,
+        _ptr(carry), ticket.data_ptr(), partial.data_ptr(),
+        b, t, dr, ld, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, BWD_KERNEL)
     LAUNCHES[BWD_KERNEL] += 1

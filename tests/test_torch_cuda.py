@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
     fwd_route,
 )
-from repro_torch.kernels.flash_attention.ops import BWD_ROUTE_LAUNCHES, PADDED_LAUNCHES, ROUTE_LAUNCHES
+from repro_torch.kernels.flash_attention.ops import BWD_ROUTE_LAUNCHES, KV_CLUSTERS, PADDED_LAUNCHES, ROUTE_LAUNCHES
 from repro_torch.kernels.rwkv6_wkv import (GRAD_CHUNK, WKV_BWD_ROUTE_LAUNCHES, wkv6, wkv6_bwd,
                                            wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_fwd, wkv6_ref)
 from repro_torch.kernels.rwkv6_wkv.ops import bwd_route as wkv_bwd_route
@@ -195,6 +195,46 @@ def test_head_dim_256_wgmma_backward_matches_plain_and_is_deterministic(cuda, ca
         assert torch.equal(got, same), f"d{name} differs between two calls"
         torch.testing.assert_close(got.float(), want.transpose(1, 2).float(), rtol=2e-2, atol=2e-2,
                                    msg=lambda m, name=name: f"d{name}: {m}")
+
+
+# (case, cluster): every hd-256 case with each cluster size that divides its
+# query heads a kv head, 2 x 1024 with 4 heads over 1, and 128 items (4 x
+# 1024, 2 kv heads) that clusters of 2 take in two rounds
+KV_CLUSTER_CASES = [(case, size) for case in HD256_CASES + [(2, 1024, 1024, 4, 1, True, None, None),
+                                                           (4, 1024, 1024, 4, 2, True, 256, None)]
+                    for size in KV_CLUSTERS if (case[3] // case[4]) % size == 0]
+
+
+@pytest.mark.parametrize("case,size", KV_CLUSTER_CASES, ids=str)
+def test_head_dim_256_backward_at_every_cluster_size(cuda, case, size):
+    """The hd-256 dK/dV kernel with its items' query heads split over a
+    cluster of 1, 2 or 4 CTAs (forced; the wrapper picks one by
+    dkdv_cluster): dQ, dK, dV within 2e-2 of the plain backward, and two
+    calls give equal bits (the partials summed in rank order)."""
+    b, sq, sk, h, kvh, causal, window, cap = case
+    q, k, v = _qkv(4, b, sq, sk, h, kvh, 256, "bfloat16", cuda)
+    do = _qkv(5, b, sq, sq, h, h, 256, "bfloat16", cuda)[0]
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    grads = flash_attention_bwd(q, k, v, out, lse, do, kv_cluster=size, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, do, kv_cluster=size, **kw)
+    torch.cuda.synchronize()
+    plain = flash_attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, out)), lse, do.transpose(1, 2), **kw)
+    for name, got, want, same in zip("qkv", grads, plain, again):
+        assert torch.equal(got, same), f"d{name} differs between two calls"
+        torch.testing.assert_close(got.float(), want.transpose(1, 2).float(), rtol=2e-2, atol=2e-2,
+                                   msg=lambda m, name=name: f"d{name}: {m}")
+
+
+def test_kv_cluster_is_refused_where_it_does_not_divide_or_apply(cuda):
+    q, k, v = _qkv(4, 1, 64, 64, 6, 1, 256, "bfloat16", cuda)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="kv_cluster 4"):
+        flash_attention_bwd(q, k, v, out, lse, out, kv_cluster=4)
+    q, k, v = _qkv(4, 1, 64, 64, 4, 1, 128, "bfloat16", cuda)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="kv_cluster 2"):
+        flash_attention_bwd(q, k, v, out, lse, out, kv_cluster=2)
 
 
 @pytest.mark.parametrize("case", [(1, 300, 300, 4, 1, True, 100, None), (1, 100, 100, 2, 2, True, None, 30.0),
@@ -853,6 +893,42 @@ def test_rglru_bwd_kernel_matches_plain_and_is_deterministic(cuda, case):
             assert a.dtype == w.dtype and torch.equal(a, same), name
             torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol,
                                        msg=lambda m, name=name, plain=plain: f"{plain.__name__} {name}: {m}")
+
+
+@pytest.mark.parametrize("t", [1, CHUNK, CHUNK + 1, 3 * CHUNK + 5, 4096])
+def test_rglru_bwd_kernel_gives_equal_bits_twice(cuda, t):
+    """The persistent backward (tickets taken in any order by the blocks,
+    the carry behind flags) at train_recurrentgemma's width, 1 x T x 4096
+    bf16, from T = 1 to the pod's 4096: two calls give equal bits in every
+    output, within the bf16 bar of its chunked model."""
+    x, r, i, lam, h0 = _rglru_inputs(8, 1, t, 4096, "bfloat16")
+    g = torch.Generator(cuda).manual_seed(9)
+    dy = torch.randn((1, t, 4096), generator=g, device=cuda).to(x.dtype)
+    dh_last = torch.randn((1, 4096), generator=g, device=cuda)
+    _, _, states = rglru_scan_fwd(x, r, i, lam, h0)
+    got = rglru_scan_bwd(x, r, i, lam, h0, dy, dh_last, states=states)
+    again = rglru_scan_bwd(x, r, i, lam, h0, dy, dh_last, states=states)
+    torch.cuda.synchronize()
+    want = rglru_scan_bwd_chunked_ref(x, r, i, lam, h0, dy, dh_last)
+    for name, a, same, w, tol in zip(("dx", "dr", "di", "dlam", "dh0"), got, again, want, (2e-2,) * 3 + (1e-3, 1e-4)):
+        assert torch.equal(a, same), f"{name} differs between two calls"
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol, msg=lambda m, name=name: f"{name}: {m}")
+
+
+def test_rglru_bwd_kernel_reads_unaligned_rows(cuda):
+    """x, r, i as views of one [B, T, 3, Dr] tensor and Dr = 6 (rows of 12
+    bytes, which the TMA maps cannot step): the wrapper copies them into
+    16-byte rows and returns views of such rows."""
+    xri = torch.rand((2, 70, 3, 6), device=cuda)
+    x, r, i = xri.unbind(2)
+    _, _, _, lam, h0 = _rglru_inputs(10, 2, 70, 6, "float32")
+    g = torch.Generator(cuda).manual_seed(11)
+    dy = torch.randn((2, 70, 6), generator=g, device=cuda)
+    _, _, states = rglru_scan_fwd(x, r, i, lam, h0)
+    got = rglru_scan_bwd(x, r, i, lam, h0, dy, None, states=states)
+    want = rglru_scan_bwd_ref(x, r, i, lam, h0, dy, None)
+    for name, a, w in zip(("dx", "dr", "di", "dlam", "dh0"), got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4, msg=lambda m, name=name: f"{name}: {m}")
 
 
 def test_rglru_gradient_on_the_card_matches_autograd_through_the_plain_loop(cuda):

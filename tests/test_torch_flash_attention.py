@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
     fwd_route,
 )
-from repro_torch.kernels.flash_attention.ops import kernel_head_dim, pad_head_dim
+from repro_torch.kernels.flash_attention.ops import KV_CLUSTERS, dkdv_cluster, kernel_head_dim, pad_head_dim
 
 # The JAX suite's own tolerances (tests/test_kernels.py::TOL).
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -247,6 +247,32 @@ def test_backward_route(dtype, head_dim):
             bwd_route(dtype, head_dim)
     else:
         assert bwd_route(dtype, head_dim) == want
+
+
+# (batch, kv heads, Sk, G, SMs, cluster): the hd-256 dK/dV kernel's split of
+# an item's query heads.  recurrentgemma-9b's pod shape (64 items, G 16) takes
+# 2 (128 CTAs; 4 would need two rounds of items for the same share), 2 x 1024
+# with G 4 and the ragged S 300 (5 items) take 4, one query head a kv head 1,
+# and G 6 never 4 (not a divisor).
+DKDV_CLUSTER_CASES = [
+    (1, 1, 4096, 16, 132, 2),
+    (2, 1, 1024, 4, 132, 4),
+    (1, 1, 300, 16, 132, 4),
+    (1, 1, 4096, 1, 132, 1),
+    (3, 5, 333, 1, 132, 1),
+    (4, 1, 4096, 16, 132, 1),
+    (1, 1, 256, 6, 132, 2),
+    (1, 2, 128, 2, 132, 2),
+    (8, 2, 1024, 4, 132, 1),
+]
+
+
+@pytest.mark.parametrize("case", DKDV_CLUSTER_CASES, ids=str)
+def test_dkdv_cluster_divides_the_heads_and_fills_the_card(case):
+    b, kvh, sk, groups, sms, want = case
+    got = dkdv_cluster(b, kvh, sk, groups, sms)
+    assert got == want
+    assert got in KV_CLUSTERS and groups % got == 0 and got <= 4
 
 
 def test_head_dim_256_is_refused_naming_its_item():

@@ -303,6 +303,26 @@ def test_checks_refuse_what_the_kernel_cannot_take():
         rglru_scan(x, r[:, :4], i, lam, h0)
 
 
+@pytest.mark.parametrize("dr,dtype,view", [(64, torch.bfloat16, False), (6, torch.float32, False),
+                                           (64, torch.bfloat16, True), (6, torch.bfloat16, True)], ids=str)
+def test_backward_rows_for_the_tma_maps(dr, dtype, view):
+    """What the backward kernel's TMA maps read: a [B, T, Dr] tensor itself
+    where its rows step in multiples of 16 bytes, else a copy into the first
+    Dr channels of rows of ``ld`` that do (the wrapper's ``_tma_rows``)."""
+    from repro_torch.kernels.rglru_scan.ops import _tma_rows
+
+    base = torch.randn((2, 5, 3, dr) if view else (2, 5, dr)).to(dtype)
+    a = base[:, :, 1] if view else base
+    ld = -(-dr * a.element_size() // 16) * 16 // a.element_size()
+    got = _tma_rows(a, ld)
+    torch.testing.assert_close(got, a, rtol=0, atol=0)
+    esz = a.element_size()
+    readable = a.data_ptr() % 16 == 0 and all(s * esz % 16 == 0 for s in a.stride()[:2])
+    assert (got.data_ptr() == a.data_ptr()) == readable
+    assert readable == (dr == 64)  # 128-byte rows, as views or not; 6 channels never
+    assert got.stride(2) == 1 and all(s * got.element_size() % 16 == 0 for s in got.stride()[:2])
+
+
 def test_block_refuses_a_dtensor_naming_its_item(tmp_path):
     """On a mesh the block raises rather than run the kernel on a DTensor's
     local pointer (ROADMAP item 20)."""

@@ -36,7 +36,12 @@ Phases, each printing one JSON line on stdout:
    flash backward at head_dim 256 (``wgmma``) at train_recurrentgemma's
    1 x 4096 (16 heads over 1, window 2048; ``sdpa`` forward + backward
    beside it with the banded mask and unwindowed), a ragged and an
-   unwindowed shape, and the float32 forward and backward at 256.
+   unwindowed shape, and the float32 forward and backward at 256; the
+   MoE archs' attention at head_dim 128 on ``wgmma``: the forward at 4 x
+   4096 with mixtral-8x22b's 48 heads over 8 (window 4096) and
+   arctic-480b's 56 over 8 (groups of 7), the backward at train_mixtral's
+   1 x 4096, each with ``sdpa`` beside it; ``wan_quant`` / ``wan_dequant``
+   also on train_mixtral's stacked 2-pod expert gradient (98,304 x 16,384).
 4. ``serve``: the serving path, distilgpt2-82m at full width (random
    weights from a seed): prefill of 8 x 1024 tokens, then 32 greedy decode
    steps, with the kernel launch counts of that run; then the card against
@@ -48,8 +53,9 @@ Phases, each printing one JSON line on stdout:
    (``wan_s_est``, held to its value for 324,504,576 gradient bytes, and
    printed for all five strategies), the straggler monitor's sync
    efficiency and the final checkpoint (bytes on disk, snapshot ms, write
-   s); then one ``hier_int8`` step at global batch 2 x 128 on the card
-   against the CPU (loss, gradient norm, every synced leaf, the whole step).
+   s); then one whole ``hier_int8`` step at global batch 2 x 128 on the
+   card against the CPU (loss, gradient norm, every first-moment leaf, which
+   is the synced gradient scaled, and every parameter leaf it writes back).
    ``train_ps`` and ``train_local_sgd``: the same run under the parameter
    server and under local SGD with the DiLoCo outer step (H = 8: step 7 is
    the outer step), each with its WAN bytes held to their analytic values,
@@ -161,6 +167,30 @@ Phases, each printing one JSON line on stdout:
    bf16 and in float32 (the f32 flash routes at 256) against the CPU in
    bf16: the loss and each leaf's gradient (relative norm) at 5e-2, or at
    1.5 x the CPU bf16 gradient's own distance from the card's float32 one.
+   ``serve_mixtral``: mixtral-8x22b at full width (d_model 6144, 48 heads
+   of 128 over 8, window 4096, 8 SwiGLU experts of d_ff 16384 top-2,
+   capacity factor 1.25, vocab 32768, bf16 parameters; 30.45 B parameters),
+   its depth cut to 12 of 56 layers: a prefill of 4 x 4096 tokens (the
+   einsum dispatch over 32 groups of 512, capacity 160 an expert), then 32
+   greedy decode steps past the window; 12 flash launches a prefill, all
+   on ``wgmma``, none in decode; the choices each layer's capacity dropped;
+   then one layer at full width computing in float32 on the card against
+   the CPU on a [1, 128] prompt (prefill and 4 decode steps): every token's
+   expert choices (apart only at near-ties) and the logits where they
+   agree, at 1e-4.  ``train_mixtral``: one of 56 layers at full width
+   (2.91 B parameters), 2 pods ``hier_int8``, 2 x 4096, ``remat="full"``,
+   AdamW, the donating step, 2 untimed and 4 timed steps: losses falling,
+   the aux loss above 0 each step, 4 + 2 flash launches a step on
+   ``wgmma`` and a ``wan_quant`` / ``wan_dequant`` a leaf, WAN bytes
+   within 1% of the analytic; then the same bf16 donating step at 2 x 128
+   on the card against the CPU, the CPU routed by the card's expert
+   choices (loss, aux, gradient norm, every first-moment and parameter
+   leaf, each token's own choice apart only at a near-tie).  ``serve_arctic``:
+   arctic-480b at full width (d_model 7168, 56 heads over 8, 128 experts
+   of d_ff 4864 top-2 beside its dense FFN, vocab 32000; 27.68 B
+   parameters), 2 of 35 layers, 4 x 4096 and 8 decode steps, the same
+   numbers and checks as ``serve_mixtral``.  Training arctic-480b does not
+   fit one card (a layer's float32 moments alone are 109 GB).
 8. ``quickstart``: ``repro_torch.examples.quickstart`` on the CPU, then on
    the card, each in a fresh checkpoint directory: the fabric, port and
    cost lines (numpy) equal, the card's 20 losses falling, 2 flash
@@ -208,6 +238,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}  # float32: 
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # kernel vs plain; rtol = atol
 SERVE_TOL = 5e-2  # bf16 logits, card vs CPU: rounding points differ
 TRAIN_TOL = 5e-2  # bf16 loss, grad norm, synced leaves (relative norm), card vs CPU
+# card vs CPU after one step: each parameter leaf's distance at most
+# UPDATE_TOL of the CPU's update, on the lanes it resolves: the two sides'
+# first moments agree in sign and the bias-corrected one is RESOLVED_M x
+# AdamW's eps or more.  There AdamW's first update, lr * g / (|g| + eps),
+# is lr * sign(g) to within 1%; elsewhere a gradient's rounding flips its
+# sign or, near eps, scales it.  The bar is TRAIN_TOL's: an update that is
+# not written back stands 1 apart.
+UPDATE_TOL, RESOLVED_M = TRAIN_TOL, 100
 
 # (label, B, S, H, KVH, hd, dtype, window, softcap, forward route); the
 # first is the path's shape
@@ -230,6 +268,11 @@ FLASH_CASES = [
     ("hd256_ragged_s300_w128", 1, 300, 16, 1, 256, "bfloat16", 128, None, "wgmma"),
     ("hd256_h4_kvh1", 2, 1024, 4, 1, 256, "bfloat16", None, None, "wgmma"),
     ("hd256_f32_w128", 1, 512, 4, 1, 256, "float32", 128, None, "f32"),
+    # the MoE archs' attention at the serve_mixtral / serve_arctic prefill's
+    # shape: mixtral 48 heads over 8 (groups of 6), window 4096; arctic 56
+    # over 8 (groups of 7), no window
+    ("mixtral_gqa6_w4096", 4, 4096, 48, 8, 128, "bfloat16", 4096, None, "wgmma"),
+    ("arctic_gqa7", 4, 4096, 56, 8, 128, "bfloat16", None, None, "wgmma"),
 ]
 # windowed cases where sdpa is also timed unwindowed (is_causal=True) on the
 # same inputs: more pairs than the window keeps, but no S x S mask to read
@@ -252,6 +295,9 @@ FLASH_BWD_CASES = [
     ("hd256_ragged_s300_w128", 1, 300, 16, 1, 256, "bfloat16", 128, None, "wgmma"),
     ("hd256_h4_kvh1", 2, 1024, 4, 1, 256, "bfloat16", None, None, "wgmma"),
     ("hd256_f32_w128", 1, 512, 4, 1, 256, "float32", 128, None, "f32"),
+    # mixtral-8x22b's attention at the train_mixtral pod's shape (one
+    # 4096-token row, 48 heads over 8, window 4096)
+    ("mixtral_train_gqa6_w4096", 1, 4096, 48, 8, 128, "bfloat16", 4096, None, "wgmma"),
 ]
 # head dims the wrappers zero-pad to 16 (each such launch also moves PADDED_LAUNCHES)
 PADDED_HDS = (8, 12)
@@ -260,6 +306,9 @@ WAN_CASES = [
     ("embed_2x50257x768", 2 * 50257, 768),
     ("w_up_2x6x768x3072", 2 * 6 * 768, 3072),
     ("ragged_24x300", 24, 300),
+    # train_mixtral's stacked 2-pod expert gradient [2, 1, 8, 6144, 16384]
+    # (805,306,368 values a pod)
+    ("mixtral_w_up_2x1x8x6144x16384", 2 * 8 * 6144, 16384),
 ]
 # (label, B, T, H, N, r/k/v dtype, w dtype, state in place); the first is
 # the rwkv6-7b prefill's shape, the second its decode step's
@@ -348,6 +397,20 @@ RG_TRAIN_LAYERS, B_RG_TRAIN, SEQ_RG_TRAIN, RG_TRAIN_STEPS = 3, 2, 4096, 6
 RG_TRAIN_PARAMS, RG_TRAIN_LEAVES = 1_705_062_400, 37  # launch/shapes.py::params_specs of the cut
 RG_TRAIN_CHECK_SEQ = 256  # card against CPU: one sequence, four 64-step chunks, past RG_CHECK_WINDOW
 NPODS, B_TRAIN, SEQ_TRAIN, STEPS, WARMUP = 2, 16, 1024, 12, 2
+# The MoE archs at full width, their depth cut: phase -> (arch, layers,
+# parameters, leaves), the counts launch/shapes.py::params_specs of the cut
+MOE_CUTS = {
+    "serve_mixtral": ("mixtral-8x22b", 12, 30_451_390_464, 13),
+    "train_mixtral": ("mixtral-8x22b", 1, 2_906_720_256, 13),
+    "serve_arctic": ("arctic-480b", 2, 27_681_131_520, 16),
+}
+B_MOE, PROMPT_MOE = 4, 4096
+GEN_MOE = {"serve_mixtral": 32, "serve_arctic": 8}  # decode steps: mixtral's cross its 4096 window
+MOE_CHECK_PROMPT, MOE_CHECK_STEPS = 128, 4  # card against CPU: one layer in float32, prefill and decode steps
+# card and CPU may route a token apart only where its router_gap is below
+# this: in float32 (serving's check) and in bf16 (train_mixtral's step)
+MOE_NEAR_TIE, MOE_NEAR_TIE_BF16 = 1e-4, 2e-3
+B_MIXTRAL_TRAIN, SEQ_MIXTRAL_TRAIN, MIXTRAL_TRAIN_STEPS = 2, 4096, 6
 
 
 def emit(obj) -> None:
@@ -1672,52 +1735,104 @@ def falling_losses(label, rows):
     return losses
 
 
-def card_vs_cpu_step(torch, cfg, strategy):
-    """One step's loss, gradient leaves and their norm at full width, global
-    batch 2 x 128, from the same weights on the card and on the CPU: the
-    gradients ``sync_grads`` returns (the pod mean under hier_int8 and ps,
-    each pod's own under local_sgd, whose norm is pod 0's), each leaf by its
-    relative norm; then the whole step (for local_sgd an outer step,
-    sync_every 1) by its loss, grad_norm and WAN bytes."""
+def card_vs_cpu_step(torch, cfg, strategy, *, donate=False, opt=None):
+    """One whole step at full width, global batch 2 x 128 (for local_sgd an
+    outer step, sync_every 1), built with ``donate`` and ``opt`` (the train
+    phases' AdamW by default), from the same weights on the card and on
+    the CPU: its loss, aux and grad_norm at TRAIN_TOL
+    and its WAN bytes exactly; its first moments, each leaf by its relative
+    norm at TRAIN_TOL (after one step they are the synced gradients,
+    clipped, times 1 - b1: the pod mean under hier_int8 and ps, each pod's
+    own under local_sgd); and the parameters it writes back, each leaf on
+    its resolved lanes (RESOLVED_M) within UPDATE_TOL of the CPU's update
+    there.  The card's parameters and
+    moments, and the start, stay on the card while the CPU steps, and are
+    held to the CPU's a leaf at a time.  An MoE config's CPU run routes by
+    the card's expert choices (``recorded_routing``), its own differing
+    only at near-ties (MOE_NEAR_TIE_BF16): one token routed elsewhere moves
+    its experts' gradients by more than TRAIN_TOL."""
     from repro_torch.data import loader_for_model
-    from repro_torch.distributed import init_pod_params, init_train_state, make_train_step, pod_grads, sync_grads
+    from repro_torch.distributed import init_pod_params, init_train_state, make_train_step
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.models import init_params
-    from repro_torch.optim import AdamWConfig, DilocoConfig, global_norm
+    from repro_torch.optim import DilocoConfig
     from repro_torch.tree import tree_items, tree_map
 
+    opt = opt or train_config(strategy, STEPS).opt  # lr 5e-4 at step 1: far above a weight's rounding
     params = init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    start = tree_map(lambda t: t.cpu(), params)
     batch = loader_for_model(cfg, seq_len=128, global_batch=NPODS, seed=1).next_batch()
-    sides = {}
-    for name, p in (("card", params), ("cpu", tree_map(lambda t: t.cpu(), params))):
+    sides, routes, launches, seconds, kept = {}, {}, {}, {}, {}
+    for name in ("card", "cpu"):
         dev = "cuda" if name == "card" else "cpu"
+        p = params if name == "card" else start
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        ef = tree_map(lambda t: torch.zeros((NPODS, *t.shape), device=dev), p) if strategy == "hier_int8" else ()
-        loss, _, grads = pod_grads(p, b, cfg, NPODS)
-        synced, _, _ = sync_grads(grads, ef, strategy=strategy)
-        norm = global_norm(tree_map(lambda g: g[0], synced) if strategy == "local_sgd" else synced)
-        leaves = tree_map(lambda t: t.float().cpu(), synced)
-        del grads, synced
-        step = make_train_step(cfg, npods=NPODS, strategy=strategy, opt_cfg=AdamWConfig(),
-                               diloco_cfg=DilocoConfig(sync_every=1), device=dev)
-        state = init_train_state(p, AdamWConfig(), strategy=strategy, npods=NPODS)
-        new, _, m = step(init_pod_params(p, strategy=strategy, npods=NPODS), state, b)
-        if strategy == "local_sgd" and not all(bool(torch.equal(t[0], t[1])) for _, t in tree_items(new)):
-            raise AssertionError(f"{name}: the pods differ after the outer step")
-        sides[name] = (loss.item(), norm.item(), leaves, m["loss"].item(), m["grad_norm"].item(), m["wan_bytes"])
-        del new, state
+        step = make_train_step(cfg, npods=NPODS, strategy=strategy, opt_cfg=opt,
+                               diloco_cfg=DilocoConfig(sync_every=1), device=dev, donate=donate)
+        state = init_train_state(p, opt, strategy=strategy, npods=NPODS)
+        take = None if name == "card" else [idx for idx, _ in routes["card"]]
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with recorded_routing(take=take) as calls:
+            new, state, m = step(init_pod_params(p, strategy=strategy, npods=NPODS), state, b)
+        sides[name] = (m["loss"].item(), m["grad_norm"].item(), m["aux"].item(), m["wan_bytes"])
+        seconds[name] = time.perf_counter() - t0
+        launches[name], routes[name] = dict(LAUNCHES), calls
+        if strategy == "local_sgd":
+            if not all(bool(torch.equal(t[0], t[1])) for _, t in tree_items(new)):
+                raise AssertionError(f"{name}: the pods differ after the outer step")
+            new = tree_map(lambda t: t[0], new)
+        kept[name] = (new, state.adam.m)
+        del p, new, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name == "card":  # the CPU steps on ``start`` itself
+            old = tree_map(lambda t: t.cuda(), start)
+    del params, start
+
+    def errors(x, y, o, mx, my):
+        """(first-moment error, parameter error over the update on the
+        resolved lanes, share of lanes not resolved) of one leaf, on the
+        card: x, o, mx the card's, y, my the CPU's."""
+        y, my = y.cuda(), my.cuda()
+        same = (mx.sign() == my.sign()) & (my.abs() >= RESOLVED_M * opt.eps * (1 - opt.b1))
+        m_err = ((mx - my).norm() / my.norm().clamp_min(1e-30)).item()
+        if same.dim() > y.dim():  # local_sgd: each pod's own moments
+            same = same.all(0)
+        apart = (x.float() - y).masked_fill_(~same, 0).norm()
+        update = (y - o.float()).masked_fill_(~same, 0).norm()
+        return m_err, (apart / update.clamp_min(1e-30)).item(), 1 - same.float().mean().item()
+
+    (g_new, g_m), (c_new, c_m) = kept["card"], kept["cpu"]
+    err = {path: errors(x, y, o, mx, my) for (path, x), (_, y), (_, o), (_, mx), (_, my)
+           in zip(tree_items(g_new), tree_items(c_new), tree_items(old), tree_items(g_m), tree_items(c_m))}
+    del kept, g_new, g_m, c_new, c_m, old
+    gc.collect()
+    torch.cuda.empty_cache()
+    m_err, update_err = {k: e[0] for k, e in err.items()}, {k: e[1] for k, e in err.items()}
     g, c = sides["card"], sides["cpu"]
-    leaf_err = {
-        path: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-        for (path, a), (_, b) in zip(tree_items(g[2]), tree_items(c[2]))
-    }
-    pairs = {"loss": (g[0], c[0]), "grad_norm": (g[1], c[1]), "step_loss": (g[3], c[3]),
-             "step_grad_norm": (g[4], c[4])}
-    if (any(abs(a - b) > TRAIN_TOL * abs(b) for a, b in pairs.values())
-            or max(leaf_err.values()) > TRAIN_TOL or g[5] != c[5]):
-        raise AssertionError(f"{strategy}: card vs CPU {pairs}, WAN bytes {g[5]} / {c[5]}, "
-                             f"leaf relative errors {leaf_err}, tolerance {TRAIN_TOL}")
-    return {"batch": [NPODS, 128], **{k: list(v) for k, v in pairs.items()}, "wan_bytes": g[5],
-            "leaf_rel_err_max": max(leaf_err.values()), "tol": TRAIN_TOL}
+    pairs = {"loss": (g[0], c[0]), "grad_norm": (g[1], c[1]), "aux": (g[2], c[2])}
+    flash = ("flash_attention_fwd", "flash_attention_bwd") + (("wan_quant", "wan_dequant")
+                                                             if strategy == "hier_int8" else ())
+    if launches["cpu"] or not all(launches["card"].get(k, 0) > 0 for k in flash):
+        raise AssertionError(f"{strategy}: card vs CPU launches {launches}, expected {flash} on the card only")
+    if (any(abs(a - b) > TRAIN_TOL * abs(b) for a, b in pairs.values()) or g[3] != c[3]
+            or max(m_err.values()) > TRAIN_TOL or max(update_err.values()) > UPDATE_TOL):
+        raise AssertionError(f"{strategy}: card vs CPU {pairs}, WAN bytes {g[3]} / {c[3]}, first-moment "
+                             f"relative errors {m_err} (tolerance {TRAIN_TOL}), parameter errors over the "
+                             f"update on resolved lanes {update_err} (tolerance {UPDATE_TOL})")
+    out = {"batch": [NPODS, 128], "dtype": cfg.dtype, "param_dtype": cfg.param_dtype, "donate": donate,
+           "lr": opt.lr, "warmup_steps": opt.warmup_steps, **{k: list(v) for k, v in pairs.items()},
+           "wan_bytes": g[3], "m_rel_err_max": max(m_err.values()), "m_rel_err_worst": max(m_err, key=m_err.get),
+           "update_rel_err_max": max(update_err.values()),
+           "update_rel_err_worst": max(update_err, key=update_err.get),
+           "lanes_unresolved_max": max(e[2] for e in err.values()), "tol": TRAIN_TOL, "update_tol": UPDATE_TOL,
+           "card_launches": launches["card"], "card_s": seconds["card"], "cpu_s": seconds["cpu"]}
+    if cfg.moe is not None:
+        agree = routing_agreement(routes["card"], routes["cpu"], MOE_NEAR_TIE_BF16)
+        out.update(router_calls=len(agree), tokens_routed=sum(int(a.numel()) for a in agree),
+                   tokens_routed_alike=sum(int(a.sum()) for a in agree), near_tie_bar=MOE_NEAR_TIE_BF16)
+    return out
 
 
 def phase_train(torch):
@@ -2858,6 +2973,334 @@ def phase_train_recurrentgemma(torch):
     return launches
 
 
+def router_gap(probs, k):
+    """Per token, the least gap between neighbours among its k + 1 largest
+    router probabilities: a rounding that moves each probability by less
+    than half of it changes neither the token's expert choices nor their
+    order."""
+    top = probs.detach().float().topk(k + 1, dim=-1).values
+    return (top[:, :-1] - top[:, 1:]).min(-1).values
+
+
+class recorded_routing:
+    """Within ``with``: every call of the port's MoE router
+    (``repro_torch.models.ffn._router_probs``) as (its own expert choices
+    [T, k], ``router_gap``), in call order, for runs that are not timed.
+
+    ``take``: the calls route by these choices ([T, k] each) instead, the
+    gates read from their own probabilities and renormalised as the router
+    does, so that two runs dispatch alike.  ``per_router``: the n-th
+    distinct router (by its storage) takes ``take[n]``, and a router seen
+    again (the forward recomputed under remat "full") takes what it took
+    first and is not recorded again; otherwise the n-th call takes
+    ``take[n]``."""
+
+    def __init__(self, take=None, per_router=False):
+        self.take, self.per_router = take, per_router
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+
+        self.ffn, self.real, self.calls, seen = ffn, ffn._router_probs, [], {}
+
+        def route(params, x, moe):
+            probs, gates, idx = self.real(params, x, moe)
+            n = len(self.calls)
+            if self.per_router:
+                n = seen.setdefault(params["router"].data_ptr(), n)
+            if n == len(self.calls):
+                self.calls.append((idx.detach(), router_gap(probs, moe.num_experts_per_tok)))
+            if self.take is not None:
+                idx = self.take[n].to(idx.device)
+                gates = probs.gather(-1, idx)
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            return probs, gates, idx
+
+        ffn._router_probs = route
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.ffn._router_probs = self.real
+
+
+def dropped_choices(idx, moe) -> int:
+    """(token, choice) pairs the einsum dispatch drops: in each group of
+    MOE_GROUP_SIZE tokens an expert takes at most the capacity."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.ffn import MOE_GROUP_SIZE, _capacity
+
+    t = idx.shape[0]
+    tg = min(MOE_GROUP_SIZE, t)
+    counts = F.one_hot(idx.reshape(t // tg, -1), moe.num_experts).sum(1)  # (groups, E)
+    return int((counts - _capacity(tg, moe)).clamp_min(0).sum())
+
+
+def routing_agreement(a_calls, b_calls, bar):
+    """Per router call of two runs (``recorded_routing``'s records), the
+    tokens given the same expert choices in the same order; raises where
+    they differ and neither run's ``router_gap`` there is below ``bar``
+    (below it, that run's choice is a rounding's to move)."""
+    agree = []
+    for (a_idx, a_gap), (b_idx, b_gap) in zip(a_calls, b_calls, strict=True):
+        same = (a_idx.cpu() == b_idx.cpu()).all(-1)
+        apart = a_gap.cpu().minimum(b_gap.cpu())[~same]
+        if bool((apart >= bar).any()):
+            raise AssertionError(f"MoE routing: two runs route tokens apart away from a near-tie (bar {bar}), "
+                                 f"gaps {apart.tolist()}")
+        agree.append(same)
+    return agree
+
+
+def moe_card_vs_cpu(torch, full):
+    """One layer of ``full`` at full width, compute in float32 from the
+    config's own bf16 weights (each cast per use, as the model casts it), on
+    the card and on the CPU: a [1, MOE_CHECK_PROMPT] prompt, its prefill
+    and MOE_CHECK_STEPS greedy decode steps, the CPU fed the card's tokens.
+    Each token's expert choices compared (apart only at near-ties), and
+    each logits row at rtol = atol = TOL["float32"] where the token it
+    reads through the one FFN is routed alike."""
+    import dataclasses
+
+    from repro_torch.launch.batches import synthetic_prompt_batch
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cut = dataclasses.replace(full, num_layers=1, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(cut, generator=gen, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = synthetic_prompt_batch(cut, gen, 1, MOE_CHECK_PROMPT)
+    n = MOE_CHECK_PROMPT + MOE_CHECK_STEPS
+    out = {}
+    fed = []
+    for side in ("card", "cpu"):
+        if side == "cpu":
+            params = tree_map(lambda t: t.cpu(), params)
+            batch = {k: v.cpu() for k, v in batch.items()}
+        t0 = time.perf_counter()
+        rows = []
+        with recorded_routing() as calls:
+            logits, cache = prefill(params, batch, cut, max_len=n)
+            rows.append(logits.float().cpu())
+            for i in range(MOE_CHECK_STEPS):
+                if side == "card":
+                    fed.append(logits.argmax(-1))
+                logits, cache = decode_step(params, fed[i].to(logits.device), cache, cut, MOE_CHECK_PROMPT + i)
+                rows.append(logits.float().cpu())
+        out[side] = (rows, calls, time.perf_counter() - t0)
+        del cache, logits
+    del params
+    agree = routing_agreement(out["card"][1], out["cpu"][1], MOE_NEAR_TIE)
+    diffs = []
+    for row, (card, cpu) in enumerate(zip(out["card"][0], out["cpu"][0])):
+        if not bool(agree[row][-1]):  # the row's logits read its last token's experts
+            diffs.append(None)
+            continue
+        d = (card - cpu).abs()
+        tol = TOL["float32"]
+        if not bool((d <= tol + tol * cpu.abs()).all()):
+            raise AssertionError(f"MoE card vs CPU: logits row {row} max_abs_err {d.max().item()}, rtol=atol={tol}")
+        diffs.append(d.max().item())
+    tokens = sum(int(a.numel()) for a in agree)
+    return {"layers": 1, "params": n_params, "dtype": "float32", "param_dtype": cut.param_dtype,
+            "prompt": [1, MOE_CHECK_PROMPT], "decode_steps": MOE_CHECK_STEPS, "tol": TOL["float32"],
+            "tokens_routed": tokens, "tokens_routed_alike": sum(int(a.sum()) for a in agree),
+            "near_tie_bar": MOE_NEAR_TIE, "logits_max_abs_err_by_row": diffs,
+            "card_s": out["card"][2], "cpu_s": out["cpu"][2]}
+
+
+def phase_serve_moe(torch, phase):
+    """An MoE arch at full width, its depth cut (MOE_CUTS): a prefill of
+    B_MOE x PROMPT_MOE tokens, then GEN_MOE greedy decode steps, through the
+    flash forward (one launch a layer a prefill, all on wgmma; decode runs
+    dense sdpa on the cache); the choices each layer's capacity dropped in a
+    prefill; then ``moe_card_vs_cpu``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.launch.batches import synthetic_prompt_batch
+    from repro_torch.models import init_params, prefill
+    from repro_torch.tree import tree_leaves
+
+    arch, layers, want_params, want_leaves = MOE_CUTS[phase]
+    gen_steps = GEN_MOE[phase]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params, n_leaves = sum(t.numel() for t in leaves), len(leaves)
+    del leaves
+    if (n_params, n_leaves) != (want_params, want_leaves):
+        raise AssertionError(f"{phase}: {n_params} parameters in {n_leaves} leaves, "
+                             f"expected {want_params} in {want_leaves}")
+    batch = synthetic_prompt_batch(cfg, gen, B_MOE, PROMPT_MOE)
+    max_len = PROMPT_MOE + gen_steps
+
+    def run():
+        return serve_run(torch, params, batch, cfg, prompt=PROMPT_MOE, gen=gen_steps, max_len=max_len)
+
+    run()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
+    res = run()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not res["ok"]:
+        raise AssertionError(f"{phase}: logits not finite or of the wrong shape")
+    got = [c.get("flash_attention_fwd", 0) for c in [res["after_prefill"]] + res["after_steps"]]
+    if got != [layers] * (gen_steps + 1) or launches != {"flash_attention_fwd": layers} or routes != {"wgmma": layers}:
+        raise AssertionError(f"{phase}: flash launches {got} after prefill and each decode step, expected "
+                             f"{layers} a prefill and none in decode; all launches {launches}, routes {routes}")
+    prefill_ms_median = time_ms(lambda: prefill(params, batch, cfg, max_len=max_len), runs=3, warmup=0)
+    with recorded_routing() as calls:
+        prefill(params, batch, cfg, max_len=max_len)
+    drops = [dropped_choices(idx, cfg.moe) for idx, _ in calls]
+    if len(drops) != layers:
+        raise AssertionError(f"{phase}: {len(drops)} router calls in a prefill, expected {layers}")
+    del params, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = moe_card_vs_cpu(torch, full)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.models.ffn import MOE_GROUP_SIZE, _capacity
+
+    step_ms = res["step_ms"]
+    tokens = B_MOE * PROMPT_MOE
+    emit({
+        "phase": phase, "arch": arch, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype, "params": n_params,
+        "leaves": n_leaves, "reduced": {"num_layers": [full.num_layers, layers]},
+        "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "window": cfg.window, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "experts": cfg.moe.num_experts,
+        "top_k": cfg.moe.num_experts_per_tok, "capacity_factor": cfg.moe.capacity_factor,
+        "parallel_dense": cfg.moe.parallel_dense, "moe_impl": cfg.moe.impl,
+        "group_size": MOE_GROUP_SIZE, "capacity_per_group": _capacity(MOE_GROUP_SIZE, cfg.moe),
+        "batch": B_MOE, "prompt": PROMPT_MOE, "gen": gen_steps, "init_s": init_s,
+        "prefill_ms": res["t_prefill"] * 1e3, "prefill_ms_median_of_3_more": prefill_ms_median,
+        "prefill_tokens_per_s": tokens / (prefill_ms_median / 1e3),
+        "decode_ms_per_step_mean": statistics.fmean(step_ms), "decode_ms_per_step_median": statistics.median(step_ms),
+        "decode_tokens_per_s": B_MOE * gen_steps / res["t_decode"], "decode_s": res["t_decode"],
+        "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9,
+        "launches_main_path": launches, "fwd_routes_main_path": routes,
+        "flash_per_prefill": layers, "flash_per_decode_step": 0,
+        "dropped_choices_per_layer": drops, "choices_per_layer": tokens * cfg.moe.num_experts_per_tok,
+        "card_vs_cpu": check, "last_tokens": res["tokens"].tolist(),
+    })
+    return launches
+
+
+def phase_serve_mixtral(torch):
+    return phase_serve_moe(torch, "serve_mixtral")
+
+
+def phase_serve_arctic(torch):
+    return phase_serve_moe(torch, "serve_arctic")
+
+
+def phase_train_mixtral(torch):
+    """mixtral-8x22b at full width, its depth cut to one layer (MOE_CUTS),
+    through GeoTrainer: 2 pods, hier_int8, global batch 2 x 4096, bf16
+    parameters and compute, remat "full", AdamW, 2 untimed and 4 timed
+    steps, no checkpoint written, the step built with ``donate=True``;
+    the aux loss of every step read from the step's metrics; then
+    ``card_vs_cpu_step`` on the same cut, the step donating too."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import wan_bytes_per_step
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    arch, layers, want_params, want_leaves = MOE_CUTS["train_mixtral"]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=WARMUP, total_steps=MIXTRAL_TRAIN_STEPS)
+    tc = TrainerConfig(seq_len=SEQ_MIXTRAL_TRAIN, global_batch=B_MIXTRAL_TRAIN, steps=MIXTRAL_TRAIN_STEPS,
+                       strategy="hier_int8", npods=NPODS, log_every=MIXTRAL_TRAIN_STEPS, seed=0, opt=opt)
+    directory = ckpt_dir("train_mixtral")
+    # 2.91 B parameters (5.0 GB of bf16 experts and attention, 1.6 GB of
+    # float32 tables), float32 moments 23.3 GB and two pods' float32 error
+    # feedback 23.3 GB: a functional step's second copy does not fit
+    trainer = no_checkpoint_trainer(cfg, directory, tc, donate=True)
+    step, auxes = trainer.step_fn, []
+
+    def step_with_aux(params, state, batch):  # reads the loss's aux part, which GeoTrainer's row leaves out
+        out = step(params, state, batch)
+        auxes.append(float(out[2]["aux"]))
+        return out
+
+    trainer.step_fn = step_with_aux
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    ROUTE_LAUNCHES.clear()
+    BWD_ROUTE_LAUNCHES.clear()
+    result = trainer.run()
+    launches, routes, bwd_routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES), dict(BWD_ROUTE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rows = result["metrics"]
+    leaves = tree_leaves(trainer.params)
+    n_leaves, n_params = len(leaves), sum(t.numel() for t in leaves)
+    del leaves
+    if (n_params, n_leaves) != (want_params, want_leaves):
+        raise AssertionError(f"train_mixtral: {n_params} parameters in {n_leaves} leaves, "
+                             f"expected {want_params} in {want_leaves}")
+    # remat="full": the recomputed forward launches the flash forward again
+    per_step = {"flash_attention_fwd": 2 * NPODS * layers, "flash_attention_bwd": NPODS * layers,
+                "wan_quant": n_leaves, "wan_dequant": n_leaves}
+    expected = {k: MIXTRAL_TRAIN_STEPS * v for k, v in per_step.items()}
+    if launches != expected or routes != {"wgmma": expected["flash_attention_fwd"]} \
+            or bwd_routes != {"wgmma": expected["flash_attention_bwd"]}:
+        raise AssertionError(f"train_mixtral: launches {launches}, flash routes {routes} / {bwd_routes} over "
+                             f"{MIXTRAL_TRAIN_STEPS} steps, expected {expected}, all on wgmma")
+    losses = falling_losses("train_mixtral", rows)
+    if len(auxes) != MIXTRAL_TRAIN_STEPS or not all(math.isfinite(a) and a > 0 for a in auxes):
+        raise AssertionError(f"train_mixtral: aux {auxes}, expected one finite value above 0 a step")
+    analytic = wan_bytes_per_step(n_params * 4, "hier_int8", npods=NPODS)
+    wan = [r["wan_bytes"] for r in rows]
+    if any(abs(x - analytic) > 0.01 * analytic for x in wan):
+        raise AssertionError(f"train_mixtral: WAN payload {wan} B/pod/step vs wan_bytes_per_step {analytic}")
+    timed = [r["step_s"] * 1e3 for r in rows[WARMUP:]]
+    step_ms = statistics.median(timed)
+    del trainer, result, step
+    shutil.rmtree(directory, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "train_mixtral", "arch": arch, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+        "reduced": {"num_layers": [full.num_layers, layers]},
+        "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "window": cfg.window, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "experts": cfg.moe.num_experts,
+        "top_k": cfg.moe.num_experts_per_tok, "capacity_factor": cfg.moe.capacity_factor, "remat": cfg.remat,
+        "params": n_params, "leaves": n_leaves, "pods": NPODS, "strategy": "hier_int8",
+        "global_batch": B_MIXTRAL_TRAIN, "seq_len": SEQ_MIXTRAL_TRAIN, "steps": MIXTRAL_TRAIN_STEPS,
+        "warmup_steps_untimed": WARMUP, "checkpoint": "none written (no_checkpoint_trainer)", "step_donates": True,
+        "adamw": {"lr": opt.lr, "warmup_steps": opt.warmup_steps, "total_steps": opt.total_steps},
+        "step_ms_median": step_ms, "step_ms": timed,
+        "tokens_per_s": B_MIXTRAL_TRAIN * SEQ_MIXTRAL_TRAIN / (step_ms / 1e3),
+        "loss_first": losses[0], "loss_last": losses[-1], "losses": losses, "aux": auxes,
+        "grad_norm_last": rows[-1]["grad_norm"], "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9,
+        "wan_bytes_per_pod_step": wan[-1], "wan_bytes_per_step_analytic": analytic,
+        "launches_main_path": launches, "launches_per_step": per_step,
+        "flash_fwd_routes": routes, "flash_bwd_routes": bwd_routes,
+        "card_vs_cpu": card_vs_cpu_step(torch, cfg, "hier_int8", donate=True, opt=opt),
+    })
+    return launches
+
+
 def phase_quickstart(torch):
     """``repro_torch.examples.quickstart`` on the CPU, then on the card, each
     in a fresh checkpoint directory: the fabric, port and cost lines (the
@@ -2962,6 +3405,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_rg = phase_train_recurrentgemma(torch)
+    moe = {}
+    for phase, run in (("serve_mixtral", phase_serve_mixtral), ("train_mixtral", phase_train_mixtral),
+                       ("serve_arctic", phase_serve_arctic)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe[phase] = run(torch)
     quick = phase_quickstart(torch)
     parts = phase_flash_bwd_parts(torch)
 
@@ -2984,6 +3433,8 @@ def main() -> int:
             "launches_serve_recurrentgemma": serve_rg.get(name, 0),
             "launches_train_recurrentgemma": train_rg.get(name, 0),
             "launches_per_train_recurrentgemma_step": train_rg.get(name, 0) // RG_TRAIN_STEPS,
+            **{f"launches_{phase}": launches.get(name, 0) for phase, launches in moe.items()},
+            "launches_per_train_mixtral_step": moe["train_mixtral"].get(name, 0) // MIXTRAL_TRAIN_STEPS,
             **more,
         }
 

@@ -221,13 +221,16 @@ def map_pod_leaves(fn, params, state: TrainState, *, strategy: str, npods: int):
 
 
 def _one_pod(src, pod_batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """One pod's loss, metrics and float32 gradient leaves (in leaf order)."""
+    """One pod's loss, metrics and gradient leaves (in leaf order), each in
+    its parameter's dtype as ``jax.value_and_grad`` gives it: the syncs and
+    AdamW take them to float32 (mixtral-8x22b's bf16 expert stacks would
+    take twice the memory as float32)."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(src)]
     loss, m = loss_fn(tree_unflatten(src, leaves), pod_batch, cfg)
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
     # a leaf the loss never reads (musicgen's untied embed) gets a zero
     # gradient, as jax.value_and_grad gives it; AdamW still decays it
-    grads = [torch.zeros_like(x, dtype=torch.float32) if g is None else g.float() for x, g in zip(leaves, got)]
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, got)]
     return loss.detach(), {k: v.detach() for k, v in m.items()}, grads
 
 
@@ -247,7 +250,9 @@ def pod_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, npods: i
     computes with its own slice; otherwise every pod computes with
     ``params``.  Returns (loss, metrics, grads): loss and metrics averaged
     over pods as the JAX step's ``psum / npods`` does, grads a tree of
-    float32 ``[npods, ...]`` leaves.
+    ``[npods, ...]`` leaves in the parameters' dtypes, stacked a leaf at a
+    time (the pods' own copies of a leaf go as it is stacked, so the whole
+    tree is never held twice).
     """
     losses, metrics, grads = [], [], []
     for p in range(npods):
@@ -256,7 +261,12 @@ def pod_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, npods: i
         losses.append(loss)
         metrics.append(m)
         grads.append(g)
-    stacked = tree_unflatten(src, [torch.stack(gs) for gs in zip(*grads)])
+    stacked = []
+    for i in range(len(grads[0])):
+        stacked.append(torch.stack([g[i] for g in grads]))
+        for g in grads:
+            g[i] = None
+    stacked = tree_unflatten(src, stacked)
     loss = sum(losses) / npods
     mean = {k: sum(m[k] for m in metrics) / npods for k in metrics[0]}
     return loss, mean, stacked
@@ -266,7 +276,9 @@ def sync_grads(grads, ef, *, strategy: str, num_channels: int = 4, in_place: boo
     """Cross-pod sync of ``[npods, ...]`` grads -> (synced, new ef, WAN bytes per pod).
 
     ``local_sgd`` sends nothing: its grads come back as they went in, one
-    per pod.  ``in_place``: ``hier_int8`` writes the new ef into ``ef``."""
+    per pod.  ``in_place``: ``hier_int8`` writes the new ef into ``ef`` and
+    frees each leaf of ``grads`` once it is folded in (the gradients are
+    donated: the caller must not read them afterwards)."""
     _check_strategy(strategy)
     if strategy == "hier_int8":
         return sync_hier_int8(grads, ef, in_place=in_place)
@@ -314,9 +326,11 @@ def make_train_step(
     ``donate`` (the JAX step's ``donate_argnums``): the step may update
     ``params`` and ``state`` in their own storage, so the caller must not
     use them afterwards; it needs no second copy of the parameters, the
-    moments and the error feedback (recurrentgemma-9b's one-group cut does
-    not fit on one card without it).  The values are the same.  One
-    process, strategies other than ``local_sgd``.
+    moments and the error feedback, and ``hier_int8`` frees each pod
+    gradient once folded into the error feedback (recurrentgemma-9b's
+    one-group cut and mixtral-8x22b's one layer do not fit on one card
+    without it).  The values are the same.  One process, strategies other
+    than ``local_sgd``.
     """
     _check_strategy(strategy)
     npods = _pods(mesh, npods)

@@ -107,16 +107,27 @@ def sync_hier_int8(grads, ef, *, in_place: bool = False):
     A leaf at a time: g' and its dequantised copy live for one leaf only,
     and g' becomes the new ef in place (recurrentgemma-9b's stacked 2-pod
     embedding gradient is 7.8 GiB).  ``in_place``: g' is formed in ef's own
-    storage (a donating step's), so the new ef takes no memory of its own.
+    storage (a donating step's), so the new ef takes no memory of its own,
+    and the gradients are donated too: each leaf's storage is freed once
+    it is folded into ef (mixtral-8x22b's stacked 2-pod expert gradients
+    are 3.2 GB a leaf).
     """
     payload, synced, new_ef = 0, [], []
     for (_, g), (_, e) in zip(tree_items(grads), tree_items(ef)):
-        boosted = e.add_(g.float()) if in_place else g.float() + e  # apply_error_feedback, one leaf
+        if in_place:  # apply_error_feedback, one leaf
+            storage = g.untyped_storage()
+            if g.storage_offset() or storage.nbytes() != g.numel() * g.element_size():
+                raise ValueError("sync_hier_int8(in_place=True) frees each gradient leaf's storage: "
+                                 "a leaf must own its whole storage, not be a view into a larger one")
+            boosted = e.add_(g)
+            storage.resize_(0)
+        else:
+            boosted = g.float() + e
         n = boosted.shape[0]
         c = int8_compress(boosted.reshape(n, 1) if boosted.dim() == 1 else boosted)  # a 0-d leaf is one lane
         deq = int8_decompress(c).reshape(boosted.shape)
         payload += compressed_bytes(c) // n * (n - 1)
-        synced.append(deq.sum(0) / n)
+        synced.append(deq.sum(0).div_(n))
         new_ef.append(boosted.sub_(deq.float()))  # residual, one leaf, in the storage of g'
         del c, deq
     return tree_unflatten(grads, synced), tree_unflatten(ef, new_ef), payload

@@ -30,9 +30,19 @@ def dense_init(
     generator: Optional[torch.Generator],
     device: torch.device,
 ) -> torch.Tensor:
-    """Truncated-normal fan-in init (1/sqrt(fan_in)), truncated at 2 std."""
+    """Truncated-normal fan-in init (1/sqrt(fan_in)), truncated at 2 std.
+
+    A stack of matrices (an MoE leaf ``[E, d, f]``) is drawn a matrix at a
+    time, so the float32 draw never holds more than one (arctic-480b's
+    128-expert stack is 17.8 GB in float32)."""
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan_in, 1))
+    if len(shape) > 2:
+        t = torch.empty(tuple(shape), dtype=dtype, device=device)
+        if t.device.type != "meta":
+            for i in range(shape[0]):
+                t[i].copy_(dense_init(shape[1:], fan_in, generator=generator, device=device))
+        return t
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     if t.device.type != "meta":
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)

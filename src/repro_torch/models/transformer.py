@@ -36,10 +36,11 @@ hand-written kernels :mod:`repro_torch.kernels.rglru_scan` (its gradient
 through :class:`~repro_torch.kernels.rglru_scan.RGLRUScanFn`, whose
 forward runs again under remat: the kernel gives the same bits on every
 call), local attention's gradient in the flash backward at head_dim 256,
-and decode updates the LRU state and conv tail in place.  Mixture-of-experts FFNs have their parameters and decode
-state (:func:`init_params`, :func:`init_decode_cache`, so the sizing hooks
-of :mod:`repro_torch.launch.shapes` cover every arch), but a pass through
-them raises: MoE waits for item 11.
+and decode updates the LRU state and conv tail in place.  Mixture-of-experts
+FFNs (mixtral-8x22b, arctic-480b) train and serve through
+:func:`~repro_torch.models.ffn.moe_ffn` (plain torch, as the JAX package
+leaves them to XLA); their routers' aux losses are summed over the layers
+(through the checkpoint under remat) into :func:`forward`'s second output.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.rwkv6_wkv import remat_contexts
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map, tree_unflatten
 from .attention import attention_decode, attention_forward, init_attention, init_cache
 from .config import ATTN, LOCAL, RECURRENT, RWKV, ModelConfig
 from .ffn import dense_ffn, init_dense_ffn, init_moe, moe_ffn
@@ -99,16 +100,34 @@ def _stack(trees):
 
 
 def _stack_layers(make, n: int):
-    """``n`` trees from ``make()``, stacked on a leading axis as they are
-    made: one unstacked tree is alive at a time, not ``n`` (rwkv6-7b's 32
-    layers would otherwise hold its 30 GB of parameters twice)."""
+    """``n`` trees from ``make()`` (called ``n`` times in order, so the
+    values do not depend on the way taken), stacked on a leading axis, in
+    whichever of two ways holds less at once: into the stacked tree as
+    each is made, which holds the stack and one tree (rwkv6-7b's 32 layers
+    would otherwise hold its 30 GB of parameters twice); or all ``n``
+    made, then stacked a leaf at a time, each leaf's sources dropped as it
+    is stacked, which holds the trees and one stacked leaf: less where a
+    leaf is under 1/n of a tree (arctic-480b's two layers: 54.4 + 17.8 GB
+    against 54.4 + 27.2)."""
     tree = make()
-    out = tree_map(lambda t: t.new_empty((n, *t.shape)), tree)
-    for i in range(n):
-        if i:
-            tree = make()
-        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
-    return out
+    sizes = [t.numel() * t.element_size() for t in tree_leaves(tree)]
+    if n * max(sizes) >= sum(sizes):
+        out = tree_map(lambda t: t.new_empty((n, *t.shape)), tree)
+        for i in range(n):
+            if i:
+                tree = make()
+            tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+            del tree
+        return out
+    like = tree_map(lambda t: None, tree)
+    flat = [tree_leaves(tree)] + [tree_leaves(make()) for _ in range(n - 1)]
+    del tree
+    stacked = []
+    for j in range(len(sizes)):
+        stacked.append(torch.stack([leaves[j] for leaves in flat]))
+        for leaves in flat:
+            leaves[j] = None
+    return tree_unflatten(like, stacked)
 
 
 def init_params(
@@ -154,9 +173,10 @@ def _layer_window(kind: str, cfg: ModelConfig) -> Optional[int]:
 
 
 def _ffn(params: Params, h, kind: str, cfg: ModelConfig):
+    """The layer's FFN -> (y, the router's aux loss, or None for a dense FFN)."""
     if cfg.moe is not None and kind == ATTN:
         return moe_ffn(params["ffn"], h, cfg)
-    return dense_ffn(params["ffn"], h, cfg)
+    return dense_ffn(params["ffn"], h, cfg), None
 
 
 def _rwkv_block(params: Params, x, cfg: ModelConfig, state: Params, *, in_place: bool):
@@ -190,18 +210,19 @@ def _recurrent_block(params: Params, x, cfg: ModelConfig, state: Params, *, in_p
 
 
 def _block(params: Params, x, kind: str, cfg: ModelConfig, positions, cache_len):
-    """One layer (forward or prefill).  Returns (x, cache or None)."""
+    """One layer (forward or prefill).  Returns (x, cache or None, the
+    router's aux loss or None)."""
     _check_kind(kind)
     if kind == RECURRENT:  # prefill starts from a zero state; max_len does not apply
         x, state = _recurrent_block(
             params, x, cfg, init_rglru_state(cfg, x.shape[0], device=x.device), in_place=False
         )
-        return x, state if cache_len is not None else None
+        return x, state if cache_len is not None else None, None
     if kind == RWKV:  # prefill starts from a zero state; max_len does not apply
         x, state = _rwkv_block(
             params, x, cfg, init_rwkv_state(cfg, x.shape[0], device=x.device), in_place=False
         )
-        return x, state if cache_len is not None else None
+        return x, state if cache_len is not None else None, None
     h = apply_norm(params["norm1"], x, cfg)
     attn_out, cache = attention_forward(
         params["attn"], h, cfg, window=_layer_window(kind, cfg), positions=positions,
@@ -209,7 +230,8 @@ def _block(params: Params, x, kind: str, cfg: ModelConfig, positions, cache_len)
     )
     x = x + attn_out
     h = apply_norm(params["norm2"], x, cfg)
-    return x + _ffn(params, h, kind, cfg), cache
+    y, aux = _ffn(params, h, kind, cfg)
+    return x + y, cache, aux
 
 
 def _block_decode(params: Params, x_t, cache, kind: str, cfg: ModelConfig, position: int):
@@ -225,7 +247,7 @@ def _block_decode(params: Params, x_t, cache, kind: str, cfg: ModelConfig, posit
     )
     x_t = x_t + attn_out
     h = apply_norm(params["norm2"], x_t, cfg)
-    return x_t + _ffn(params, h, kind, cfg), cache
+    return x_t + _ffn(params, h, kind, cfg)[0], cache  # decode drops the aux loss, as JAX does
 
 
 def _index(tree, i: int):
@@ -277,31 +299,39 @@ def unembed(params: Params, x, cfg: ModelConfig):
 
 
 def _run_stack(params: Params, x, cfg: ModelConfig, positions, cache_len):
-    """Every layer in order; the per-layer caches stacked like the JAX scan's."""
+    """Every layer in order -> (x, caches, aux): the per-layer caches stacked
+    like the JAX scan's, and the MoE layers' aux losses summed in layer
+    order (float32 zero where there are none)."""
     from ..distributed.act_sharding import shard_activations
 
-    def group_body(x, group):
+    def group_body(x, aux, group):
         slots = {}
         for s, kind in enumerate(cfg.pattern):
-            x, slots[f"slot{s}"] = _block(group[f"slot{s}"], x, kind, cfg, positions, cache_len)
+            x, slots[f"slot{s}"], a = _block(group[f"slot{s}"], x, kind, cfg, positions, cache_len)
+            if a is not None:
+                aux = aux + a
         # sequence-parallel boundary: between blocks the residual lives
         # sharded over (batch, seq) on a mesh
-        return shard_activations(x), slots
+        return shard_activations(x), aux, slots
 
     remat = cfg.remat in ("full", "dots") and cache_len is None and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for i in range(cfg.num_groups):
         group = _index(params["groups"], i)
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                lambda x, g: group_body(x, g)[0], x, group, use_reentrant=False, context_fn=remat_contexts
+        if remat:  # the aux sum is carried through the checkpoint, as x is
+            x, aux = torch.utils.checkpoint.checkpoint(
+                lambda x, aux, g: group_body(x, aux, g)[:2], x, aux, group,
+                use_reentrant=False, context_fn=remat_contexts,
             )
         else:
-            x, slots = group_body(x, group)
+            x, aux, slots = group_body(x, aux, group)
             caches.append(slots)
     rem = []
     for i, kind in enumerate(cfg.remainder):
-        x, c = _block(params["remainder"][i], x, kind, cfg, positions, cache_len)
+        x, c, a = _block(params["remainder"][i], x, kind, cfg, positions, cache_len)
+        if a is not None:
+            aux = aux + a
         rem.append(c)
     cache: Params = {}
     if cache_len is not None:
@@ -309,14 +339,13 @@ def _run_stack(params: Params, x, cfg: ModelConfig, positions, cache_len):
             cache["groups"] = _stack(caches)
         if rem:
             cache["remainder"] = rem
-    return x, cache
+    return x, cache, aux
 
 
 def forward(params: Params, batch, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward pass -> (logits [B, S, V], moe_aux scalar)."""
     x, positions = embed_inputs(params, batch, cfg)
-    x, _ = _run_stack(params, x, cfg, positions, None)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = _run_stack(params, x, cfg, positions, None)
     return unembed(params, x, cfg), aux
 
 
@@ -356,7 +385,7 @@ def prefill(params: Params, batch, cfg: ModelConfig, *, max_len: Optional[int] =
     no length.
     """
     x, positions = embed_inputs(params, batch, cfg)
-    x, cache = _run_stack(params, x, cfg, positions, max_len or x.shape[1])
+    x, cache, _ = _run_stack(params, x, cfg, positions, max_len or x.shape[1])  # prefill drops aux, as JAX does
     logits = unembed(params, x[:, -1:, :], cfg)[:, 0, :]
     return logits, cache
 

@@ -113,9 +113,10 @@ def adamw_update(
 ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (new_params, new_state, metrics).
 
-    ``in_place``: the moments (and float32 parameters) are updated in their
-    own storage, which the returned trees then hold (a donating step's; the
-    values are the same)."""
+    ``in_place``: the moments and parameters are updated in their own
+    storage, which the returned trees then hold (a donating step's; the
+    values are the same: a bf16 parameter is written back rounded as the
+    functional step rounds it)."""
     metrics: Dict[str, torch.Tensor] = {}
     grads = tree_map(lambda g: g.float(), grads)
     scale = None
@@ -143,6 +144,8 @@ def adamw_update(
             delta.add_(cfg.weight_decay * p.float())
         if in_place and p.dtype == torch.float32:
             return p.sub_(delta.mul_(lr)), m, v
+        if in_place:
+            return p.copy_(p.float() - delta.mul_(lr)), m, v
         return (p.float() - delta.mul_(lr)).to(p.dtype), m, v
 
     out = tree_map(lambda *t: on_local(upd, *t), params, grads, state.m, state.v)  # (p, m, v) at each leaf

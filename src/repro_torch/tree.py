@@ -65,14 +65,17 @@ def tree_leaves(tree) -> List[Any]:
 
 def tree_unflatten(like, leaves):
     """A tree shaped like ``like`` holding ``leaves`` (in :func:`tree_leaves` order)."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            built = {k: build(t[k]) for k in sorted(t)}
-            return {k: built[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return _rebuild(t, (build(v) for v in t))
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    # a module-level function, not a recursive closure: a closure that calls
+    # itself is a reference cycle, which would keep ``leaves`` (a step's
+    # float32 gradients: 11.6 GB at mixtral-8x22b's one layer) alive until
+    # the garbage collector runs
+    if isinstance(t, dict):
+        built = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: built[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return _rebuild(t, (_build(v, it) for v in t))
+    return next(it)

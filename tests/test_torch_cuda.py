@@ -68,6 +68,10 @@ CASES = [
     (1, 300, 300, 32, 32, 96, True, None, None),
     (2, 40, 40, 7, 1, 8, True, None, None),
     (1, 37, 37, 6, 2, 12, True, None, 30.0),
+    # the MoE archs' GQA groups at head_dim 128: mixtral's 6 (windowed),
+    # arctic's 7, ragged against the 128-row items
+    (1, 300, 300, 12, 2, 128, True, 256, None),
+    (2, 333, 333, 14, 2, 128, True, None, None),
 ]
 
 # Edges of the wgmma backward's 128-key dK/dV items and 64-row query ring,
@@ -717,6 +721,57 @@ def test_wkv6_bwd_wrapper_rejects_what_the_kernel_cannot_take(cuda):
         wkv6(r, k, v, w, u, s0, chunk=8)
     with pytest.raises(ValueError, match="bounds must be"):
         wkv6_bwd(r, k, v, w, u, torch.zeros((1, 1, 2, 16, 16), device=cuda), torch.zeros_like(r), None, 16)
+
+
+# (arch, impl, capacity factor or None for the smoke config's, router):
+# zero routers tie every expert, so CUDA's sort must rank them as the CPU's
+MOE_CASES = [
+    ("mixtral-8x22b", "einsum", None, "random"),
+    ("mixtral-8x22b", "gather", None, "random"),
+    ("mixtral-8x22b", "einsum", 0.5, "random"),
+    ("mixtral-8x22b", "gather", 0.5, "random"),
+    ("mixtral-8x22b", "einsum", None, "zero"),
+    ("arctic-480b", "einsum", 0.5, "zero"),
+    ("arctic-480b", "gather", None, "random"),
+]
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=str)
+def test_moe_ffn_card_matches_cpu(cuda, case):
+    """moe_ffn in float32 at smoke width, 1024 tokens (two groups of 512)
+    and 24: the expert choices equal, the output, the aux loss and the
+    gradients of x and every leaf at 1e-4.  No kernel launches: MoE is
+    plain torch, as the JAX package leaves it to XLA."""
+    from repro_torch.models.ffn import _router_probs, init_moe, moe_ffn
+
+    arch, impl, cf, router = case
+    cfg = get_smoke_config(arch)
+    moe = dataclasses.replace(cfg.moe, impl=impl, **({} if cf is None else dict(capacity_factor=cf)))
+    cfg = dataclasses.replace(cfg, moe=moe)
+    params = init_moe(cfg, generator=torch.Generator().manual_seed(0), device=torch.device("cpu"))
+    if router == "zero":
+        params["router"].zero_()
+    rng = np.random.default_rng(1)
+    for b, s in ((2, 512), (2, 12)):
+        x = torch.tensor(rng.standard_normal((b, s, cfg.d_model), np.float32))
+        ct = torch.tensor(rng.standard_normal((b, s, cfg.d_model), np.float32))
+        sides = {}
+        for dev in ("cpu", cuda):
+            p = _tree(params, lambda t, dev=dev: t.to(dev).requires_grad_(True))
+            xd = x.to(dev).requires_grad_(True)
+            before = dict(LAUNCHES)
+            y, aux = moe_ffn(p, xd, cfg)
+            leaves = [xd] + [t for _, t in tree_items(p)]
+            grads = torch.autograd.grad((y * ct.to(dev)).sum() + aux, leaves)
+            assert dict(LAUNCHES) == before
+            idx = _router_probs(p, xd.detach().reshape(b * s, -1), cfg.moe)[2]
+            sides[str(dev)] = [t.detach().cpu() for t in (idx, y, aux, *grads)]
+        card, cpu = sides["cuda"], sides["cpu"]
+        assert torch.equal(card[0], cpu[0])
+        if router == "zero":
+            assert (cpu[0] == torch.arange(cfg.moe.num_experts_per_tok)).all()
+        for got, want in zip(card[1:], cpu[1:]):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -161,24 +161,45 @@ def test_init_std_matches_jax():
 
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "recurrentgemma-9b", "rwkv6-7b"])
 def test_unported_layers_raise(arch):
-    """MoE layers have their parameters, but a pass through them raises;
-    RWKV6 and RG-LRU layers, no longer unported, train on the CPU: their
+    """The layers once unported (MoE, RWKV6, RG-LRU) train on the CPU: the
     loss and every gradient leaf are finite (held to JAX in
-    ``test_torch_rwkv6.py`` and ``test_torch_rglru.py``)."""
+    ``test_torch_moe.py``, ``test_torch_train.py``, ``test_torch_rwkv6.py``
+    and ``test_torch_rglru.py``); mixtral's routers get nonzero gradients
+    through the gates (the top-k indices carry none), as
+    ``tests/test_models.py`` asks of the JAX package."""
     from repro_torch.models import loss_fn
+    from repro_torch.tree import tree_items
 
     cfg = get_smoke_config(arch)
-    if arch == "mixtral-8x22b":
-        params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-        tokens = torch.zeros((1, 5), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            loss_fn(params, {"tokens": tokens, "labels": tokens}, cfg)
-        return
-
     params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     for leaf in jax.tree.leaves(params):
         leaf.requires_grad_(True)
-    tokens = torch.zeros((1, 5), dtype=torch.long)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(1))
     loss, _ = loss_fn(params, {"tokens": tokens, "labels": tokens}, cfg)
-    grads = torch.autograd.grad(loss, jax.tree.leaves(params))
+    paths = [path for path, _ in tree_items(params)]
+    grads = torch.autograd.grad(loss, [leaf for _, leaf in tree_items(params)])
     assert torch.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads)
+    routers = [g for path, g in zip(paths, grads) if path.endswith("router")]
+    assert bool(routers) == (arch == "mixtral-8x22b")
+    assert all(g.abs().max() > 0 for g in routers)
+
+
+@pytest.mark.parametrize("sizes", [(64, 3), (8, 8, 8, 8), (40,)], ids=str)
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_stack_layers_gives_the_trees_stacked_whichever_way_it_takes(n, sizes):
+    """``_stack_layers`` copies each tree into the stack as it is made or,
+    where a leaf is under 1/n of a tree, holds the trees and stacks a leaf
+    at a time: either way the stack of the ``n`` trees in the order made."""
+    from repro_torch.models.transformer import _stack_layers
+
+    def make(gen):
+        return {"a": {f"w{i}": torch.randn(s, generator=gen) for i, s in enumerate(sizes)}, "b": [torch.randn(2, generator=gen)]}
+
+    gen = torch.Generator().manual_seed(3)
+    got = _stack_layers(lambda: make(gen), n)
+    gen = torch.Generator().manual_seed(3)
+    trees = [make(gen) for _ in range(n)]
+    want = jax.tree.map(lambda *xs: torch.stack(xs), *trees)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        assert torch.equal(a, b)

@@ -31,9 +31,13 @@ TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 PROMPT, GEN, BATCH = 12, 8, 2
 
 
-def _cfgs(arch, dtype, **overrides):
+def _cfgs(arch, dtype, moe_impl=None, **overrides):
+    """Both sides' smoke configs; ``moe_impl`` sets each side's MoE dispatch."""
     jcfg = dataclasses.replace(jax_smoke(arch), dtype=dtype, **overrides)
     tcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype, **overrides)
+    if moe_impl is not None:
+        jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe, impl=moe_impl))
+        tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(tcfg.moe, impl=moe_impl))
     return jcfg, tcfg
 
 
@@ -94,6 +98,15 @@ def test_gqa_window_prefill_and_decode_match_jax():
     """mixtral's attention (GQA 4/2, window 8 < prompt 12, so the cache is
     trimmed and rolled) with a dense FFN in place of the MoE."""
     _run_parity("mixtral-8x22b", "float32", moe=None)
+
+
+@pytest.mark.parametrize("arch,impl", [("mixtral-8x22b", "einsum"), ("mixtral-8x22b", "gather"),
+                                       ("arctic-480b", "einsum")])
+def test_moe_prefill_and_decode_match_jax(arch, impl):
+    """The MoE archs with their experts: mixtral (4 experts top-2, window
+    8) and arctic (8 experts top-2 beside its parallel dense FFN);
+    a prefill of 2 x 12 tokens, then decode steps of 2."""
+    _run_parity(arch, "float32", moe_impl=impl)
 
 
 def test_olmo_prefill_and_decode_match_jax():

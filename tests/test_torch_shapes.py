@@ -5,8 +5,8 @@
 ``jax.tree_util.keystr`` path) the two must have the same shapes and
 dtypes, for every arch, and the simulator's ``model_grad_bytes`` /
 ``model_kv_bytes`` must give the same bytes.  The MoE and RG-LRU
-parameters (init only) match the JAX leaves in structure and convert
-bit-exact both ways.
+parameters match the JAX leaves in structure and convert bit-exact both
+ways.
 """
 
 import os
@@ -155,24 +155,22 @@ def test_lru_lambda_matches_jax():
 
 @pytest.mark.parametrize("arch", UNPORTED_PASSES)
 def test_passes_through_moe_and_rglru_raise_naming_their_item(arch):
-    """MoE's passes raise naming item 11; recurrentgemma-9b's RG-LRU passes
-    (ported) run: finite outputs of the expected shapes."""
+    """The passes that once raised naming their item (MoE item 11, RG-LRU
+    item 12) run: forward, loss (with the MoE router's aux loss above 0)
+    and prefill give finite outputs of the expected shapes; each arch's
+    parity with JAX is in ``test_torch_moe.py``, ``test_torch_rglru.py``,
+    ``test_torch_serve.py`` and ``test_torch_train.py``."""
     cfg = get_smoke_config(arch)
     params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.zeros((1, 5), dtype=torch.long)
-    calls = (
-        lambda: forward(params, {"tokens": tokens}, cfg)[0],
-        lambda: loss_fn(params, {"tokens": tokens, "labels": tokens}, cfg)[0],
-        lambda: prefill(params, {"tokens": tokens}, cfg)[0],
-    )
-    if arch != "recurrentgemma-9b":
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-                call()
-        return
-    outs = [call() for call in calls]
+    logits, aux = forward(params, {"tokens": tokens}, cfg)
+    loss, metrics = loss_fn(params, {"tokens": tokens, "labels": tokens}, cfg)
+    last, _ = prefill(params, {"tokens": tokens}, cfg)
+    outs = [logits, loss, last]
     assert [tuple(o.shape) for o in outs] == [(1, 5, cfg.vocab_size), (), (1, cfg.vocab_size)]
     assert all(torch.isfinite(o).all() for o in outs)
+    assert aux.shape == () and torch.equal(aux, metrics["aux"])
+    assert (aux.item() > 0) == (cfg.moe is not None)
 
 
 def test_train_cli_takes_a_named_shape(monkeypatch, capsys):

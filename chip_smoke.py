@@ -41,7 +41,11 @@ Phases, each printing one JSON line on stdout:
    4096 with mixtral-8x22b's 48 heads over 8 (window 4096) and
    arctic-480b's 56 over 8 (groups of 7), the backward at train_mixtral's
    1 x 4096, each with ``sdpa`` beside it; ``wan_quant`` / ``wan_dequant``
-   also on train_mixtral's stacked 2-pod expert gradient (98,304 x 16,384).
+   also on train_mixtral's stacked 2-pod expert gradient (98,304 x 16,384);
+   and the shards a mesh_models rank hands them: ``rglru_scan`` at 2 x
+   4096 x 2048 and 2 x 4096 x 1024 (its backward at the latter), the flash
+   forward at hd 256 with 8 and 4 query heads over 1 and at hd 128 with 24
+   over 4 and 12 over 2 (2 x 4096), the backward at the training two.
 4. ``serve``: the serving path, distilgpt2-82m at full width (random
    weights from a seed): prefill of 8 x 1024 tokens, then 32 greedy decode
    steps, with the kernel launch counts of that run; then the card against
@@ -191,6 +195,23 @@ Phases, each printing one JSON line on stdout:
    parameters), 2 of 35 layers, 4 x 4096 and 8 decode steps, the same
    numbers and checks as ``serve_mixtral``.  Training arctic-480b does not
    fit one card (a layer's float32 moments alone are 109 GB).
+   ``mesh_recurrentgemma`` and ``mesh_mixtral`` (one 4-rank spawn on the
+   card, gloo): recurrentgemma-9b's one group and mixtral-8x22b's 2 layers
+   served on ``(data 2, model 2)`` (4 x 4096, 4 decode steps fed the
+   one-process run's greedy tokens), its one group and mixtral's one layer
+   trained 3 ``allreduce`` steps on ``(data 1, model 4)`` (2 x 4096),
+   bf16 compute, seed-0 weights; each run held to a one-process run of the
+   same weights and rows made first on the card (logits at SERVE_TOL,
+   recurrentgemma-9b's in relative norm as ``serve_recurrentgemma`` holds
+   them, greedy tokens equal but on near-ties; losses at MESH_LOSS_RTOL;
+   parameters after the last step within MESH_PARAM_RTOL of the
+   one-process change; mixtral's expert choices per router call and its
+   aux, the mesh's training routed by the one-process choices).  Every
+   RG-LRU scan and flash forward call is handed the rank's shard (rows over
+   data, Dr and query heads over model), every flash launch is on
+   ``wgmma``, and no LAN collective is handed the dispatched MoE
+   activations.  Per rank: prefill, decode and step ms, peak GB, LAN bytes
+   and calls, launches and routes.
 8. ``quickstart``: ``repro_torch.examples.quickstart`` on the CPU, then on
    the card, each in a fresh checkpoint directory: the fabric, port and
    cost lines (numpy) equal, the card's 20 losses falling, 2 flash
@@ -225,6 +246,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -273,6 +295,12 @@ FLASH_CASES = [
     # over 8 (groups of 7), no window
     ("mixtral_gqa6_w4096", 4, 4096, 48, 8, 128, "bfloat16", 4096, None, "wgmma"),
     ("arctic_gqa7", 4, 4096, 56, 8, 128, "bfloat16", None, None, "wgmma"),
+    # one rank's shard in mesh_models: its 2 rows of the 4 x 4096 prefill
+    # on (data 2, model 2), its 2 x 4096 training rows on (data 1, model 4)
+    ("rg9b_mesh_serve_hd256_h8_kvh1_w2048", 2, 4096, 8, 1, 256, "bfloat16", 2048, None, "wgmma"),
+    ("rg9b_mesh_train_hd256_h4_kvh1_w2048", 2, 4096, 4, 1, 256, "bfloat16", 2048, None, "wgmma"),
+    ("mixtral_mesh_serve_h24_kvh4_w4096", 2, 4096, 24, 4, 128, "bfloat16", 4096, None, "wgmma"),
+    ("mixtral_mesh_train_h12_kvh2_w4096", 2, 4096, 12, 2, 128, "bfloat16", 4096, None, "wgmma"),
 ]
 # windowed cases where sdpa is also timed unwindowed (is_causal=True) on the
 # same inputs: more pairs than the window keeps, but no S x S mask to read
@@ -298,6 +326,9 @@ FLASH_BWD_CASES = [
     # mixtral-8x22b's attention at the train_mixtral pod's shape (one
     # 4096-token row, 48 heads over 8, window 4096)
     ("mixtral_train_gqa6_w4096", 1, 4096, 48, 8, 128, "bfloat16", 4096, None, "wgmma"),
+    # one rank's shard of mesh_models' training on (data 1, model 4)
+    ("rg9b_mesh_train_hd256_h4_kvh1_w2048", 2, 4096, 4, 1, 256, "bfloat16", 2048, None, "wgmma"),
+    ("mixtral_mesh_train_h12_kvh2_w4096", 2, 4096, 12, 2, 128, "bfloat16", 4096, None, "wgmma"),
 ]
 # head dims the wrappers zero-pad to 16 (each such launch also moves PADDED_LAUNCHES)
 PADDED_HDS = (8, 12)
@@ -358,6 +389,7 @@ WKV_SMALL_W = {"1e-30": 1e-30, "denormal": 1e-40, "zero": 0.0}
 # 1e-6 clamp), r = 1 with lam = 10 (a = sigmoid(10)^8) and lam = -10 (a
 # near 0)
 RGLRU_TRAIN_POD = ("train_pod_1x4096", 1, 4096, 4096, "bfloat16", None)
+RGLRU_MESH_TRAIN = ("mesh_train_2x4096x1024", 2, 4096, 1024, "bfloat16", None)
 RGLRU_CASES = [
     ("path_prefill", 4, 4096, 4096, "bfloat16", None),
     RGLRU_TRAIN_POD,
@@ -369,13 +401,19 @@ RGLRU_CASES = [
     ("r_zero_t300", 2, 300, 4096, "bfloat16", "r_zero"),
     ("r_one_lam10_t300", 2, 300, 4096, "bfloat16", "r_one_lam10"),
     ("lam_minus10_t300", 2, 300, 4096, "bfloat16", "lam_minus10"),
+    # one rank's channels in mesh_models: 2 rows x Dr / 2 serving on (data
+    # 2, model 2), 2 rows x Dr / 4 training on (data 1, model 4)
+    ("mesh_serve_2x4096x2048", 2, 4096, 2048, "bfloat16", None),
+    RGLRU_MESH_TRAIN,
 ]
 RGLRU_LAST_TOL = 1e-4  # h_last is float32 on both sides
 # (label, B, T, Dr, dtype, gates): the RG-LRU backward at train_recurrentgemma's
-# per-pod 1 x 4096 x 4096 and at 4 x 4096 x 4096 (both timed), then the
-# forward's edge shapes; cotangents on h and h_last
-RGLRU_BWD_CASES = [RGLRU_TRAIN_POD] + [c for c in RGLRU_CASES if c != RGLRU_TRAIN_POD]
-RGLRU_BWD_TIMED = 2  # the first cases, their plain version timed too
+# per-pod 1 x 4096 x 4096, at 4 x 4096 x 4096 and at a mesh_models
+# training rank's 2 x 4096 x 1024 (all three timed), then the forward's
+# edge shapes; cotangents on h and h_last
+RGLRU_BWD_CASES = ([RGLRU_TRAIN_POD, RGLRU_CASES[0], RGLRU_MESH_TRAIN]
+                   + [c for c in RGLRU_CASES[1:] if c not in (RGLRU_TRAIN_POD, RGLRU_MESH_TRAIN)])
+RGLRU_BWD_TIMED = 3  # the first cases, their plain version timed too
 RGLRU_DLAM_TOL = 1e-3  # dlam: a float32 sum over B x T in another order
 WKV_BWD_TIMED = 2  # the first cases, timed
 # train_rwkv: rwkv6-7b at full width, depth cut from 32 layers
@@ -3301,6 +3339,469 @@ def phase_train_mixtral(torch):
     return launches
 
 
+# mesh_models: recurrentgemma-9b and mixtral-8x22b at full width on a
+# 4-rank mesh of the one card (gloo): (arch, run, layers, (data, model),
+# batch, seq, decode or train steps).  The RG-LRU conv and scan run on each
+# rank's rows and Dr / model channels, local attention on its 16 / model
+# query heads over the one kv head, the experts on its E / model experts.
+MESH_MODEL_RUNS = [
+    ("recurrentgemma-9b", "serve", RG_TRAIN_LAYERS, (2, 2), 4, 4096, 4),
+    ("recurrentgemma-9b", "train", RG_TRAIN_LAYERS, (1, 4), 2, 4096, 3),
+    ("mixtral-8x22b", "serve", 2, (2, 2), 4, 4096, 4),
+    ("mixtral-8x22b", "train", 1, (1, 4), 2, 4096, 3),
+]
+MESH_MODEL_TIMEOUT_S = 900
+# the aux loss after the first step: AdamW's first update, lr * g / (|g| +
+# eps), moves a router weight whose gradient is rounding by up to 2 lr
+# either way, and E * sum f P follows the router directly (measured on an
+# H100 80GB HBM3: 1.07e-3 at step 2 against the one-process run, the loss
+# within 1e-3)
+MESH_AUX_LATER_RTOL = 5 * MESH_LOSS_RTOL
+# recurrentgemma-9b's bf16 logits are held in relative norm, as
+# serve_recurrentgemma holds them against the CPU: at this model bf16's
+# rounding alone moves them 1.7-2.2x an elementwise SERVE_TOL
+MESH_REL_NORM_ARCHS = ("recurrentgemma-9b",)
+MESH_MODEL_LR = 1e-3
+
+
+def mesh_model_cfg(arch, layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def mesh_model_reference(i):
+    directory = ROOT / "build" / "chip_smoke_checkpoints"
+    directory.mkdir(parents=True, exist_ok=True)
+    return directory / f"mesh_models_reference_{i}.pt"
+
+
+def mesh_model_opt(steps):
+    from repro_torch.optim import AdamWConfig
+
+    return AdamWConfig(lr=MESH_MODEL_LR, warmup_steps=1, total_steps=steps)
+
+
+def mesh_model_batches(cfg, batch, seq, steps):
+    from repro_torch.data import loader_for_model
+
+    loader = loader_for_model(cfg, seq_len=seq, global_batch=batch, seed=0)
+    return [loader.next_batch() for _ in range(steps)]
+
+
+class recorded_kernel_inputs:
+    """Within ``with``: the shapes each call of the RG-LRU scan and the flash
+    forward is handed in the models (``repro_torch.models.rglru.rglru_scan``,
+    ``repro_torch.models.attention.flash_attention``): on a mesh, the rank's
+    local shards."""
+
+    def __enter__(self):
+        from repro_torch.models import attention, rglru
+
+        self.mods, self.shapes = (rglru, attention), {"rglru_scan": [], "flash_attention_fwd": []}
+        self.real = (rglru.rglru_scan, attention.flash_attention)
+
+        def scan(x, *rest):
+            self.shapes["rglru_scan"].append(tuple(x.shape))
+            return self.real[0](x, *rest)
+
+        def flash(q, k, v, **kw):
+            self.shapes["flash_attention_fwd"].append((tuple(q.shape), tuple(k.shape)))
+            return self.real[1](q, k, v, **kw)
+
+        rglru.rglru_scan, attention.flash_attention = scan, flash
+        return self.shapes
+
+    def __exit__(self, *exc):
+        self.mods[0].rglru_scan, self.mods[1].flash_attention = self.real
+
+
+def mesh_model_one_process(torch, i, run):
+    """The one-process run of ``MESH_MODEL_RUNS[i]`` on the card, the same
+    seed-0 weights and rows as the mesh's: serve -> the logits of the
+    prefill and of each decode step (fed its greedy tokens) and the expert
+    choices; train -> the losses, aux and the parameters after the last
+    step (saved for the ranks), with the change from the initial weights."""
+    from repro_torch.distributed import init_train_state, make_train_step
+    from repro_torch.launch.batches import synthetic_prompt_batch
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.tree import tree_items
+
+    arch, kind, layers, _, batch, seq, steps = run
+    cfg = mesh_model_cfg(arch, layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, generator=gen, device="cuda")
+    out = {}
+    if kind == "serve":
+        prompts = synthetic_prompt_batch(cfg, gen, batch, seq)
+        with recorded_routing() as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, prompts, cfg, max_len=seq + steps)
+            torch.cuda.synchronize()
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            want, fed, decode_ms = [logits.float().cpu()], [], []
+            for j in range(steps):
+                fed.append(logits.argmax(-1).cpu())
+                t0 = time.perf_counter()
+                logits, cache = decode_step(params, fed[-1].to("cuda"), cache, cfg, seq + j)
+                torch.cuda.synchronize()
+                decode_ms.append((time.perf_counter() - t0) * 1e3)
+                want.append(logits.float().cpu())
+        out.update(prompts={k: v.cpu() for k, v in prompts.items()}, logits=want, fed=fed, decode_ms=decode_ms,
+                   routing=[(idx.cpu(), gap.cpu()) for idx, gap in calls])
+        del cache, logits
+    else:
+        opt = mesh_model_opt(steps)
+        batches = mesh_model_batches(cfg, batch, seq, steps)
+        state = init_train_state(params, opt, strategy="allreduce")
+        step = make_train_step(cfg, strategy="allreduce", opt_cfg=opt, device="cuda", donate=True)
+        rows, step_ms = [], []
+        with recorded_routing() as calls:  # every call, the recomputed forward's too: the mesh replays them
+            for b in batches:
+                t0 = time.perf_counter()
+                params, state, metrics = step(params, state, b)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                rows.append({k: float(metrics[k]) for k in ("loss", "ce", "aux")})
+        del state
+        reference = {k: t.detach().cpu() for k, t in tree_items(params)}
+        torch.save(reference, mesh_model_reference(i))
+        change, _ = param_distances(torch, cfg, params, reference)
+        out.update(batches=batches, rows=rows, step_ms=step_ms, change=change,
+                   routing=[(idx.cpu(), gap.cpu()) for idx, gap in calls])
+        del reference
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_models_rank(rank, plan):
+    """One rank of mesh_models: each run of ``plan`` ((run, its one-process
+    inputs)) on its (data, model) mesh, the counts zeroed just before and
+    read just after.  A training run is routed by the one-process run's
+    expert choices (its own recorded beside them), so that the two steps
+    dispatch alike."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import (init_pod_params, init_train_state, make_decode_step, make_prefill_step,
+                                         make_train_step)
+    from repro_torch.distributed.placement import place
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_items
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for i, ((arch, kind, layers, shape, batch, seq, steps), given) in enumerate(plan):
+        cfg = mesh_model_cfg(arch, layers)
+        mesh = make_mesh(shape, ("data", "model"), device="cuda")
+        params = init_pod_params(init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+                                             device="cuda"), mesh=mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = {"coordinate": list(mesh.get_coordinate())}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        ROUTE_LAUNCHES.clear()
+        BWD_ROUTE_LAUNCHES.clear()
+        if kind == "serve":
+            prefill_step, placements = make_prefill_step(cfg, mesh, device="cuda")
+            decode, _ = make_decode_step(cfg, mesh, device="cuda")
+            prompts = {k: v.to("cuda") for k, v in given["prompts"].items()}
+            with recorded_routing() as calls, recorded_kernel_inputs() as shapes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = prefill_step(params, prompts, max_len=seq + steps)
+                torch.cuda.synchronize()
+                res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+                lan = prefill_step.lan
+                res.update(prefill_lan_bytes=lan.lan_bytes, prefill_lan_s=lan.lan_seconds,
+                           prefill_lan_calls=dict(lan.calls), prefill_lan_shapes=dict(lan.shapes))
+                got, decode_ms, decode_lan = [logits.float().cpu()], [], []
+                for j, tokens in enumerate(given["fed"]):
+                    t0 = time.perf_counter()
+                    logits, cache = decode(params, tokens.to("cuda"), cache, seq + j)
+                    torch.cuda.synchronize()
+                    decode_ms.append((time.perf_counter() - t0) * 1e3)
+                    decode_lan.append(decode.lan.lan_bytes)
+                    got.append(logits.float().cpu())
+            res.update(logits=got, decode_ms=decode_ms, decode_lan_bytes=decode_lan,
+                       decode_lan_calls=dict(decode.lan.calls), cache_placements=str(placements["cache"]))
+            del cache, logits, prefill_step, decode  # the decode step keeps the gathered parameters
+        else:
+            opt = mesh_model_opt(steps)
+            state = init_train_state(params, opt, strategy="allreduce", mesh=mesh)
+            step = make_train_step(cfg, mesh=mesh, strategy="allreduce", opt_cfg=opt, device="cuda")
+            rows = []
+            d = mesh.get_local_rank("data")
+            take = [idx for idx, _ in rank_routing(given["routing"], kind, layers, seq,
+                                                   range(d * batch // shape[0], (d + 1) * batch // shape[0]))]
+            with recorded_routing(take=take) as calls, recorded_kernel_inputs() as shapes:
+                for b in given["batches"]:
+                    t0 = time.perf_counter()
+                    params, state, metrics = step(params, state, b)
+                    torch.cuda.synchronize()
+                    rows.append({"loss": float(metrics["loss"]), "ce": float(metrics["ce"]),
+                                 "aux": float(metrics["aux"]), "step_ms": (time.perf_counter() - t0) * 1e3,
+                                 "lan_bytes": step.lan.lan_bytes, "lan_s": step.lan.lan_seconds,
+                                 "lan_calls": dict(step.lan.calls), "lan_shapes": dict(step.lan.shapes)})
+            del state
+            # the distance to the one-process parameters on this rank's shards,
+            # each leaf's share divided by the ranks that hold the same shard
+            reference = torch.load(mesh_model_reference(i), mmap=True)
+            diff2 = 0.0
+            for path, t in tree_items(params):
+                local = t.to_local().double()
+                want = place(reference[path], t.device_mesh, t.placements).to_local().to("cuda").double()
+                copies = math.prod(t.device_mesh.size(d) for d, p in enumerate(t.placements) if not p.is_shard())
+                diff2 += float((local - want).square().sum()) / copies
+            del reference
+            res.update(rows=rows, param_diff2=diff2, devices=sorted({t.to_local().device.type
+                                                                      for _, t in tree_items(params)}))
+        res.update(launches=dict(LAUNCHES), routes=dict(ROUTE_LAUNCHES), bwd_routes=dict(BWD_ROUTE_LAUNCHES),
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(), kernel_inputs=shapes,
+                   routing=[(idx.cpu(), gap.cpu()) for idx, gap in calls])
+        out.append(res)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return {"device": torch.cuda.get_device_name(torch.cuda.current_device()), "runs": out}
+
+
+def mesh_model_expected(cfg, kind, shape, batch, seq, steps):
+    """(launches a rank, the shapes each RG-LRU scan and flash forward call
+    is handed on a rank) of a run: rows over data, Dr and query heads over
+    model, kv heads too where they divide it, else the rank's one kv head."""
+    data, model = shape
+    b = batch // data
+    recurrent = sum(k == "recurrent" for k in cfg.pattern) * cfg.num_groups
+    attention = cfg.num_layers - recurrent
+    kvh = cfg.num_kv_heads // model if cfg.num_kv_heads % model == 0 else 1
+    flash = ((b, seq, cfg.num_heads // model, cfg.head_dim), (b, seq, kvh, cfg.head_dim))
+    scan = (b, seq, cfg.d_rnn // model) if recurrent else None
+    if kind == "serve":  # the prefill, then each decode step's one-token scans (decode attends by sdpa)
+        launches = {"flash_attention_fwd": attention, "rglru_scan": recurrent * (1 + steps)}
+        shapes = {"rglru_scan": [scan] * recurrent + [(b, 1, cfg.d_rnn // model)] * recurrent * steps,
+                  "flash_attention_fwd": [flash] * attention}
+    else:  # remat "full": the recomputed forward launches each forward kernel again
+        launches = {"flash_attention_fwd": 2 * attention * steps, "flash_attention_bwd": attention * steps,
+                    "rglru_scan": 2 * recurrent * steps, "rglru_scan_bwd": recurrent * steps}
+        shapes = {"rglru_scan": [scan] * 2 * recurrent * steps, "flash_attention_fwd": [flash] * 2 * attention * steps}
+    if not recurrent:
+        shapes["rglru_scan"] = []
+    return {k: v for k, v in launches.items() if v}, shapes
+
+
+def routing_noise(a_calls, b_calls) -> float:
+    """The largest change of a token's ``router_gap`` between two runs'
+    records, over the tokens both route alike: each probability moved by
+    at most half of it, so a token whose gap exceeds twice it in either run
+    cannot have changed its choices by the runs' rounding."""
+    worst = 0.0
+    for (a_idx, a_gap), (b_idx, b_gap) in zip(a_calls, b_calls, strict=True):
+        same = (a_idx.cpu() == b_idx.cpu()).all(-1)
+        if bool(same.any()):
+            worst = max(worst, float((a_gap.cpu() - b_gap.cpu()).abs()[same].max()))
+    return worst
+
+
+def rank_routing(calls, kind, layers, seq, rows):
+    """A one-process run's router records (``recorded_routing``) cut to a
+    rank's batch rows: a prefill's or a train step's calls hold ``seq``
+    tokens a row, a decode step's one."""
+    out = []
+    for j, (idx, gap) in enumerate(calls):
+        per_row = seq if kind == "train" or j < layers else 1
+        cut = slice(rows.start * per_row, rows.stop * per_row)
+        out.append((idx[cut], gap[cut]))
+    return out
+
+
+def dispatched_numels(cfg, shape, batch, seq):
+    """The sizes the dispatched MoE activations (g, e, c, d) take, on a rank
+    and whole: a LAN collective handed a tensor of one of them would be
+    moving them."""
+    from repro_torch.models.ffn import MOE_GROUP_SIZE, _capacity
+
+    data, model = shape
+    e, c, d = cfg.moe.num_experts, _capacity(MOE_GROUP_SIZE, cfg.moe), cfg.d_model
+    g = batch * seq // MOE_GROUP_SIZE
+    return sorted({gg * ee * c * d for gg in (g, g // data) for ee in (e, e // model)})
+
+
+def phase_mesh_models(torch):
+    """recurrentgemma-9b and mixtral-8x22b at full width on 4 ranks of the
+    card (MESH_MODEL_RUNS), each run held to a one-process run of the same
+    weights and rows made here first: serve on (data 2, model 2) -> logits at
+    SERVE_TOL, greedy tokens equal but on near-ties; train (allreduce, one
+    pod) on (data 1, model 4) -> losses at MESH_LOSS_RTOL, parameters after
+    the last step within MESH_PARAM_RTOL of the one-process change; mixtral's
+    expert choices through routing_agreement at MOE_NEAR_TIE_BF16 and its aux
+    at MESH_LOSS_RTOL.  Every RG-LRU scan and flash forward call on a rank
+    is handed its local shard, every flash launch is on wgmma, and no LAN
+    collective moves the dispatched MoE activations.  One line an arch."""
+    from repro_torch.distributed import spawn
+    from repro_torch.models.ffn import MOE_GROUP_SIZE, _capacity
+
+    import os
+
+    refs = [mesh_model_one_process(torch, i, run) for i, run in enumerate(MESH_MODEL_RUNS)]
+    plan = [(run, {k: v for k, v in ref.items() if k in ("prompts", "fed", "batches")
+                   or (k == "routing" and run[1] == "train")}) for run, ref in zip(MESH_MODEL_RUNS, refs)]
+    parent_reserved = torch.cuda.memory_reserved()
+    # four ranks share the card: growable segments keep each one's cached
+    # but unused blocks from adding up (the ranks' own allocators only)
+    before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn(mesh_models_rank, MESH_RANKS, plan, device="cuda", join_timeout_s=MESH_MODEL_TIMEOUT_S)
+    finally:
+        if before is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+    spawn_s = time.perf_counter() - t0
+    for i, run in enumerate(MESH_MODEL_RUNS):
+        if run[1] == "train":
+            mesh_model_reference(i).unlink()
+    lines, failures = {}, []
+    for i, ((arch, kind, layers, shape, batch, seq, steps), ref) in enumerate(zip(MESH_MODEL_RUNS, refs)):
+        cfg = mesh_model_cfg(arch, layers)
+        sizes = dict(zip(("data", "model"), shape))
+        launches_want, shapes_want = mesh_model_expected(cfg, kind, shape, batch, seq, steps)
+        forbidden = dispatched_numels(cfg, shape, batch, seq) if cfg.moe is not None else []
+        per_rank = []
+        for r, rank in enumerate(ranks):
+            got = rank["runs"][i]
+            label = f"mesh {arch} {kind} {sizes} rank {r}"
+            if got["launches"] != launches_want or got["routes"] != {"wgmma": launches_want["flash_attention_fwd"]} \
+                    or got["bwd_routes"] != ({"wgmma": launches_want["flash_attention_bwd"]}
+                                             if "flash_attention_bwd" in launches_want else {}):
+                failures.append(f"{label}: launches {got['launches']}, routes {got['routes']} / "
+                                f"{got['bwd_routes']}; expected {launches_want}, all flash on wgmma")
+            if got["kernel_inputs"] != shapes_want:
+                failures.append(f"{label}: kernels handed {got['kernel_inputs']}, expected the rank's "
+                                f"shards {shapes_want}")
+            lan_shapes = got.get("prefill_lan_shapes") or {}
+            for row in got.get("rows", []):
+                lan_shapes = {**lan_shapes, **row["lan_shapes"]}
+            moved = [k for k in lan_shapes if math.prod(k[1]) in forbidden]
+            if moved:
+                failures.append(f"{label}: LAN collectives handed the dispatched activations: {moved}")
+            routing = None
+            if cfg.moe is not None:
+                d = got["coordinate"][0]
+                mine = rank_routing(ref["routing"], kind, layers, seq,
+                                    range(d * batch // shape[0], (d + 1) * batch // shape[0]))
+                noise = [routing_noise([a], [b]) for a, b in zip(got["routing"], mine, strict=True)]
+                bars = [max(MOE_NEAR_TIE_BF16, 2 * n) for n in noise]
+                agree = []
+                for a, b, bar in zip(got["routing"], mine, bars):
+                    try:
+                        agree += routing_agreement([a], [b], bar)
+                    except AssertionError as e:
+                        failures.append(f"{label}: {e}")
+                routing = {"tokens_routed_alike": [int(a.sum()) for a in agree],
+                           "tokens_per_call": [int(a.numel()) for a in agree], "gap_noise": noise,
+                           "near_tie_bar": bars}
+            entry = {"coordinate": dict(zip(("data", "model"), got["coordinate"])), "launches": got["launches"],
+                     "fwd_routes": got["routes"], "bwd_routes": got["bwd_routes"],
+                     "peak_gb": got["peak_memory_bytes"] / 1e9, "routing_vs_one_process": routing}
+            if kind == "serve":
+                diffs = [_logit_diff(g, w) for g, w in zip(got["logits"], ref["logits"])]
+                rel = [((g - w).norm() / w.norm()).item() for g, w in zip(got["logits"], ref["logits"])]
+                if arch in MESH_REL_NORM_ARCHS:
+                    if not all(x <= SERVE_TOL for x in rel):
+                        failures.append(f"{label}: logits vs one process {rel} in relative norm, bar {SERVE_TOL}")
+                elif not all(share <= 1 for _, share in diffs):
+                    failures.append(f"{label}: logits vs one process outside rtol=atol={SERVE_TOL}: {diffs}")
+                greedy = [greedy_disagreements(g, w) for g, w in zip(got["logits"], ref["logits"])]
+                if any(d for d, _ in greedy):
+                    failures.append(f"{label}: greedy tokens differ beyond near-ties: {greedy}")
+                entry.update(prefill_ms=got["prefill_ms"], decode_ms=got["decode_ms"],
+                             decode_ms_median=statistics.median(got["decode_ms"]), rel_norm_err=rel,
+                             max_abs_err=[d for d, _ in diffs], worst_share_of_tol=[s for _, s in diffs],
+                             greedy_near_tie_rows=[t for _, t in greedy],
+                             prefill_lan_bytes=got["prefill_lan_bytes"], prefill_lan_s=got["prefill_lan_s"],
+                             prefill_lan_calls=got["prefill_lan_calls"], decode_lan_bytes=got["decode_lan_bytes"],
+                             decode_lan_calls_last=got["decode_lan_calls"])
+            else:
+                rows = got["rows"]
+                for name, later in (("loss", MESH_LOSS_RTOL), ("aux", MESH_AUX_LATER_RTOL)):
+                    have, want = [x[name] for x in rows], [x[name] for x in ref["rows"]]
+                    bars = [MESH_LOSS_RTOL] + [later] * (len(want) - 1)
+                    if not all(math.isfinite(a) for a in have) or any(
+                            abs(a - b) > bar * abs(b) for a, b, bar in zip(have, want, bars)):
+                        failures.append(f"{label}: {name} {have} vs one-process {want}, rtol {bars}")
+                if got["devices"] != ["cuda"]:
+                    failures.append(f"{label}: parameters on {got['devices']}")
+                entry.update(losses=[x["loss"] for x in rows], aux=[x["aux"] for x in rows],
+                             step_ms=[x["step_ms"] for x in rows],
+                             step_ms_median_after_first=statistics.median(x["step_ms"] for x in rows[1:]),
+                             lan_bytes=[x["lan_bytes"] for x in rows], lan_s=[x["lan_s"] for x in rows],
+                             lan_calls_last=rows[-1]["lan_calls"])
+            per_rank.append(entry)
+        result = {"kind": kind, "mesh": sizes, "reduced": {"num_layers": [full_layers(arch), layers]},
+                  "batch": batch, "seq": seq, "steps": steps, "launches_per_rank": launches_want,
+                  "kernel_inputs_per_rank": {k: sorted(set(map(str, v))) for k, v in shapes_want.items()},
+                  "one_process": {k: ref[k] for k in ("prefill_ms", "decode_ms", "rows", "step_ms", "change")
+                                  if k in ref},
+                  "ranks": per_rank}
+        if kind == "train":
+            diff = math.sqrt(sum(rank["runs"][i]["param_diff2"] for rank in ranks))
+            share = diff / ref["change"]
+            if not share <= MESH_PARAM_RTOL:
+                failures.append(f"mesh {arch} train: parameters after the last step {diff} from the "
+                                f"one-process run's, {share} of its change {ref['change']}; at most "
+                                f"{MESH_PARAM_RTOL}")
+            result.update(param_diff_norm=diff, param_diff_share_of_change=share, strategy="allreduce", pods=1,
+                          adamw={"lr": MESH_MODEL_LR, "warmup_steps": 1, "total_steps": steps})
+        if cfg.moe is not None:
+            result.update(experts_per_rank=cfg.moe.num_experts // shape[1],
+                          groups_per_rank=batch // shape[0] * seq // MOE_GROUP_SIZE,
+                          capacity_per_group=_capacity(MOE_GROUP_SIZE, cfg.moe),
+                          dispatched_numels_no_collective_moved=forbidden)
+        lines.setdefault(arch, []).append(result)
+    out = {}
+    for arch, runs in lines.items():
+        phase = "mesh_recurrentgemma" if arch == "recurrentgemma-9b" else "mesh_mixtral"
+        emit({"phase": phase, "arch": arch, "ranks": MESH_RANKS, "backend": "gloo", "device": ranks[0]["device"],
+              "dtype": mesh_model_cfg(arch, 1).dtype, "param_dtype": mesh_model_cfg(arch, 1).param_dtype,
+              "spawn_s": spawn_s, "parent_reserved_gb_at_spawn": parent_reserved / 1e9,
+              "rank_allocator": "expandable_segments:True", "serve_tol": SERVE_TOL, "loss_rtol": MESH_LOSS_RTOL,
+              "param_rtol": MESH_PARAM_RTOL, "aux_rtol_after_the_first_step": MESH_AUX_LATER_RTOL,
+              "near_tie_bar_is": "per router call, MOE_NEAR_TIE_BF16 or twice the largest router_gap change of a "
+                                 "token that call routes alike"
+              if arch != "recurrentgemma-9b" else None,
+              "ms_is": "each rank's host clock around the call, ending in torch.cuda.synchronize()",
+              "lan_s_is": "the rank's host seconds in DTensor's intra-pod collectives (plain gloo calls), "
+                          "device synchronised around each",
+              "logits_bar": "relative norm" if arch in MESH_REL_NORM_ARCHS else "elementwise rtol = atol",
+              "runs": runs})
+        out[phase] = [dict(sum((Counter(rank["runs"][i]["launches"]) for i, run in enumerate(MESH_MODEL_RUNS)
+                                if run[0] == arch), Counter())) for rank in ranks]
+    if failures:  # every number is on the lines above first
+        raise AssertionError("mesh_models: " + "; ".join(failures))
+    return out
+
+
+def full_layers(arch) -> int:
+    from repro_torch.configs import get_config
+
+    return get_config(arch).num_layers
+
+
 def phase_quickstart(torch):
     """``repro_torch.examples.quickstart`` on the CPU, then on the card, each
     in a fresh checkpoint directory: the fabric, port and cost lines (the
@@ -3411,6 +3912,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         moe[phase] = run(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_models = phase_mesh_models(torch)
     quick = phase_quickstart(torch)
     parts = phase_flash_bwd_parts(torch)
 
@@ -3435,6 +3939,7 @@ def main() -> int:
             "launches_per_train_recurrentgemma_step": train_rg.get(name, 0) // RG_TRAIN_STEPS,
             **{f"launches_{phase}": launches.get(name, 0) for phase, launches in moe.items()},
             "launches_per_train_mixtral_step": moe["train_mixtral"].get(name, 0) // MIXTRAL_TRAIN_STEPS,
+            **{f"launches_{phase}_per_rank": [r.get(name, 0) for r in ranks] for phase, ranks in mesh_models.items()},
             **more,
         }
 

@@ -17,8 +17,9 @@ sequence-sharded residual.  DTensor on the card's torch (2.11) refuses to
 flatten a sequence-sharded ``[B, S, D]`` for the next matmul, so the port
 keeps the sequence whole and has neither hook.  The kernels take their
 operands through :func:`on_local_shards`, which lays rows over ``data``
-and heads over ``model``: a column-parallel projection's output is
-already so placed, so nothing moves there.  Placement changes no value.
+and heads (or the RG-LRU's channels, the experts, a vocab slice) over
+``model``: a column-parallel projection's output is already so placed, so
+nothing moves there.  Placement changes no value.
 """
 
 from __future__ import annotations
@@ -66,6 +67,16 @@ def shard_activations(x):
     return x.redistribute(mesh, placements)
 
 
+def mesh_coordinate(x, axis: str) -> int:
+    """The rank's index along mesh axis ``axis`` of DTensor ``x``'s mesh:
+    0 for a plain tensor or a mesh without that axis."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor) or axis not in (x.device_mesh.mesh_dim_names or ()):
+        return 0
+    return x.device_mesh.get_local_rank(axis)
+
+
 def reduce_partial(x):
     """A reduction's value whole on every rank: a DTensor holding partial
     sums (a loss term summed over rows sharded over ``data``) reduced to
@@ -78,9 +89,10 @@ def reduce_partial(x):
     return x.redistribute(x.device_mesh, tuple(Replicate() if p.is_partial() else p for p in x.placements))
 
 
-def on_local_shards(fn, args, dims, out_dims, *, in_place=()):
+def on_local_shards(fn, args, dims, out_dims, *, in_place=(), partial=()):
     """``fn`` on each rank's local shards of DTensor ``args``: its rows of
-    the batch and, over ``model``, its heads.
+    the batch and, over ``model``, its heads (or channels, or experts: any
+    dim whose pieces ``fn`` works on apart).
 
     ``dims[i]`` is ``(batch dim, head dim)`` of ``args[i]`` (either may be
     None), ``out_dims`` the same for each output of ``fn`` (a tuple of
@@ -102,7 +114,11 @@ def on_local_shards(fn, args, dims, out_dims, *, in_place=()):
     ``fn(*args)``.  This is where a hand-written kernel meets DTensor: the
     kernel sees ``[B_local, ..., H_local, ...]`` tensors on the rank's device.
     An argument without a batch (head) dim, whole on ranks that split the
-    rows (heads), gets its gradient back as a partial sum over them.
+    rows (heads), gets its gradient back as a partial sum over them; an
+    output listed in ``partial`` without a batch (head) dim is, the other
+    way round, ``fn``'s sum over the rank's rows (heads) only (a count over
+    the rank's tokens, the experts' combine), so it comes back as
+    ``Partial()`` over the axes that split them.
     """
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -123,15 +139,16 @@ def on_local_shards(fn, args, dims, out_dims, *, in_place=()):
     def same(have, want):  # equal but where an axis of size 1 holds the whole tensor either way
         return all(h == w or size[a] == 1 for a, h, w in zip(names, have, want))
 
-    def placements(batch_dim, head_dim):
+    def placements(batch_dim, head_dim, summed=False):
         out = []
         for a in names:
-            if a == "data" and split["data"] and batch_dim is not None:
-                out.append(Shard(batch_dim))
-            elif a == "model" and split["model"] and head_dim is not None:
-                out.append(Shard(head_dim))
-            else:
+            dim = {"data": batch_dim, "model": head_dim}.get(a)
+            if not split.get(a):
                 out.append(Replicate())
+            elif dim is not None:
+                out.append(Shard(dim))
+            else:  # whole on the ranks that split the work: the same, or (summed) each one's part
+                out.append(Partial() if summed else Replicate())
         return tuple(out)
 
     local, write_back = [], []
@@ -165,7 +182,7 @@ def on_local_shards(fn, args, dims, out_dims, *, in_place=()):
     single = len(out_dims) == 1
     outs = (out,) if single else out
     wrapped = tuple(
-        DTensor.from_local(o, mesh, placements(b, h), run_check=False)
-        for o, (b, h) in zip(outs, out_dims)
+        DTensor.from_local(o, mesh, placements(b, h, i in partial), run_check=False)
+        for i, (o, (b, h)) in enumerate(zip(outs, out_dims))
     )
     return wrapped[0] if single else wrapped

@@ -13,7 +13,8 @@ functional collective DTensor issues and performs it with the plain call
 (``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``),
 so it has completed when it returns and
 ``wait_tensor`` passes its tensor through.  It counts what it was handed,
-per op, as LAN traffic (``handed`` bytes, ``seconds``, ``calls``), apart
+per op, as LAN traffic (``handed`` bytes, ``seconds``, ``calls``, and
+``shapes``: the calls by the shape of the tensor handed), apart
 from the WAN counts of :class:`~repro_torch.distributed.pod_group.PodGroup`.
 A functional collective it does not know raises: there is no silent
 fallback onto the functional path.  On the card each counted collective
@@ -61,6 +62,7 @@ class LanCollectives(TorchDispatchMode):
         self.handed: Counter = Counter()
         self.seconds: Counter = Counter()
         self.calls: Counter = Counter()
+        self.shapes: Counter = Counter()  # (op, shape of the tensor handed) -> calls
         self._counting = True
 
     @contextlib.contextmanager
@@ -111,6 +113,7 @@ class LanCollectives(TorchDispatchMode):
         self.seconds[name] += time.perf_counter() - t0
         self.handed[name] += inp.numel() * inp.element_size()
         self.calls[name] += 1
+        self.shapes[name, tuple(inp.shape)] += 1
         return out
 
     # -- the collectives, each as its functional op's signature ----------------

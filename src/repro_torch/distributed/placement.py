@@ -78,7 +78,10 @@ def place(t: torch.Tensor, mesh, placements):
                 continue  # cut with its strided partner above
             chunks = local.chunk(mesh.size(i), dim=p.dim)
             local = chunks[coord[i]] if coord[i] < len(chunks) else local.narrow(p.dim, 0, 0)
-    return _dtensor().from_local(local.contiguous(), mesh, tuple(placements), run_check=False,
+    local = local.contiguous()
+    if local.numel() < t.numel() and local.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
+        local = local.clone()  # a view of a shard would keep the whole tensor alive
+    return _dtensor().from_local(local, mesh, tuple(placements), run_check=False,
                                  shape=t.shape, stride=contiguous_stride(t.shape))
 
 

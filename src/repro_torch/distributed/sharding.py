@@ -155,6 +155,23 @@ def _spec_for(names, shape, sizes: Dict[str, int]) -> Spec:
     return tuple(spec)
 
 
+def expert_dim(names, rank: int) -> Optional[int]:
+    """The expert dim of an MoE expert stack, ``[E, D, F]`` / ``[E, F, D]``
+    (``[L, E, ...]`` under ``groups``), at key path ``names``; None for any
+    other leaf, the stacked dense FFN ``[L, D, F]`` (which ``_MOE_RULES``
+    also place, the quirk above) and Arctic's dense FFN beside the experts
+    among them."""
+    if "ffn" not in names or "dense" in names or names[-1] not in _MOE_TENSORS:
+        return None
+    lead = 1 if "groups" in names else 0
+    return lead if rank == 3 + lead else None
+
+
+def map_params(fn, params):
+    """``fn(names, leaf)`` over a parameter tree, ``names`` its key path."""
+    return _walk(fn, params)
+
+
 def params_pspecs(params_shapes, mesh):
     """The spec of every parameter leaf."""
     sizes = mesh_sizes(mesh)

@@ -74,7 +74,8 @@ from .act_sharding import activation_sharding
 from .lan import LanCollectives
 from .placement import drop_pod, from_piece, full, is_dtensor, place_tree, to_piece
 from .pod_group import PodGroup
-from .sharding import batch_placements, cache_placements, map_specs, params_placements, params_pspecs
+from .sharding import (batch_placements, cache_placements, expert_dim, map_params, map_specs, params_placements,
+                       params_pspecs)
 from .sync import (
     STRATEGIES,
     full_precision_bytes,
@@ -389,20 +390,28 @@ def place_batch(batch: Dict[str, torch.Tensor], mesh):
     return place_tree(rows, intra_pod_mesh(mesh), intra_placements(batch_placements(batch, mesh), mesh))
 
 
-def _fsdp_gather(p):
+def _fsdp_gather(p, expert_dim: Optional[int] = None):
     """A parameter as the forward uses it: all-gathered over ``data``
     (FSDP; the gradient flows back reduce-scattered), its ``model`` shard
-    kept on a matrix dim (tensor parallelism) and gathered on a layer-stack
+    kept on a matrix dim (tensor parallelism) or on ``expert_dim``, an
+    expert stack's E (expert parallelism), and gathered on a layer-stack
     dim, which the forward indexes layer by layer (the stacked dense FFN's
-    ``[L, D, F]`` puts L on ``model``: the JAX rule's MoE quirk)."""
+    ``[L, D, F]`` puts L on ``model``: the JAX rule's MoE quirk).  The
+    dtype stays (bf16 expert stacks are gathered in bf16)."""
     from torch.distributed.tensor import Replicate, Shard
 
     def use(axis, pl):  # a strided shard (the few-expert width) is gathered too
-        keep = axis == "model" and type(pl) is Shard and pl.dim >= p.ndim - 2
+        keep = axis == "model" and type(pl) is Shard and (pl.dim >= p.ndim - 2 or pl.dim == expert_dim)
         return pl if keep else Replicate()
 
     want = tuple(use(a, pl) for a, pl in zip(p.device_mesh.mesh_dim_names, p.placements))
     return p if want == tuple(p.placements) else p.redistribute(p.device_mesh, want)
+
+
+def _fsdp_gather_tree(params):
+    """:func:`_fsdp_gather` over a parameter tree, each expert stack's
+    expert dim named by its key path."""
+    return map_params(lambda names, p: _fsdp_gather(p, expert_dim(names, p.ndim)), params)
 
 
 # The activation context of the mesh steps: rows over ``data``.  The JAX
@@ -412,23 +421,26 @@ ACT_AXES = "data"
 
 
 def _mesh_grads(params, batch, cfg: ModelConfig):
-    """The pod's loss, metrics and float32 gradients on its rows, the model
-    run on DTensors: every parameter FSDP-gathered, activations placed by
-    the active context, gradients placed as their parameters."""
+    """The pod's loss, metrics and gradients on its rows, the model run on
+    DTensors: every parameter FSDP-gathered, activations placed by the
+    active context, gradients placed as their parameters and in their
+    dtypes, as :func:`_one_pod` gives them (bf16 expert stacks' gradients
+    in bf16: their reduce over ``data`` already ran in bf16, and a float32
+    copy would be twice the memory)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
     with implicit_replication(), activation_sharding(ACT_AXES):
-        used = tree_unflatten(params, [_fsdp_gather(x) for x in leaves])
+        used = _fsdp_gather_tree(tree_unflatten(params, leaves))
         loss, m = loss_fn(used, batch, cfg)
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = []
     for x, g in zip(leaves, got):
         if g is None:
-            g = torch.zeros_like(x, dtype=torch.float32)
+            g = torch.zeros_like(x)
         elif tuple(g.placements) != tuple(x.placements):  # a partial sum over data reduce-scatters here
             g = g.redistribute(x.device_mesh, x.placements)
-        grads.append(g.float())
+        grads.append(g)
     return _scalar(loss), {k: _scalar(v) for k, v in m.items()}, tree_unflatten(params, grads)
 
 
@@ -439,14 +451,17 @@ def _pieces(tree):
     return {k: v for k, v in ((k, to_piece(t)) for k, t in tree_items(tree)) if v.numel()}
 
 
-def _unpieces(pieces, like):
-    """A tree placed as ``like`` from its pieces (missing: empty)."""
+def _unpieces(pieces, like, dtype=None):
+    """A tree placed as ``like`` from its pieces (missing: empty), in
+    ``like``'s dtypes or ``dtype`` (the synced gradients stay float32, as
+    the strategies give them)."""
     leaves = []
     for k, t in tree_items(like):
         piece = pieces.get(k)
+        want = dtype or t.dtype
         if piece is None:
-            piece = torch.empty((0, *t.shape[1:]) if t.ndim >= 2 else (0,), dtype=t.dtype, device=t.to_local().device)
-        leaves.append(from_piece(piece.to(t.dtype), t))
+            piece = torch.empty((0, *t.shape[1:]) if t.ndim >= 2 else (0,), dtype=want, device=t.to_local().device)
+        leaves.append(from_piece(piece.to(want), t))
     return tree_unflatten(like, leaves)
 
 
@@ -477,7 +492,7 @@ def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, dev
     intra, n = intra_pod_mesh(mesh), num_pods(mesh)
     group = PodGroup(pod_process_group(mesh), device=device) if n > 1 else None
     if intra is None:
-        lan, pieces, unpieces = None, (lambda tree: tree), (lambda got, like: got)
+        lan, pieces, unpieces = None, (lambda tree: tree), (lambda got, like, dtype=None: got)
 
         def grads_of(params, batch):
             loss, metrics, grads = _one_pod(params, _rows(batch, n, pod_index(mesh)), cfg)
@@ -495,14 +510,14 @@ def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, dev
             return grads, ef
         if strategy == "hier_int8":
             synced, new_ef = sync_hier_int8_group(pieces(grads), pieces(ef), group)
-            return unpieces(synced, grads), unpieces(new_ef, ef)
+            return unpieces(synced, grads, torch.float32), unpieces(new_ef, ef)
         if strategy == "allreduce":
             synced = sync_allreduce_group(pieces(grads), group)
         elif strategy == "hier":
             synced = sync_hier_group(pieces(grads), group, num_channels=num_channels)
         else:  # ps: the push
             synced = sync_ps_group(pieces(grads), group)
-        return unpieces(synced, grads), ef
+        return unpieces(synced, grads, torch.float32), ef
 
     shapes = init_params(cfg, device="meta")
     placements = {
@@ -630,7 +645,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, *, device: DeviceLike = "cuda"):
             return logits, cache
 
         def run():
-            used = tree_map(_fsdp_gather, init_pod_params(params, mesh=mesh))
+            used = _fsdp_gather_tree(init_pod_params(params, mesh=mesh))
             logits, cache = prefill(used, place_batch(batch, mesh), cfg, max_len=max_len)
             _note(placements, "cache", cache_placements, cache, mesh)
             want = intra_placements(placements["cache"], mesh)
@@ -658,13 +673,29 @@ def make_decode_step(cfg: ModelConfig, mesh, *, device: DeviceLike = "cuda"):
     position) -> (logits, cache).  ``tokens_t`` holds the global batch's
     tokens; on a group mesh each rank decodes its pod's rows against its
     own cache (from :func:`make_prefill_step`), its shard of it on a pod
-    of several ranks, written in place.  Returns (step, placements):
+    of several ranks, written in place.  There the parameters are gathered
+    as the forward uses them once, and kept (as long as the step lives)
+    while the same tensors come back unchanged (by their version
+    counters): a decode step after the first moves only activations.
+    Returns (step, placements):
     ``{"params", "cache", "tokens"}``."""
     npods, device = _pods(mesh, None), resolve_device(device)
     group = is_group_mesh(mesh)
     rank = pod_index(mesh)
     intra, lan = _mesh_serving(mesh, device)
     placements = _serve_placements(cfg, mesh)
+    gathered: Dict[str, Any] = {}
+
+    def used_params(params):
+        leaves = tree_leaves(params)
+        versions = [(t.to_local() if is_dtensor(t) else t)._version for t in leaves]
+        kept = gathered.get("leaves")
+        if kept is None or len(kept) != len(leaves) or any(a is not b for a, b in zip(kept, leaves)) \
+                or gathered["versions"] != versions:
+            gathered.clear()  # the old gathered tree goes before the new one is made
+            gathered.update(leaves=leaves, versions=versions,
+                            used=_fsdp_gather_tree(init_pod_params(params, mesh=mesh)))
+        return gathered["used"]
 
     def step(params, tokens_t, cache, position: int):
         tokens_t = torch.as_tensor(tokens_t, device=device)
@@ -678,9 +709,8 @@ def make_decode_step(cfg: ModelConfig, mesh, *, device: DeviceLike = "cuda"):
             return model_decode_step(params, tokens_t, cache, cfg, position)
 
         def run():
-            used = tree_map(_fsdp_gather, init_pod_params(params, mesh=mesh))
             tokens = place_batch({"t": tokens_t}, mesh)["t"]
-            logits, new_cache = model_decode_step(used, tokens, cache, cfg, position)
+            logits, new_cache = model_decode_step(used_params(params), tokens, cache, cfg, position)
             return full(logits), new_cache
 
         return _on_mesh(run, lan)

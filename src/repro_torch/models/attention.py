@@ -120,6 +120,23 @@ def sdpa(
     return out.reshape(B, Sq, H, hd)
 
 
+def _kv_head_of_rank(q, cfg: ModelConfig) -> Optional[int]:
+    """On a mesh whose ``model`` axis divides the query heads but not the
+    kv heads, while the kv heads divide it (recurrentgemma-9b's one kv head:
+    16 query heads over 1), the one kv head that all the rank's query heads
+    read; None elsewhere (heads split alike, or no split of the heads)."""
+    from torch.distributed.tensor import DTensor
+
+    from ..distributed.act_sharding import mesh_coordinate
+
+    if not isinstance(q, DTensor) or "model" not in (q.device_mesh.mesh_dim_names or ()):
+        return None
+    m, h, kvh = q.device_mesh.size(q.device_mesh.mesh_dim_names.index("model")), cfg.num_heads, cfg.num_kv_heads
+    if m == 1 or h % m or kvh % m == 0 or m % kvh:
+        return None
+    return mesh_coordinate(q, "model") * kvh // m
+
+
 def attention_forward(
     params: Params,
     x: torch.Tensor,  # [B, S, D]
@@ -148,12 +165,18 @@ def attention_forward(
     k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     # on a mesh the kernel runs on the rank's rows and heads
     heads = ((0, 2),) * 3
-    out = on_local_shards(
-        lambda q, k, v: flash_attention(
-            q, k, v, causal=True, window=window, logit_softcap=cfg.attn_logit_softcap
-        ).flatten(2),
-        (q, k, v), heads, heads[:1],
-    )
+    kv = _kv_head_of_rank(q, cfg)
+    if kv is None:
+        def attend(q, k, v):
+            return flash_attention(q, k, v, causal=True, window=window, logit_softcap=cfg.attn_logit_softcap)
+    else:  # k and v whole on every model rank; the rank's query heads read one kv head
+        heads = heads[:1] + ((0, None),) * 2
+
+        def attend(q, k, v):
+            k, v = k[:, :, kv : kv + 1].contiguous(), v[:, :, kv : kv + 1].contiguous()
+            return flash_attention(q, k, v, causal=True, window=window, logit_softcap=cfg.attn_logit_softcap)
+
+    out = on_local_shards(lambda q, k, v: attend(q, k, v).flatten(2), (q, k, v), heads, heads[:1])
     y = _out_proj(params, out, cfg)
     if not return_cache:
         return y, None

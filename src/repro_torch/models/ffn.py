@@ -17,8 +17,8 @@ from a stable descending sort (``lax.top_k`` ranks equal values lowest
 index first; ``torch.topk`` does not), and a slot past the capacity gets
 a zero one-hot row (``jax.nn.one_hot``) where ``F.one_hot`` would raise.
 Arctic's dense residual (``MoEConfig.parallel_dense``) runs a dense FFN
-beside the experts.  On a mesh (DTensor arguments) :func:`moe_ffn` raises:
-expert parallelism over ``model`` waits for ROADMAP queue 1, item 21.
+beside the experts.  On a mesh :func:`moe_ffn` runs expert parallel: each
+rank its rows' tokens through its experts, on its local shards.
 """
 
 from __future__ import annotations
@@ -29,18 +29,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..tree import tree_leaves
 from .config import ModelConfig, MoEConfig, torch_dtype
 from .layers import activation_fn, dense_init, gelu
 
 Params = Dict[str, torch.Tensor]
 
 MOE_GROUP_SIZE = 512  # tokens per dispatch group (GShard "G" dimension)
-
-MOE_ON_A_MESH = (
-    "the mixture-of-experts FFN on a mesh (DTensor arguments) is not ported yet: expert "
-    "parallelism over model waits for ROADMAP queue 1, item 21"
-)
 
 
 def init_dense_ffn(
@@ -127,12 +121,29 @@ def _router_probs(params: Params, x_flat, moe: MoEConfig):
     return probs, gate_vals, expert_idx
 
 
-def _aux_loss(probs, expert_idx, moe: MoEConfig):
-    """Switch-style load-balancing loss: E * sum_e f_e * P_e."""
-    e = moe.num_experts
-    counts = torch.bincount(expert_idx.reshape(-1), minlength=e).float()
+def _route(x_flat, router, moe: MoEConfig):
+    """:func:`_router_probs` and the choices each expert got -> (probs,
+    gates, expert_idx, counts [E] float32)."""
+    probs, gates, expert_idx = _router_probs({"router": router}, x_flat, moe)
+    return probs, gates, expert_idx, _counts(expert_idx, moe)
+
+
+def _counts(expert_idx, moe: MoEConfig):
+    return torch.bincount(expert_idx.reshape(-1), minlength=moe.num_experts).float()
+
+
+def _aux_loss(probs, expert_idx, moe: MoEConfig, counts=None):
+    """Switch-style load-balancing loss: E * sum_e f_e * P_e, with ``f``
+    (from the choices each expert got, ``counts`` where given) and ``P``
+    over every token of the batch.  On a mesh both are partial over
+    ``data`` (each rank's rows) and are reduced before the product: a mean
+    of per-rank losses would be another number."""
+    from ..distributed.act_sharding import reduce_partial
+
+    counts = _counts(expert_idx, moe) if counts is None else counts
+    counts, p = reduce_partial(counts), reduce_partial(probs.mean(dim=0))
     f = counts / counts.sum().clamp_min(1.0)
-    return e * torch.sum(f * probs.mean(dim=0))
+    return moe.num_experts * torch.sum(f * p)
 
 
 def _capacity(tg: int, moe: MoEConfig) -> int:
@@ -153,52 +164,75 @@ def _expert_ffn(params: Params, xs, cfg: ModelConfig):
     return torch.einsum("...ecf,efd->...ecd", h, params["w_down"].to(dt))
 
 
-def _moe_einsum(params: Params, x_flat, cfg: ModelConfig):
-    """GShard grouped dispatch / combine -> (y [T, D], aux)."""
-    moe = cfg.moe
-    t, d = x_flat.shape
-    tg = min(MOE_GROUP_SIZE, t)
-    if t % tg:
-        raise ValueError(f"token count {t} not divisible by group size {tg}")
-    g, c, e, k = t // tg, _capacity(tg, moe), moe.num_experts, moe.num_experts_per_tok
-
-    probs, gates, expert_idx = _router_probs(params, x_flat, moe)
-    aux = _aux_loss(probs, expert_idx, moe)
-
-    # per-group capacity assignment; dispatch and combine in the compute dtype
-    dt = cfg.compute_dtype
+def _queue_positions(expert_idx, tg: int, e: int):
+    """Each choice's place in its expert's queue of its group of ``tg``
+    tokens, [T, k] -> [T, k]: choice j queues behind choices 0..j-1 of the
+    whole group, then in token order."""
+    t, k = expert_idx.shape
+    g = t // tg
     idx_g = expert_idx.reshape(g, tg, k)
-    gate_g = gates.reshape(g, tg, k).to(dt)
-    slots = torch.arange(c, device=x_flat.device)
-    dispatch = torch.zeros((g, tg, e, c), dtype=dt, device=x_flat.device)
-    combine = torch.zeros((g, tg, e, c), dtype=dt, device=x_flat.device)
-    counts = torch.zeros((g, e), dtype=torch.int32, device=x_flat.device)
-    for j in range(k):  # choice j queues behind choices 0..j-1 of the whole group
+    counts = torch.zeros((g, e), dtype=torch.int32, device=expert_idx.device)
+    out = []
+    for j in range(k):
         onehot = F.one_hot(idx_g[:, :, j], e).int()  # (g, tg, e)
         pos = torch.cumsum(onehot, dim=1) - 1 + counts[:, None, :]
         counts = counts + onehot.sum(dim=1)
-        pos_of_token = (pos * onehot).sum(dim=-1)  # (g, tg)
-        keep = pos_of_token < c
-        slot_onehot = (pos_of_token[..., None] == slots).to(dt)  # a zero row past the capacity
-        contrib = onehot.to(dt)[..., None] * slot_onehot[:, :, None, :] * keep[..., None, None].to(dt)
+        out.append((pos * onehot).sum(dim=-1))  # (g, tg)
+    return torch.stack(out, dim=-1).reshape(t, k)
+
+
+def _moe_einsum(x_flat, gates, expert_idx, experts: Params, cfg: ModelConfig, *, tg: int, choices=None,
+                row0: int = 0, e0: int = 0):
+    """GShard grouped dispatch / combine of ``x_flat``'s tokens [t, D]
+    (``gates``, ``expert_idx`` their choices) through the experts ``e0 ..
+    e0 + n`` whose stacks ``experts`` holds -> y [t, D]: their part of the
+    combine, all of it when they are all the experts.
+
+    Groups are ``tg`` tokens and each expert takes at most
+    :func:`_capacity` of a group's choices.  ``choices`` None: ``x_flat``'s
+    rows are whole groups.  Else they lie within one group, whose every
+    token's choices ``choices`` holds, ``x_flat``'s first row at ``row0``
+    of them: the queue positions are taken over the whole group.  The
+    rows of other ranks fill other slots, which stay zero here; an expert
+    maps a zero row to zero (no bias), so the rank's part of the combine is
+    the same either way."""
+    moe = cfg.moe
+    t, d = x_flat.shape
+    e, k, n = moe.num_experts, moe.num_experts_per_tok, experts["w_up"].shape[0]
+    c = _capacity(tg, moe)
+    if choices is None:
+        pos, g, rows = _queue_positions(expert_idx, tg, e), t // tg, tg
+    else:
+        pos, g, rows = _queue_positions(choices, tg, e)[row0 : row0 + t], 1, t
+
+    # dispatch and combine in the compute dtype, the experts' slots only
+    dt = cfg.compute_dtype
+    idx_g, pos_g = expert_idx.reshape(g, rows, k), pos.reshape(g, rows, k)
+    gate_g = gates.reshape(g, rows, k).to(dt)
+    slots = torch.arange(c, device=x_flat.device)
+    dispatch = torch.zeros((g, rows, n, c), dtype=dt, device=x_flat.device)
+    combine = torch.zeros((g, rows, n, c), dtype=dt, device=x_flat.device)
+    for j in range(k):
+        onehot = F.one_hot(idx_g[:, :, j], e)[..., e0 : e0 + n].to(dt)  # (g, rows, n)
+        keep = pos_g[:, :, j] < c
+        slot_onehot = (pos_g[:, :, j][..., None] == slots).to(dt)  # a zero row past the capacity
+        contrib = onehot[..., None] * slot_onehot[:, :, None, :] * keep[..., None, None].to(dt)
         dispatch = dispatch + contrib
         combine = combine + contrib * gate_g[:, :, j][..., None, None]
 
-    xs = torch.einsum("gtec,gtd->gecd", dispatch, x_flat.reshape(g, tg, d))  # (g, e, c, d)
-    ys = _expert_ffn(params, xs, cfg)
+    xs = torch.einsum("gtec,gtd->gecd", dispatch, x_flat.reshape(g, rows, d))  # (g, n, c, d)
+    ys = _expert_ffn(experts, xs, cfg)
     y_g = torch.einsum("gtec,gecd->gtd", combine, ys)
-    return y_g.reshape(t, d), aux
+    return y_g.reshape(t, d)
 
 
-def _moe_gather(params: Params, x_flat, cfg: ModelConfig):
-    """Sort / gather dispatch, no one-hot products -> (y [T, D], aux)."""
+def _moe_gather(x_flat, gates, expert_idx, experts: Params, cfg: ModelConfig, *, e0: int = 0):
+    """Sort / gather dispatch of every token, no one-hot products, through
+    the experts ``e0 .. e0 + n`` -> y [t, D], their part of the sum."""
     moe = cfg.moe
     t, d = x_flat.shape
-    e, k = moe.num_experts, moe.num_experts_per_tok
+    e, k, n = moe.num_experts, moe.num_experts_per_tok, experts["w_up"].shape[0]
     c = _capacity(t, moe)
-
-    probs, gates, expert_idx = _router_probs(params, x_flat, moe)
-    aux = _aux_loss(probs, expert_idx, moe)
 
     flat_expert = expert_idx.reshape(-1)  # (t*k,)
     flat_gate = gates.reshape(-1).float()
@@ -208,39 +242,101 @@ def _moe_gather(params: Params, x_flat, cfg: ModelConfig):
     pos = torch.cumsum(F.one_hot(flat_expert, e), dim=0) - 1  # (t*k, e)
     pos_of = pos.gather(-1, flat_expert[:, None])[:, 0]
     keep = pos_of < c
-    slot = torch.where(keep, flat_expert * c + pos_of, e * c)  # overflow -> the spill row
+    mine = (flat_expert >= e0) & (flat_expert < e0 + n)
+    slot = torch.where(keep & mine, (flat_expert - e0) * c + pos_of, n * c)  # overflow -> the spill row
 
-    # token, gate and fill of each (expert, capacity) slot; row e*c takes the overflow
+    # token, gate and fill of each (expert, capacity) slot; row n*c takes the overflow
     def table(dtype, src):
-        return torch.zeros(e * c + 1, dtype=dtype, device=x_flat.device).scatter(0, slot, src)[: e * c]
+        return torch.zeros(n * c + 1, dtype=dtype, device=x_flat.device).scatter(0, slot, src)[: n * c]
 
     token_of_slot = table(torch.long, flat_token)
     gate_of_slot = table(torch.float32, flat_gate)
     filled = table(torch.bool, keep)
 
     xs = x_flat[token_of_slot] * filled[:, None].to(x_flat.dtype)  # an empty slot reads token 0, zeroed
-    ys = _expert_ffn(params, xs.reshape(1, e, c, d), cfg)[0]  # (e, c, d)
-    weighted = ys.reshape(e * c, d) * gate_of_slot[:, None].to(ys.dtype)
+    ys = _expert_ffn(experts, xs.reshape(1, n, c, d), cfg)[0]  # (n, c, d)
+    weighted = ys.reshape(n * c, d) * gate_of_slot[:, None].to(ys.dtype)
     out = torch.zeros((t, d), dtype=weighted.dtype, device=x_flat.device).index_add(0, token_of_slot, weighted)
-    return out.to(x_flat.dtype), aux
+    return out.to(x_flat.dtype)
+
+
+def _row_pieces(x) -> int:
+    """How many pieces a DTensor's rows (dim 0) are split into over its
+    mesh: 1 for a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return 1
+    return math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements) if p.is_shard(0))
 
 
 def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE feed-forward over x: [B, S, D] -> ([B, S, D], aux loss)."""
-    from torch.distributed.tensor import DTensor
+    """MoE feed-forward over x: [B, S, D] -> ([B, S, D], aux loss).
+
+    On a mesh (DTensor arguments: x's rows over ``data``, the expert stacks
+    ``[E, D, F]`` over ``model`` on E, as ``_MOE_RULES`` lay them and the
+    step leaves them) each rank routes its rows, and dispatches them only
+    to its experts (expert parallelism): the ``(g, e, c, d)`` activations
+    are made, run and combined on the rank and never move; the combine is
+    a partial sum over ``model``, reduced once where the residual adds it.
+    The router input is replicated over ``model`` and bit-equal there (an
+    all-reduced residual, the same ops on the same bytes), so every
+    ``model`` rank takes the same choices.  Where a group spans ``data``
+    ranks the rank's queue positions depend on the other ranks' choices:
+    the [T, k] choices are all-gathered over ``data`` (the one collective
+    this adds, a few KiB) and the positions taken over the whole group.
+    Where E does not divide ``model`` the stacks come whole (the
+    few-expert width placement, gathered by the step), and every ``model``
+    rank runs every expert.  The ``gather`` dispatch fills one slot table
+    from every token, so it takes the rows whole (gathered over ``data``).
+    """
+    from ..distributed.act_sharding import mesh_coordinate, on_local_shards
 
     assert cfg.moe is not None
-    if any(isinstance(t, DTensor) for t in (x, *tree_leaves(params))):
-        raise NotImplementedError(MOE_ON_A_MESH)
+    moe = cfg.moe
+    if moe.impl not in ("einsum", "gather"):
+        raise ValueError(f"unknown moe impl {moe.impl!r}")
     b, s, d = x.shape
-    x_flat = x.reshape(b * s, d)
-    if cfg.moe.impl == "einsum":
-        y, aux = _moe_einsum(params, x_flat, cfg)
-    elif cfg.moe.impl == "gather":
-        y, aux = _moe_gather(params, x_flat, cfg)
+    t = b * s
+    x_flat = x.reshape(t, d)
+    rows, whole, experts = (0, None), (None, None), (None, 0)
+    probs, gates, expert_idx, counts = on_local_shards(
+        lambda x, w: _route(x, w, moe), (x_flat, params["router"]), (rows, whole), (rows,) * 3 + (whole,),
+        partial=(3,),
+    )
+    aux = _aux_loss(probs, expert_idx, moe, counts)
+    keys = [k for k in ("w_gate", "w_up", "w_down") if k in params]
+    model = mesh_coordinate(x, "model")
+
+    def e0(w):  # the first of the rank's experts
+        return model * w.shape[0] if w.shape[0] < moe.num_experts else 0
+
+    if moe.impl == "einsum":
+        tg = min(MOE_GROUP_SIZE, t)
+        if t % tg:
+            raise ValueError(f"token count {t} not divisible by group size {tg}")
+        t_rank = t // _row_pieces(expert_idx)
+        choices, row0 = None, 0
+        if t_rank % tg:
+            if tg % t_rank:
+                raise ValueError(f"a rank's {t_rank} tokens neither hold whole groups of {tg} nor lie in one")
+            # the group spans data ranks: all-gather its [T, k] choices over data
+            choices, row0 = expert_idx.full_tensor(), mesh_coordinate(x, "data") * t_rank
+
+        def run(x, g, i, ch, *w):
+            stacks = dict(zip(keys, w))
+            return _moe_einsum(x, g, i, stacks, cfg, tg=tg, choices=ch, row0=row0, e0=e0(w[0]))
+
+        args, dims = (x_flat, gates, expert_idx, choices), (rows, rows, rows, whole)
     else:
-        raise ValueError(f"unknown moe impl {cfg.moe.impl!r}")
+        def run(x, g, i, *w):
+            return _moe_gather(x, g, i, dict(zip(keys, w)), cfg, e0=e0(w[0]))
+
+        # the slot table spans every token: the rows whole on each rank
+        args, dims = (x_flat, gates, expert_idx), (whole,) * 3
+    y = on_local_shards(run, (*args, *(params[k] for k in keys)), (*dims, *(experts,) * len(keys)),
+                        (dims[0],), partial=(0,))
     y = y.reshape(b, s, d)
-    if cfg.moe.parallel_dense:
+    if moe.parallel_dense:
         y = y + dense_ffn(params["dense"], x, cfg)
     return y, aux

@@ -13,8 +13,17 @@ kernel :mod:`repro_torch.kernels.rglru_scan` on the card, its plain version
 on the CPU; where autograd needs a gradient, through
 :class:`~repro_torch.kernels.rglru_scan.RGLRUScanFn` (the backward kernel
 on the card, the reverse recurrence on the CPU).  Decode (``in_place=True``) writes the new state into the
-cache's tensors.  On a mesh (DTensor arguments) the block raises: the scan
-on each rank's channel shard waits for ROADMAP queue 1, item 20.
+cache's tensors.
+
+On a mesh (DTensor arguments) the projections are torch ops on DTensors,
+and the conv and the scan run on each rank's local shards
+(:func:`~repro_torch.distributed.act_sharding.on_local_shards`): rows over
+``data``, channels over ``model``.  Both are channel-wise (the conv is
+depthwise, the recurrence elementwise in Dr), so a shard of the channels
+needs nothing from another rank, and the kernel sees ``[B/data, T,
+Dr/model]``.  The state is laid out the same way (``cache_pspecs``: batch
+over ``data``, Dr over ``model``), so decode writes the rank's own shard of
+``h`` and of the conv tail, and nothing is gathered.
 """
 
 from __future__ import annotations
@@ -31,12 +40,6 @@ Params = Dict[str, torch.Tensor]
 
 CONV_WIDTH = 4
 LRU_C = 8.0
-
-ON_A_MESH = (
-    "the RG-LRU block on a mesh (DTensor arguments) is not ported yet: the scan on each "
-    "rank's channel shard waits for ROADMAP queue 1, item 20"
-)
-
 
 def init_rglru_block(
     cfg: ModelConfig, *, generator: Optional[torch.Generator], device: torch.device
@@ -77,26 +80,50 @@ def _causal_conv1d(x, w, b, *, tail):
     return y, padded[:, t:, :]
 
 
+def _write_local(dst, src) -> None:
+    """``dst.copy_(src)``; for DTensors the rank's local shard into its
+    own, which needs both placed alike (a ``Shard`` on an axis of size 1
+    is ``Replicate()`` there): anything else would move data, and raises."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    mesh = dst.device_mesh
+    if not isinstance(src, DTensor) or any(
+        a != b and mesh.size(i) > 1 for i, (a, b) in enumerate(zip(dst.placements, src.placements))
+    ):
+        raise ValueError(f"state placed {dst.placements} written from {getattr(src, 'placements', 'a tensor')}: "
+                         "the write would not be local")
+    dst.to_local().copy_(src.to_local())
+
+
 def rglru_block(params: Params, x, cfg: ModelConfig, *, state, in_place: bool = False):
     """Griffin recurrent block -> (y [B, T, D], new state).  ``in_place``
     writes the new state into ``state``'s tensors (decode's cache) and
     returns ``state``; otherwise the state is fresh tensors."""
-    from torch.distributed.tensor import DTensor
+    from ..distributed.act_sharding import on_local_shards
 
-    if any(isinstance(t, DTensor) for t in (x, state["h"], state["conv"], *params.values())):
-        raise NotImplementedError(ON_A_MESH)
     dt = cfg.compute_dtype
     branch_x = x @ params["w_in_x"].to(dt)
     branch_g = gelu(x @ params["w_in_g"].to(dt))
-    conv_out, new_tail = _causal_conv1d(branch_x, params["conv_w"], params["conv_b"], tail=state["conv"])
+    # on a mesh the conv and the scan run on the rank's rows and channels
+    seq, vec, chan = (0, 2), (0, 1), (None, 0)
+    conv_out, new_tail = on_local_shards(
+        lambda x, w, b, tail: _causal_conv1d(x, w, b, tail=tail),
+        (branch_x, params["conv_w"], params["conv_b"], state["conv"]), (seq, (None, 1), chan, seq), (seq, seq),
+    )
     r_gate = torch.sigmoid(conv_out @ params["w_gate_a"].to(dt))
     i_gate = torch.sigmoid(conv_out @ params["w_gate_x"].to(dt))
-    h, h_last = rglru_scan(conv_out, r_gate, i_gate, params["lru_lambda"], state["h"])
+    h, h_last = on_local_shards(
+        rglru_scan, (conv_out, r_gate, i_gate, params["lru_lambda"], state["h"]), (seq, seq, seq, chan, vec),
+        (seq, vec),
+    )
     y = (h * branch_g) @ params["w_out"].to(dt)
     if in_place:
         # new_tail views the concatenated input, not the old tail: no overlap
-        state["h"].copy_(h_last)
-        state["conv"].copy_(new_tail)
+        _write_local(state["h"], h_last)
+        _write_local(state["conv"], new_tail)
         return y, state
     # the tail is a view of the [B, T+3, Dr] padded input: copy it out
     return y, {"h": h_last, "conv": new_tail.clone()}

@@ -118,7 +118,6 @@ def adamw_update(
     values are the same: a bf16 parameter is written back rounded as the
     functional step rounds it)."""
     metrics: Dict[str, torch.Tensor] = {}
-    grads = tree_map(lambda g: g.float(), grads)
     scale = None
     if cfg.clip_norm is not None:  # clip_by_global_norm, its scaling a leaf at a time in upd
         metrics["grad_norm"] = global_norm(grads)
@@ -133,7 +132,9 @@ def adamw_update(
         # b1 m + (1 - b1) g, b2 v + (1 - b2) g^2, (m / b1c) / (sqrt(v / b2c) + eps)
         # (+ wd p), p - lr delta: each temporary updated in place once formed
         # (the same operations in the same order), so a leaf holds few copies
-        # of itself at once: recurrentgemma-9b's embedding leaf is 4.2 GB
+        # of itself at once: recurrentgemma-9b's embedding leaf is 4.2 GB;
+        # a bf16 gradient is taken to float32 here, a leaf at a time
+        g = g.float()
         if scale is not None:
             g = g * scale.to(g.dtype)
         m = (m.mul_(cfg.b1) if in_place else torch.mul(m, cfg.b1)).add_(torch.mul(g, 1 - cfg.b1))

@@ -224,25 +224,36 @@ def test_unknown_impl_raises():
 
 
 def test_moe_ffn_refuses_a_dtensor_naming_its_item(tmp_path):
-    """On a mesh the layer raises: expert parallelism over ``model`` is
-    ROADMAP item 21."""
+    """On a mesh the layer runs: the router and the experts on the local
+    shards of DTensors (a one-rank ``(data, model)`` mesh, rows over data,
+    the expert stacks' E over model), output and aux loss as on plain
+    tensors, for both dispatches and for Arctic's dense FFN beside them."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
 
-    _, tcfg = _cfgs("mixtral-8x22b")
-    params = tf.init_moe(tcfg, generator=torch.Generator().manual_seed(0), device=torch.device("cpu"))
-    x = torch.zeros((2, 3, tcfg.d_model))
     made = not dist.is_initialized()
     if made:
         dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
     try:
-        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
-        with pytest.raises(NotImplementedError, match="on a mesh.*item 21"):
-            tf.moe_ffn(params, distribute_tensor(x, mesh, [Replicate()]), tcfg)
-        sharded = dict(params, w_up=distribute_tensor(params["w_up"], mesh, [Replicate()]))
-        with pytest.raises(NotImplementedError, match="item 21"):
-            tf.moe_ffn(sharded, x, tcfg)
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        for arch, impl in (("mixtral-8x22b", "einsum"), ("mixtral-8x22b", "gather"), ("arctic-480b", "einsum")):
+            _, tcfg = _cfgs(arch, impl=impl)
+            params = tf.init_moe(tcfg, generator=torch.Generator().manual_seed(0), device=torch.device("cpu"))
+            x = torch.from_numpy(_x((2, 8, tcfg.d_model)))
+            want, want_aux = tf.moe_ffn(params, x, tcfg)
+
+            def place(t):  # an expert stack's E over model
+                return distribute_tensor(t, mesh, [Replicate(), Shard(0) if t.ndim == 3 else Replicate()])
+
+            dparams = {k: ({kk: place(vv) for kk, vv in v.items()} if isinstance(v, dict) else place(v))
+                       for k, v in params.items()}
+            with implicit_replication():
+                got, aux = tf.moe_ffn(dparams, distribute_tensor(x, mesh, [Shard(0), Replicate()]), tcfg)
+            assert isinstance(got, DTensor), arch
+            torch.testing.assert_close(got.full_tensor(), want, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(aux.full_tensor(), want_aux, rtol=1e-6, atol=1e-7)
     finally:
         if made:
             dist.destroy_process_group()

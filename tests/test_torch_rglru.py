@@ -324,23 +324,41 @@ def test_backward_rows_for_the_tma_maps(dr, dtype, view):
 
 
 def test_block_refuses_a_dtensor_naming_its_item(tmp_path):
-    """On a mesh the block raises rather than run the kernel on a DTensor's
-    local pointer (ROADMAP item 20)."""
+    """On a mesh the block runs: its conv and scan on the local shards of
+    DTensors (here a one-rank ``(data, model)`` mesh, rows and channels
+    sharded over it), the same values as on plain tensors; the decode
+    write lands in the state's own local storage."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
 
     cfg = get_smoke_config(ARCH)
     params = trg.init_rglru_block(cfg, generator=torch.Generator().manual_seed(0), device=torch.device("cpu"))
-    state = trg.init_rglru_state(cfg, 2, device=torch.device("cpu"))
-    x = torch.zeros((2, 3, cfg.d_model))
+    params["conv_b"] = torch.randn(cfg.d_rnn, generator=torch.Generator().manual_seed(1))
+    x = torch.randn((2, 3, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    want, want_state = trg.rglru_block(params, x, cfg, state=trg.init_rglru_state(cfg, 2, device=torch.device("cpu")))
     made = not dist.is_initialized()
     if made:
         dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
     try:
-        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
-        with pytest.raises(NotImplementedError, match="on a mesh.*item 20"):
-            trg.rglru_block(params, distribute_tensor(x, mesh, [Replicate()]), cfg, state=state)
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        rows = [Shard(0), Replicate()]
+        dparams = {k: distribute_tensor(v, mesh, [Replicate(), Shard(v.ndim - 1)]) for k, v in params.items()}
+        state = {k: distribute_tensor(v, mesh, [Shard(0), Shard(v.ndim - 1)])
+                 for k, v in trg.init_rglru_state(cfg, 2, device=torch.device("cpu")).items()}
+        ptr = {k: v.to_local().data_ptr() for k, v in state.items()}
+        with implicit_replication():
+            got, new_state = trg.rglru_block(dparams, distribute_tensor(x, mesh, rows), cfg, state=state)
+            step, _ = trg.rglru_block(dparams, distribute_tensor(x[:, :1], mesh, rows), cfg, state=state,
+                                      in_place=True)
+        assert isinstance(got, DTensor) and isinstance(new_state["h"], DTensor)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=1e-6, atol=1e-6)
+        for k in ("h", "conv"):
+            torch.testing.assert_close(new_state[k].full_tensor(), want_state[k], rtol=1e-6, atol=1e-6)
+            assert state[k].to_local().data_ptr() == ptr[k] and state[k].to_local().abs().sum() > 0, k
+        want_step, _ = trg.rglru_block(params, x[:, :1], cfg, state=trg.init_rglru_state(cfg, 2, device=torch.device("cpu")))
+        torch.testing.assert_close(step.full_tensor(), want_step, rtol=1e-6, atol=1e-6)
     finally:
         if made:
             dist.destroy_process_group()

@@ -216,6 +216,15 @@ Phases, each printing one JSON line on stdout:
    the card, each in a fresh checkpoint directory: the fabric, port and
    cost lines (numpy) equal, the card's 20 losses falling, 2 flash
    launches a step each way.
+9. ``dryrun``: the dry run (``repro_torch.launch.dryrun``) against the card.
+   (a) Its trace of ``train``'s step and of the recurrentgemma-9b and
+   mixtral-8x22b prefills, on fake tensors at world 1: the predicted peak
+   within DRYRUN_PEAK_BAND of the ``max_memory_allocated`` those phases
+   measured, the counted FLOPs and bytes over their measured ms (TFLOP/s,
+   share of the bf16 peak) and model FLOPs over counted FLOPs.  (b) Five
+   production cells on fake 256- and 512-rank groups (DRYRUN_CELLS), each
+   command in its own process beside (a), each record's summary printed;
+   every cell ``ok``, the phase within DRYRUN_TIMEOUT_S.
 
 Then the ``{"kernels": [...]}`` summary, the card's name and power limit as
 ``nvidia-smi`` prints them, and, last, ``{"ok": true, "device": ...}``.
@@ -249,14 +258,11 @@ import time
 from collections import Counter
 from pathlib import Path
 
-import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet, dense: HBM rate and peak rates by operand type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}  # float32: CUDA cores; tf32: tensor cores
+# The H100's data-sheet rates and every kernel's work: src/repro_torch/kernels/costs.py.
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # kernel vs plain; rtol = atol
 SERVE_TOL = 5e-2  # bf16 logits, card vs CPU: rounding points differ
 TRAIN_TOL = 5e-2  # bf16 loss, grad norm, synced leaves (relative norm), card vs CPU
@@ -445,6 +451,14 @@ MOE_CUTS = {
 B_MOE, PROMPT_MOE = 4, 4096
 GEN_MOE = {"serve_mixtral": 32, "serve_arctic": 8}  # decode steps: mixtral's cross its 4096 window
 MOE_CHECK_PROMPT, MOE_CHECK_STEPS = 128, 4  # card against CPU: one layer in float32, prefill and decode steps
+# The dry run (src/repro_torch/launch/dryrun.py): each path's predicted peak
+# must lie within this band of its measured one; the production cells, each
+# in its own process, with the mesh it runs on
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+DRYRUN_CELLS = [("olmo-1b", "train_4k", "both"), ("recurrentgemma-9b", "long_500k", "single"),
+                ("mixtral-8x22b", "prefill_32k", "single"), ("rwkv6-7b", "decode_32k", "multi")]
+DRYRUN_TIMEOUT_S = 180  # the whole phase
+MEASURED = {}  # path -> the peak bytes and ms its phase measured, for the dry run's phase
 # card and CPU may route a token apart only where its router_gap is below
 # this: in float32 (serving's check) and in bf16 (train_mixtral's step)
 MOE_NEAR_TIE, MOE_NEAR_TIE_BF16 = 1e-4, 2e-3
@@ -541,78 +555,55 @@ def parts_ms(fn, parts, calls: int = PARTS_CALLS):
     return out
 
 
+def _costs():
+    from repro_torch.kernels import costs
+
+    return costs
+
+
 def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
     """Query-key pairs the mask keeps: the work this input needs."""
-    q = np.arange(sq)
-    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
+    return _costs().attention_pairs(sq, sk, causal, window)
 
 
 def bound(nbytes, flops, dtype):
     """(least ms the card could take, "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return _costs().bound({dtype: flops}, nbytes)
 
 
 def flash_flops(b, s, h, hd, window):
-    return 4 * b * h * hd * attention_pairs(s, s, True, window)  # q.k and p.v
+    return _costs().flash_fwd(b, s, s, h, h, hd, "bfloat16", window)[0]["bfloat16"]
 
 
 def flash_bound(b, s, h, kvh, hd, dtype, window):
-    itemsize = 2 if dtype == "bfloat16" else 4
-    nbytes = (2 * b * s * h * hd + 2 * b * s * kvh * hd) * itemsize  # q, o; k, v
-    return bound(nbytes, flash_flops(b, s, h, hd, window), dtype)
+    return _costs().bound(*_costs().flash_fwd(b, s, s, h, kvh, hd, dtype, window))
 
 
 def flash_bwd_bound(b, s, h, kvh, hd, dtype, window):
-    itemsize = 2 if dtype == "bfloat16" else 4
-    # q, o, dO read and dQ written; k, v read and dK, dV written; lse read
-    nbytes = (4 * b * s * h * hd + 4 * b * s * kvh * hd) * itemsize + 4 * b * h * s
-    flops = 10 * b * h * hd * attention_pairs(s, s, True, window)  # five products
-    return bound(nbytes, flops, dtype)
+    return _costs().bound(*_costs().flash_bwd(b, s, s, h, kvh, hd, dtype, window))
 
 
 def wan_bytes(rows, cols):
     """Bytes quantisation (or dequantisation) of a [rows, cols] float32
     matrix moves: the float32 values, the padded int8 and the scales."""
-    nblocks = -(-cols // 256)
-    return rows * cols * 4 + rows * nblocks * 256 + rows * nblocks * 4
+    return _costs().wan_quant(rows, cols)[1]
 
 
 def wkv_bound(b, t, h, n, rkv_dtype, w_dtype):
-    """Each input read once (r, k, v, w; u; state0), each output written once
-    (out float32, the final state); 4 N^2 float32 operations per (b, t, h)."""
-    isz = {"bfloat16": 2, "float32": 4}
-    elems = b * t * h * n
-    nbytes = elems * (3 * isz[rkv_dtype] + isz[w_dtype] + 4) + h * n * 4 + 2 * b * h * n * n * 4
-    return bound(nbytes, 4 * n * n * b * t * h, "float32")
+    return _costs().bound(*_costs().wkv6_fwd(b, t, h, n, rkv_dtype, w_dtype))
 
 
 def wkv_bwd_bound(b, t, h, n, rkv_dtype, w_dtype, chunk):
-    """-> (bound_ms, bound_by, figures).  Bytes: each input read once (r, k,
-    v, w; dy float32; u; the saved states and dstate), each output written
-    once (dr, dk, dv in r's type, dw in w's; du; dstate0).  Operations: those
-    wkv6_bwd.cu does a (b, t, h), by type: on the tensor cores (TF32; three
-    products each for float32 r, k, v) P, Q, the state recomputed 1.5 times,
-    G's two updates and dv's K~ GL: 13 N^2; A and dv's B DY: 4 L N; the pair
-    terms' X: 2 L 17 N (L = 16); on the CUDA cores (float32) ~170 N for the
-    pair terms and the decays.  The bytes are the floor: the operations'
-    time is below them at the timed shapes.  The earlier scalar kernel's
-    bound, 15 N^2 float32 operations a (b, t, h) of the step-by-step
-    recurrence (0.9616 ms at 4 x 4096), stands beside it in ``figures``: no
-    floor once the tensor cores take the products."""
-    isz = {"bfloat16": 2, "float32": 4}
-    steps, elems, sub = b * t * h, b * t * h * n, 16
-    states = (b * -(-t // chunk) + 2 * b) * h * n * n * 4
-    nbytes = elems * (2 * (3 * isz[rkv_dtype] + isz[w_dtype]) + 4) + 2 * h * n * 4 + states
-    tensor = steps * (13 * n * n + 4 * sub * n + 2 * sub * 17 * n) * (3 if rkv_dtype == "float32" else 1)
-    cuda = steps * 170 * n
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = tensor / PEAK_FLOPS["tf32"] + cuda / PEAK_FLOPS["float32"]
+    """-> (bound_ms, bound_by, figures).  The bytes are the floor: the
+    operations' time is below them at the timed shapes.  The earlier scalar
+    kernel's bound (0.9616 ms at 4 x 4096) stands beside it in ``figures``:
+    no floor once the tensor cores take the products."""
+    costs = _costs()
+    flops, nbytes = costs.wkv6_bwd(b, t, h, n, rkv_dtype, w_dtype, chunk)
+    t_bytes, t_ops = nbytes / costs.HBM_BYTES_PER_S, costs.ops_seconds(flops)
     figures = {
         "bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3, "floor": "bytes" if t_bytes >= t_ops else "operations",
-        "f32_recurrence_ops_ms": 15 * n * n * steps / PEAK_FLOPS["float32"] * 1e3,
+        "f32_recurrence_ops_ms": costs.wkv6_scalar_recurrence_flops(b, t, h, n) / costs.PEAK_FLOPS["float32"] * 1e3,
         "f32_recurrence_ops_ms_is": "the scalar kernel's bound: 15 N^2 float32 operations a (b, t, h) of the "
                                     "step-by-step recurrence on the CUDA cores; no floor once the tensor cores "
                                     "take the products",
@@ -621,25 +612,11 @@ def wkv_bwd_bound(b, t, h, n, rkv_dtype, w_dtype, chunk):
 
 
 def rglru_bound(b, t, dr, dtype):
-    """Bytes: x, r, i read once and h written once in ``dtype``; lam, h0 read
-    and h_last written in float32.  Operations: ~13 float32 a (b, t,
-    channel): the gate products, two exp, a sqrt, the clamp and the update
-    (an exp or sqrt counted as one)."""
-    isz = {"bfloat16": 2, "float32": 4}[dtype]
-    elems = b * t * dr
-    return bound(4 * elems * isz + dr * 4 + 2 * b * dr * 4, 13 * elems, "float32")
+    return _costs().bound(*_costs().rglru_scan(b, t, dr, dtype))
 
 
 def rglru_bwd_bound(b, t, dr, dtype):
-    """Bytes: x, r, i and dy read and dx, dr, di written once in ``dtype``;
-    lam, h0, dh_last and the forward's chunk states read, dlam and dh0
-    written in float32.  Operations: ~20 float32 a (b, t, channel): a and
-    exp(2 log_a), beta, the gated x, dlog_a (a division among them), dg, dx,
-    di, dr, the dlam term, the carry and h_{t-1} recomputed (an exp, sqrt or
-    division counted as one)."""
-    isz = {"bfloat16": 2, "float32": 4}[dtype]
-    elems, chunks = b * t * dr, -(-t // 64)
-    return bound(7 * elems * isz + (2 * dr + 3 * b * dr + b * (chunks - 1) * dr) * 4, 20 * elems, "float32")
+    return _costs().bound(*_costs().rglru_scan_bwd(b, t, dr, dtype))
 
 
 def phase_env(torch):
@@ -1551,6 +1528,8 @@ def phase_serve_recurrentgemma(torch):
         raise AssertionError(f"serve_recurrentgemma: (rglru_scan, flash) launches {got} after prefill and each "
                              f"decode step, expected {expected}; all launches {launches}, flash routes {routes}")
     prefill_ms_median = time_ms(lambda: prefill(params, batch, cfg, max_len=max_len), runs=3, warmup=0)
+    MEASURED["serve_recurrentgemma"] = {"peak_bytes": peak, "ms": prefill_ms_median, "ms_is": "median prefill ms",
+                                        "cfg": cfg, "batch": B_RG, "seq_len": PROMPT_RG, "max_len": max_len}
 
     # The state carried through decode (the LRU state, the conv tail and the
     # rolling window cache): prefill of T then one decode step against a
@@ -1904,6 +1883,7 @@ def phase_train(torch):
     timed = [r["step_s"] * 1e3 for r in rows[WARMUP:]]
     step_ms = statistics.median(timed)
     opt = trainer.tc.opt
+    MEASURED["train"] = {"peak_bytes": peak, "ms": step_ms, "ms_is": "median step ms", "opt": opt}
     del trainer
     shutil.rmtree(directory)
 
@@ -3198,6 +3178,8 @@ def phase_serve_moe(torch, phase):
         raise AssertionError(f"{phase}: flash launches {got} after prefill and each decode step, expected "
                              f"{layers} a prefill and none in decode; all launches {launches}, routes {routes}")
     prefill_ms_median = time_ms(lambda: prefill(params, batch, cfg, max_len=max_len), runs=3, warmup=0)
+    MEASURED[phase] = {"peak_bytes": peak, "ms": prefill_ms_median, "ms_is": "median prefill ms", "cfg": cfg,
+                       "batch": B_MOE, "seq_len": PROMPT_MOE, "max_len": max_len}
     with recorded_routing() as calls:
         prefill(params, batch, cfg, max_len=max_len)
     drops = [dropped_choices(idx, cfg.moe) for idx, _ in calls]
@@ -3802,6 +3784,112 @@ def full_layers(arch) -> int:
     return get_config(arch).num_layers
 
 
+def dryrun_predictions():
+    """The dry run's accounting of the three paths the earlier phases
+    measured, as they build them, at world 1: train's step
+    (``make_train_step`` without a mesh, as ``GeoTrainer`` builds it) and
+    the recurrentgemma-9b and mixtral-8x22b prefills."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import token_specs
+
+    def prompt(m):  # the serving path's batch: its tokens alone
+        return {"tokens": token_specs(m["cfg"], m["batch"], m["seq_len"])["tokens"]}
+
+    train, cfg = MEASURED["train"], get_config("distilgpt2-82m")
+    return {
+        "train": dryrun.trace_train_step(cfg, token_specs(cfg, B_TRAIN, SEQ_TRAIN), strategy="hier_int8",
+                                         opt_cfg=train["opt"], npods=NPODS),
+        **{path: dryrun.trace_prefill(m["cfg"], prompt(m), max_len=m["max_len"])
+           for path, m in MEASURED.items() if path in ("serve_recurrentgemma", "serve_mixtral")},
+    }
+
+
+def phase_dryrun(torch):
+    """(a) The dry run against the card: each path's predicted peak against
+    the ``max_memory_allocated`` its phase measured (within
+    DRYRUN_PEAK_BAND), its counted FLOPs and bytes over the phase's measured
+    ms (TFLOP/s achieved, share of the bf16 peak), model FLOPs over counted
+    FLOPs.  (b) The production meshes: DRYRUN_CELLS traced on fake 256- and
+    512-rank groups, each command in its own process (started first, so
+    that they run beside (a); no fake group reaches this process), each
+    record's summary printed as the dry run prints it."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import costs
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        for m in (("single", "multi") if mesh == "both" else (mesh,)):
+            (out_dir / f"{arch}__{shape}__{m}.json").unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--mesh", mesh,
+               "--out", str(out_dir)]
+        procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        rows = []
+        for path, pred in dryrun_predictions().items():
+            m = MEASURED[path]
+            cfg = get_config("distilgpt2-82m") if path == "train" else m["cfg"]
+            tokens = B_TRAIN * SEQ_TRAIN if path == "train" else m["batch"] * m["seq_len"]
+            model = (6.0 if path == "train" else 2.0) * cfg.active_param_count() * tokens
+            flops, nbytes, seconds = pred["flops_per_device"], pred["bytes_per_device"], m["ms"] / 1e3
+            ratio = pred["memory"]["peak_estimate_bytes"] / m["peak_bytes"]
+            row = {
+                "phase": "dryrun", "part": "a", "path": path,
+                "predicted_peak_bytes": pred["memory"]["peak_estimate_bytes"], "measured_peak_bytes": m["peak_bytes"],
+                "peak_ratio": ratio, "peak_band": DRYRUN_PEAK_BAND, "predicted_memory": pred["memory"],
+                "flops": flops, "flops_by_type": pred["flops_by_type"], "bytes": nbytes, "ms": m["ms"],
+                "ms_is": m["ms_is"], "tflops": flops / seconds / 1e12,
+                "share_of_bf16_peak": flops / seconds / costs.PEAK_FLOPS["bfloat16"],
+                "bytes_per_s": nbytes / seconds, "share_of_hbm_rate": nbytes / seconds / costs.HBM_BYTES_PER_S,
+                "bound_ms": costs.bound(pred["flops_by_type"], nbytes)[0],
+                "model_flops": model, "model_flops_over_counted": model / flops, "ops": pred["ops"],
+            }
+            emit(row)
+            rows.append(row)
+        deadline = t0 + DRYRUN_TIMEOUT_S
+        for p in procs:
+            p.communicate(timeout=max(deadline - time.perf_counter(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    cells = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        for m in (("single", "multi") if mesh == "both" else (mesh,)):
+            f = out_dir / f"{arch}__{shape}__{m}.json"
+            rec = json.loads(f.read_text()) if f.exists() else {"arch": arch, "shape": shape, "mesh": m,
+                                                                 "status": "error", "error": "no record"}
+            dryrun._print_cell(rec, rec.get("wall_seconds", 0.0))
+            cells.append(rec)
+    seconds = time.perf_counter() - t0
+    bad = [r["path"] for r in rows if not DRYRUN_PEAK_BAND[0] <= r["peak_ratio"] <= DRYRUN_PEAK_BAND[1]]
+    emit({
+        "phase": "dryrun", "part": "b", "seconds": seconds, "timeout_s": DRYRUN_TIMEOUT_S,
+        "cells": [{k: r.get(k) for k in ("arch", "shape", "mesh", "status", "error", "wall_seconds", "fits",
+                                         "model_flops_total", "roofline", "chips")}
+                  | ({"peak_estimate_bytes": r["main"]["memory"]["peak_estimate_bytes"],
+                      "flops_per_device": r["main"]["flops_per_device"],
+                      "bytes_per_device": r["main"]["bytes_per_device"],
+                      "collectives": r["main"]["collectives"]} if r.get("status") == "ok" else {})
+                  for r in cells],
+    })
+    if bad:
+        raise AssertionError(f"dryrun: predicted peak outside {DRYRUN_PEAK_BAND} of the measured on {bad}")
+    if any(r.get("status") != "ok" for r in cells):
+        raise AssertionError(f"dryrun: production cells not ok: {[(r['arch'], r['mesh'], r.get('error')) for r in cells]}")
+    if seconds > DRYRUN_TIMEOUT_S:
+        raise AssertionError(f"dryrun: {seconds:.1f} s, above {DRYRUN_TIMEOUT_S}")
+    return rows, cells
+
+
 def phase_quickstart(torch):
     """``repro_torch.examples.quickstart`` on the CPU, then on the card, each
     in a fresh checkpoint directory: the fabric, port and cost lines (the
@@ -3916,6 +4004,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_models = phase_mesh_models(torch)
     quick = phase_quickstart(torch)
+    phase_dryrun(torch)
     parts = phase_flash_bwd_parts(torch)
 
     def entry(name, source, replaces, check, **more):

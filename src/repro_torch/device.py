@@ -11,8 +11,22 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
 
 DeviceLike = Union[str, torch.device]
+
+
+def has_values(t: torch.Tensor) -> bool:
+    """False for a fake tensor (the dry run's, :mod:`repro_torch.launch.dryrun`),
+    which has a shape but no values to read; a kernel wrapper asks on every
+    call, so it is one ``isinstance``."""
+    return not isinstance(t, FakeTensor)
+
+
+def host_tensors():
+    """A context in which new tensors are real even while a trace runs: a
+    host integer the step reduces and reads back (a metric)."""
+    return unset_fake_temporarily()
 
 
 def resolve_device(device: DeviceLike) -> torch.device:

@@ -27,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from ..device import has_values
 from ..tree import tree_map
 
 
@@ -79,8 +80,9 @@ def place(t: torch.Tensor, mesh, placements):
             chunks = local.chunk(mesh.size(i), dim=p.dim)
             local = chunks[coord[i]] if coord[i] < len(chunks) else local.narrow(p.dim, 0, 0)
     local = local.contiguous()
-    if local.numel() < t.numel() and local.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
-        local = local.clone()  # a view of a shard would keep the whole tensor alive
+    if local.numel() < t.numel() and (not has_values(t) or
+                                      local.untyped_storage().data_ptr() == t.untyped_storage().data_ptr()):
+        local = local.clone()  # a view of a shard would keep the whole tensor alive (a fake one has no address)
     return _dtensor().from_local(local, mesh, tuple(placements), run_check=False,
                                  shape=t.shape, stride=contiguous_stride(t.shape))
 

@@ -53,7 +53,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, host_tensors, resolve_device
 from ..launch.mesh import (
     data_process_group,
     intra_pod_mesh,
@@ -570,11 +570,12 @@ def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, dev
 def _pod_sum(x: int, mesh) -> int:
     """The sum of an integer each rank holds over the rank's pod: its
     ``data`` and ``model`` peers (``x`` itself with one rank a pod)."""
-    t = torch.tensor(x, dtype=torch.int64)
-    for group in (data_process_group(mesh), model_process_group(mesh)):
-        if group is not None:
-            torch.distributed.all_reduce(t, group=group)
-    return int(t)
+    with host_tensors():
+        t = torch.tensor(x, dtype=torch.int64)
+        for group in (data_process_group(mesh), model_process_group(mesh)):
+            if group is not None:
+                torch.distributed.all_reduce(t, group=group)
+        return int(t)
 
 
 def _meta(tree):

@@ -18,6 +18,11 @@ head_dim; ``PADDED_LAUNCHES`` counts those launches beside their route.
 then it goes through :class:`FlashAttentionFn`, whose forward also writes
 the rows' log-sum-exp for the backward.  Serving runs under ``no_grad`` and
 launches the forward alone.
+
+Each launch is a custom op, ``torch.ops.repro_torch.flash_fwd`` and
+``flash_bwd``, with a fake implementation (the outputs' and the scratch's
+shapes, for the dry run) and a FLOP formula from
+:mod:`repro_torch.kernels.costs`.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from typing import Optional
 
 import torch
 
-from .. import LAUNCHES, _build
+from ...device import has_values
+from .. import LAUNCHES, _build, address, costs, define_op, on_card
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 KERNEL = "flash_attention_fwd"
@@ -159,7 +165,7 @@ def _layout_error(name: str, t: torch.Tensor) -> Optional[str]:
     if t.stride(3) != 1:
         return f"{name}: head_dim must be contiguous, strides {t.stride()}"
     # bf16 tiles load as 16-byte vectors of 8 elements
-    if t.dtype == torch.bfloat16 and (any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16):
+    if t.dtype == torch.bfloat16 and (any(s % 8 for s in t.stride()[:3]) or address(t) % 16):
         return f"{name}: bf16 strides {t.stride()} or address not 16-byte aligned"
     return None
 
@@ -210,14 +216,13 @@ def _launch_fwd(q, k, v, out, lse, *, scale, causal, window, logit_softcap) -> N
     ROUTE_LAUNCHES[route] += 1
 
 
-def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, scale, causal, window, logit_softcap, kv_cluster) -> None:
+def _launch_bwd(q, k, v, o, lse, do, delta, dq, dk, dv, *, scale, causal, window, logit_softcap, kv_cluster) -> None:
     lib = _build.load("flash_bwd")
     fn = lib.repro_flash_bwd
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     strides, dims = _strides(q, k, v, o, do, dq, dk, dv), _dims(q, k)
     hd = q.shape[3]
     route = bwd_route(q.dtype, hd)
@@ -234,6 +239,55 @@ def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, *, scale, causal, window, logit
     BWD_ROUTE_LAUNCHES[route] += 1
 
 
+# -- the launches as custom ops: the ctypes launch on the card, shapes under a fake tensor --
+
+def _fwd_outputs(q, with_lse: bool):
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    shape = (q.shape[0], q.shape[2], q.shape[1]) if with_lse else (0,)
+    return out, torch.empty(shape, dtype=torch.float32, device=q.device)
+
+
+def _flash_fwd_launch(q, k, v, scale, causal, window, logit_softcap, with_lse):
+    """One forward launch on checked, padded inputs -> (out, lse; lse is
+    empty unless ``with_lse``); ``window`` 0 and ``logit_softcap`` 0 are none."""
+    out, lse = _fwd_outputs(q, with_lse)
+    _launch_fwd(q, k, v, out, lse if with_lse else None, scale=scale, causal=causal, window=window or None,
+                logit_softcap=logit_softcap or None)
+    return out, lse
+
+
+def _bwd_outputs(q, k, v, lse):
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)  # the launch's scratch
+    return delta, torch.empty(q.shape, dtype=q.dtype, device=q.device), torch.empty(
+        k.shape, dtype=k.dtype, device=k.device), torch.empty(v.shape, dtype=v.dtype, device=v.device)
+
+
+def _flash_bwd_launch(q, k, v, o, lse, dout, scale, causal, window, logit_softcap, kv_cluster):
+    """One backward launch on checked, padded inputs -> (dq, dk, dv)."""
+    delta, dq, dk, dv = _bwd_outputs(q, k, v, lse)
+    _launch_bwd(q, k, v, o, lse, dout, delta, dq, dk, dv, scale=scale, causal=causal, window=window or None,
+                logit_softcap=logit_softcap or None, kv_cluster=kv_cluster)
+    return dq, dk, dv
+
+
+def _fwd_cost(q, k, v, scale, causal, window, logit_softcap, with_lse):
+    b, sq, h, hd = q.shape
+    return costs.flash_fwd(b, sq, k.shape[1], h, k.shape[2], hd, costs.dtype_name(q.dtype), window or None, causal)
+
+
+def _bwd_cost(q, k, v, o, lse, dout, scale, causal, window, logit_softcap, kv_cluster):
+    b, sq, h, hd = q.shape
+    return costs.flash_bwd(b, sq, k.shape[1], h, k.shape[2], hd, costs.dtype_name(q.dtype), window or None, causal)
+
+
+define_op("flash_fwd(Tensor q, Tensor k, Tensor v, float scale, bool causal, int window, float logit_softcap, "
+          "bool with_lse) -> (Tensor, Tensor)", _flash_fwd_launch,
+          lambda q, k, v, *rest: _fwd_outputs(q, rest[-1]), _fwd_cost)
+define_op("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor dout, float scale, bool causal, "
+          "int window, float logit_softcap, int kv_cluster) -> (Tensor, Tensor, Tensor)", _flash_bwd_launch,
+          lambda q, k, v, o, lse, *rest: _bwd_outputs(q, k, v, lse)[1:], _bwd_cost)
+
+
 def _heads_first(*tensors):
     return [t.transpose(1, 2) for t in tensors]
 
@@ -242,20 +296,18 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, logit_softcap=None
     """The forward alone -> out [B, Sq, H, hd] (and lse [B, H, Sq] float32 if asked)."""
     _check(q, k, v, window, logit_softcap)
     kw = dict(causal=causal, window=window, logit_softcap=logit_softcap)
-    if q.device.type == "cpu":
+    if not on_card(q):
         out, lse = flash_attention_ref(*_heads_first(q, k, v), **kw)
         out = out.transpose(1, 2)
     else:
         _check_cuda(q, k, v)
         hd = q.shape[3]
         q, k, v = pad_head_dim(q, k, v)
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        lse = None
-        if with_lse:
-            lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
-        _launch_fwd(q, k, v, out, lse, scale=hd ** -0.5, **kw)
+        out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, hd ** -0.5, causal, window or 0, logit_softcap or 0.0,
+                                                   with_lse)
         if out.shape[3] != hd:
-            PADDED_LAUNCHES[KERNEL] += 1
+            if has_values(out):  # launched: a fake tensor's op launches nothing
+                PADDED_LAUNCHES[KERNEL] += 1
             out = out[..., :hd]
     return (out, lse) if with_lse else out
 
@@ -267,7 +319,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, logit_
     dK/dV kernel's cluster size, else :func:`dkdv_cluster` picks it."""
     _check(q, k, v, window, logit_softcap)
     kw = dict(causal=causal, window=window, logit_softcap=logit_softcap)
-    if q.device.type == "cpu":
+    if not on_card(q):
         grads = flash_attention_bwd_ref(*_heads_first(q, k, v, o), lse, do.transpose(1, 2), **kw)
         return tuple(g.transpose(1, 2) for g in grads)
     _check_cuda(q, k, v)
@@ -284,19 +336,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, logit_
     hd = q.shape[3]
     groups = q.shape[2] // k.shape[2]
     split = hd == 256 and bwd_route(q.dtype, hd) == "wgmma"
-    if kv_cluster is None:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    if kv_cluster is None:  # a fake tensor (the dry run) is on no card: take the H100's SM count
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count if has_values(q) else costs.SMS
         kv_cluster = dkdv_cluster(q.shape[0], k.shape[2], k.shape[1], groups, sms) if split else 1
     elif kv_cluster not in KV_CLUSTERS or groups % kv_cluster or (kv_cluster > 1 and not split):
         raise ValueError(f"kv_cluster {kv_cluster}: the hd-256 wgmma backward takes {KV_CLUSTERS} dividing "
                          f"{groups} query heads a kv head; every other backward 1")
     q, k, v, o, do = pad_head_dim(q, k, v, o, do)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scale=hd ** -0.5, kv_cluster=kv_cluster, **kw)
+    dq, dk, dv = torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, do, hd ** -0.5, causal, window or 0,
+                                                 logit_softcap or 0.0, kv_cluster)
     if q.shape[3] != hd:
-        PADDED_LAUNCHES[BWD_KERNEL] += 1
+        if has_values(q):
+            PADDED_LAUNCHES[BWD_KERNEL] += 1
         return dq[..., :hd], dk[..., :hd], dv[..., :hd]
     return dq, dk, dv
 
@@ -331,7 +382,7 @@ def flash_attention(
 ) -> torch.Tensor:
     """Blocked online-softmax attention; query and key indices start at 0."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.device.type == "cuda":
+        if on_card(q):
             bwd_route(q.dtype, q.shape[3])  # no backward kernel: raise before the forward runs
         return FlashAttentionFn.apply(q, k, v, causal, window, logit_softcap)
     return flash_attention_fwd(q, k, v, causal=causal, window=window, logit_softcap=logit_softcap)

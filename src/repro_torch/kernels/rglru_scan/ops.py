@@ -12,6 +12,11 @@ no other fallback.  Where autograd needs a gradient :func:`rglru_scan`
 goes through :class:`RGLRUScanFn`: on the card its forward keeps the
 chunks' float32 states that the kernel publishes, and its backward
 recomputes each chunk's h from them.
+
+Each launch is a custom op, ``torch.ops.repro_torch.rglru_scan`` and
+``rglru_scan_bwd``, with a fake implementation (the outputs' and the
+scratch's shapes, for the dry run) and a FLOP formula from
+:mod:`repro_torch.kernels.costs`.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import LAUNCHES, _build
+from .. import LAUNCHES, _build, address, costs, define_op, on_card
 from .ref import CHUNK, chunk_states, rglru_scan_bwd_ref, rglru_scan_ref
 
 KERNEL = "rglru_scan"
@@ -67,29 +72,44 @@ def _check_cuda(x, r_gate, i_gate) -> None:
     for name, a in (("x", x), ("r_gate", r_gate), ("i_gate", i_gate)):
         if a.stride(2) != 1:
             raise ValueError(f"{name}: the last dimension must be contiguous, strides {a.stride()}")
-        if a.stride(0) % 2 or a.stride(1) % 2 or a.data_ptr() % pair:
+        if a.stride(0) % 2 or a.stride(1) % 2 or address(a) % pair:
             raise ValueError(f"{name}: strides {a.stride()} or address not aligned to two-channel loads")
 
 
 def _paired(a: torch.Tensor) -> torch.Tensor:
     """``a`` itself where the kernel's float2 loads can read it (contiguous,
     8-byte aligned), else a copy that they can."""
-    return a if a.is_contiguous() and a.data_ptr() % 8 == 0 else a.clone(memory_format=torch.contiguous_format)
+    return a if a.is_contiguous() and address(a) % 8 == 0 else a.clone(memory_format=torch.contiguous_format)
 
 
 def _launch(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Launch the kernel on checked inputs -> (h [B, T, Dr] in x's dtype,
     h_last [B, Dr] float32, the chunks' published states [B, NC, Dr]
     float32, or None for one chunk)."""
+    h, h_last, state = torch.ops.repro_torch.rglru_scan(x, r_gate, i_gate, _paired(lam), _paired(h0))
+    return h, h_last, state if state.numel() else None
+
+
+def _fwd_outputs(x):
+    """(h, h_last, the chunks' states (empty for one chunk)) and the launch's
+    scratch: the states' ready flags and the block ticket, zeroed (None for
+    one chunk)."""
     b, t, dr = x.shape
-    lam, h0 = _paired(lam), _paired(h0)
     h = torch.empty((b, t, dr), dtype=x.dtype, device=x.device)
     h_last = torch.empty((b, dr), dtype=torch.float32, device=x.device)
     nc = -(-t // CHUNK)
-    state = flags = None
-    if nc > 1:  # the chunks' published states; their ready flags and the block ticket, zeroed
-        state = torch.empty((b, nc, dr), dtype=torch.float32, device=x.device)
-        flags = torch.zeros(nc * b * -(-dr // SLICE) + 1, dtype=torch.int32, device=x.device)
+    if nc == 1:
+        return (h, h_last, torch.empty((0,), dtype=torch.float32, device=x.device)), None
+    state = torch.empty((b, nc, dr), dtype=torch.float32, device=x.device)
+    flags = torch.zeros(nc * b * -(-dr // SLICE) + 1, dtype=torch.int32, device=x.device)
+    return (h, h_last, state), flags
+
+
+def _rglru_scan_launch(x, r_gate, i_gate, lam, h0):
+    """One launch on checked inputs (lam, h0 paired) -> (h, h_last, states;
+    states empty where T fits one chunk)."""
+    b, t, dr = x.shape
+    (h, h_last, state), flags = _fwd_outputs(x)
     lib = _build.load("rglru_scan")
     fn = lib.repro_rglru_scan
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -98,7 +118,7 @@ def _launch(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor, Opt
     err = fn(
         x.device.index, int(x.dtype == torch.bfloat16), x.data_ptr(), r_gate.data_ptr(), i_gate.data_ptr(),
         ctypes.addressof(strides), lam.data_ptr(), h0.data_ptr(), h.data_ptr(), h_last.data_ptr(),
-        None if state is None else state.data_ptr(), None if flags is None else flags.data_ptr(),
+        None if flags is None else state.data_ptr(), None if flags is None else flags.data_ptr(),
         b, t, dr, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, KERNEL)
@@ -121,7 +141,7 @@ def _tma_rows(a: torch.Tensor, ld: int) -> torch.Tensor:
     multiples of 16 bytes), else a copy into the first Dr channels of rows
     of ``ld`` that they can."""
     esz = a.element_size()
-    if a.stride(2) == 1 and a.data_ptr() % 16 == 0 and all(
+    if a.stride(2) == 1 and address(a) % 16 == 0 and all(
             n == 1 or s * esz % 16 == 0 for n, s in zip(a.shape[:2], a.stride()[:2])):
         return a
     return _rows(a.shape, a.dtype, a.device, ld).copy_(a)
@@ -139,19 +159,40 @@ def _launch_bwd(x, r_gate, i_gate, lam, h0, states, dy, dh_last):
     dh0)."""
     b, t, dr = x.shape
     lam, h0 = _paired(lam), _paired(h0)
-    ld = -(-dr * x.element_size() // 16) * 16 // x.element_size()  # rows of 16-byte multiples for the TMA maps
+    ld = _ld(x)
     x, r_gate, i_gate = (_tma_rows(a, ld) for a in (x, r_gate, i_gate))
-    if dy is not None and (dy.stride() != (t * ld, ld, 1) or dy.data_ptr() % 16):  # dy shares the outputs' rows
+    if dy is not None and (dy.stride() != (t * ld, ld, 1) or address(dy) % 16):  # dy shares the outputs' rows
         dy = _rows(dy.shape, dy.dtype, dy.device, ld).copy_(dy)
+    return torch.ops.repro_torch.rglru_scan_bwd(x, r_gate, i_gate, lam, h0, states, dy, dh_last)
+
+
+def _ld(x) -> int:
+    """Rows of 16-byte multiples for the TMA maps."""
+    return -(-x.shape[2] * x.element_size() // 16) * 16 // x.element_size()
+
+
+def _bwd_outputs(x):
+    """(dx, dr, di, dlam, dh0) and the launch's scratch: dlam's partial sums,
+    one row a (chunk, batch row), summed in order by a second kernel; the
+    block ticket, zeroed; the chunks' published carries, each word unset
+    (0xffffffff) until written (None for one chunk)."""
+    b, t, dr = x.shape
+    ld = _ld(x)
     dx, d_r, di = (_rows((b, t, dr), x.dtype, x.device, ld) for _ in range(3))
     dlam = torch.empty(dr, dtype=torch.float32, device=x.device)
     dh0 = torch.empty((b, dr), dtype=torch.float32, device=x.device)
     nc = -(-t // CHUNK)
-    # dlam's partial sums, one row a (chunk, batch row), summed in order by a second kernel
     partial = torch.empty((nc * b, dr), dtype=torch.float32, device=x.device)
-    # the block ticket, zeroed; the chunks' published carries, each word unset (0xffffffff) until written
     ticket = torch.zeros(1, dtype=torch.int32, device=x.device)
     carry = torch.full((b, nc, dr), -1, dtype=torch.int32, device=x.device).view(torch.float32) if nc > 1 else None
+    return (dx, d_r, di, dlam, dh0), (partial, ticket, carry)
+
+
+def _rglru_scan_bwd_launch(x, r_gate, i_gate, lam, h0, states, dy, dh_last):
+    """One launch on checked, staged inputs -> (dx, dr, di, dlam, dh0)."""
+    b, t, dr = x.shape
+    grads, (partial, ticket, carry) = _bwd_outputs(x)
+    dx, d_r, di, dlam, dh0 = grads
     lib = _build.load("rglru_scan_bwd")
     fn = lib.repro_rglru_scan_bwd
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -162,11 +203,20 @@ def _launch_bwd(x, r_gate, i_gate, lam, h0, states, dy, dh_last):
         ctypes.addressof(strides), lam.data_ptr(), h0.data_ptr(), _ptr(states), _ptr(dy), _ptr(dh_last),
         dx.data_ptr(), d_r.data_ptr(), di.data_ptr(), dlam.data_ptr(), dh0.data_ptr(),
         _ptr(carry), ticket.data_ptr(), partial.data_ptr(),
-        b, t, dr, ld, torch.cuda.current_stream(x.device).cuda_stream,
+        b, t, dr, _ld(x), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(lib, err, BWD_KERNEL)
     LAUNCHES[BWD_KERNEL] += 1
-    return dx, d_r, di, dlam, dh0
+    return grads
+
+
+define_op("rglru_scan(Tensor x, Tensor r_gate, Tensor i_gate, Tensor lam, Tensor h0) -> (Tensor, Tensor, Tensor)",
+          _rglru_scan_launch, lambda x, *_: _fwd_outputs(x)[0],
+          lambda x, *_: costs.rglru_scan(*x.shape, costs.dtype_name(x.dtype)))
+define_op("rglru_scan_bwd(Tensor x, Tensor r_gate, Tensor i_gate, Tensor lam, Tensor h0, Tensor? states, "
+          "Tensor? dy, Tensor? dh_last) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+          _rglru_scan_bwd_launch, lambda x, *_: _bwd_outputs(x)[0],
+          lambda x, *_: costs.rglru_scan_bwd(*x.shape, costs.dtype_name(x.dtype)))
 
 
 def rglru_scan_fwd(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
@@ -174,7 +224,7 @@ def rglru_scan_fwd(x, r_gate, i_gate, lam, h0) -> Tuple[torch.Tensor, torch.Tens
     states [B, NC, Dr] that :func:`rglru_scan_bwd` takes, or None where T
     fits one chunk)."""
     _check(x, r_gate, i_gate, lam, h0)
-    if x.device.type == "cpu":
+    if not on_card(x):
         h, h_last = rglru_scan_ref(x, r_gate, i_gate, lam, h0)
         states = chunk_states(x, r_gate, i_gate, lam, h0)
         return h, h_last, torch.stack(states, dim=1) if states else None
@@ -196,7 +246,7 @@ def rglru_scan_bwd(x, r_gate, i_gate, lam, h0, dy, dh_last, *, states=None):
                                 or dh_last.device != x.device):
         raise ValueError(f"dh_last must be float32 {(b, dr)} on {x.device}, got {dh_last.dtype} "
                          f"{tuple(dh_last.shape)}")
-    if x.device.type == "cpu":
+    if not on_card(x):
         return rglru_scan_bwd_ref(x, r_gate, i_gate, lam, h0, dy, dh_last)
     _check_cuda(x, r_gate, i_gate)
     nc = -(-t // CHUNK)
@@ -218,7 +268,7 @@ class RGLRUScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, r_gate, i_gate, lam, h0):
-        if x.device.type == "cpu":
+        if not on_card(x):
             h, h_last = rglru_scan_ref(x, r_gate, i_gate, lam, h0)
             states = None  # the plain backward recomputes h
         else:
@@ -245,11 +295,11 @@ def rglru_scan(
     otherwise the forward alone runs.
     """
     _check(x, r_gate, i_gate, lam, h0)
-    if x.device.type == "cuda":
+    if on_card(x):
         _check_cuda(x, r_gate, i_gate)  # raise before autograd records anything
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, r_gate, i_gate, lam, h0)):
         return RGLRUScanFn.apply(x, r_gate, i_gate, lam, h0)
-    if x.device.type == "cpu":
+    if not on_card(x):
         return rglru_scan_ref(x, r_gate, i_gate, lam, h0)
     h, h_last, _ = _launch(x, r_gate, i_gate, lam, h0)
     return h, h_last

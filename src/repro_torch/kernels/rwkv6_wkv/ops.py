@@ -22,6 +22,11 @@ Under the model's rematerialisation (``torch.utils.checkpoint`` with
 :func:`remat_contexts`) the recomputed forward takes the outputs the first
 forward stashed instead of running the recurrence again, so a training step
 launches ``wkv6_fwd`` once and ``wkv6_bwd`` once a layer.
+
+Each launch is a custom op, ``torch.ops.repro_torch.wkv6_fwd`` (which
+writes ``state_out`` and the saved states) and ``wkv6_bwd``, with a fake
+implementation (for the dry run) and a FLOP formula from
+:mod:`repro_torch.kernels.costs`.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import LAUNCHES, _build
+from .. import LAUNCHES, _build, address, costs, define_op, on_card
 from .ref import wkv6_bwd_ref, wkv6_ref
 
 KERNEL = "wkv6_fwd"
@@ -107,11 +112,11 @@ def _check_cuda(r, k, v, w, u, state0, state_out) -> None:
         raise ValueError(f"state_out must be [B, H, N, N] = {(b, h, n, n)} on {r.device}")
 
 
-def _check_grad_chunk(chunk: int, on_card: bool) -> None:
-    if chunk < 1 or (on_card and (chunk % CHUNK or chunk > MAX_GRAD_CHUNK)):
+def _check_grad_chunk(chunk: int, card: bool) -> None:
+    if chunk < 1 or (card and (chunk % CHUNK or chunk > MAX_GRAD_CHUNK)):
         raise ValueError(
             f"chunk {chunk}: the kernels take a multiple of {CHUNK} up to {MAX_GRAD_CHUNK}"
-            if on_card else f"chunk must be >= 1, got {chunk}"
+            if card else f"chunk must be >= 1, got {chunk}"
         )
 
 
@@ -120,9 +125,18 @@ def wkv6_fwd(r, k, v, w, u, state0, state_out, *, bounds=None, chunk=GRAD_CHUNK)
     ``state_out`` (which may be ``state0``); ``bounds``, if given
     ([B, ceil(T / chunk), H, N, N] float32), receives the state before
     every ``chunk`` steps."""
+    return torch.ops.repro_torch.wkv6_fwd(r, k, v, w, u.float().contiguous(), state0, state_out, bounds, chunk)
+
+
+def _fwd_out(r):
+    return torch.empty(r.shape, dtype=torch.float32, device=r.device)
+
+
+def _wkv6_fwd_launch(r, k, v, w, u, state0, state_out, bounds, chunk):
+    """One launch on checked inputs (u contiguous float32) -> out; writes
+    ``state_out`` and, if given, ``bounds``."""
     b, t, h, n = r.shape
-    u = u.float().contiguous()
-    out = torch.empty((b, t, h, n), dtype=torch.float32, device=r.device)
+    out = _fwd_out(r)
     lib = _build.load("wkv6")
     fn = lib.repro_wkv6_fwd
     fn.argtypes = (
@@ -152,7 +166,7 @@ def wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk: int = GRAD_CHUNK):
     forward saved every ``chunk`` steps."""
     _check(r, k, v, w, u, None)
     _check_cuda(r, k, v, w, u, None, None)
-    _check_grad_chunk(chunk, on_card=True)
+    _check_grad_chunk(chunk, card=True)
     b, t, h, n = r.shape
     nc = -(-t // chunk)
     if tuple(bounds.shape) != (b, nc, h, n, n) or bounds.dtype != torch.float32:
@@ -165,24 +179,39 @@ def wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk: int = GRAD_CHUNK):
 
     def staged(x, dtype=None):  # contiguous, 16-byte aligned: the kernel copies 16 bytes at a time
         x = (x if dtype is None else x.to(dtype)).contiguous()
-        return x if x.data_ptr() % 16 == 0 else x.clone()
+        return x if address(x) % 16 == 0 else x.clone()
 
     r, k, v, w, bounds = (staged(x) for x in (r, k, v, w, bounds))
     u, dout = staged(u, torch.float32), staged(dout, torch.float32)
     dstate = None if dstate is None else staged(dstate, torch.float32)
-    lib = _build.load("wkv6_bwd")
+    return torch.ops.repro_torch.wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk, route == "3xtf32")
+
+
+def _bwd_outputs(r, k, v, w, nc):
+    """(dr, dk, dv, dw, du, dstate0) and the launch's scratch: G at each
+    chunk's end, each chunk's decay, per-chunk du partials."""
+    b, _, h, n = r.shape
     dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
     du = torch.empty((h, n), dtype=torch.float32, device=r.device)
     dstate0 = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
-    # scratch: G at each chunk's end, each chunk's decay, per-chunk du partials
-    gend = torch.empty((b, nc, h, n, n), dtype=torch.float32, device=r.device)
-    cdecay = torch.empty((b, nc, h, n), dtype=torch.float32, device=r.device)
-    du_parts = torch.empty((b, nc, h, n), dtype=torch.float32, device=r.device)
+    scratch = (torch.empty((b, nc, h, n, n), dtype=torch.float32, device=r.device),
+               torch.empty((b, nc, h, n), dtype=torch.float32, device=r.device),
+               torch.empty((b, nc, h, n), dtype=torch.float32, device=r.device))
+    return (dr, dk, dv, dw, du, dstate0), scratch
+
+
+def _wkv6_bwd_launch(r, k, v, w, u, bounds, dout, dstate, chunk, three_tf32):
+    """One launch on checked, staged inputs -> (dr, dk, dv, dw, du, dstate0)."""
+    b, t, h, n = r.shape
+    nc = -(-t // chunk)
+    grads, (gend, cdecay, du_parts) = _bwd_outputs(r, k, v, w, nc)
+    dr, dk, dv, dw, du, dstate0 = grads
+    lib = _build.load("wkv6_bwd")
     fn = lib.repro_wkv6_bwd
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
-        r.device.index, int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), int(route == "3xtf32"), n,
+        r.device.index, int(r.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), int(three_tf32), n,
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(), bounds.data_ptr(),
         dout.data_ptr(), None if dstate is None else dstate.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(),
@@ -191,8 +220,27 @@ def wkv6_bwd(r, k, v, w, u, bounds, dout, dstate, chunk: int = GRAD_CHUNK):
     )
     _build.check(lib, err, BWD_KERNEL)
     LAUNCHES[BWD_KERNEL] += 1
-    WKV_BWD_ROUTE_LAUNCHES[route] += 1
-    return dr, dk, dv, dw, du, dstate0
+    WKV_BWD_ROUTE_LAUNCHES["3xtf32" if three_tf32 else "tf32"] += 1
+    return grads
+
+
+def _fwd_cost(r, k, v, w, u, state0, state_out, bounds, chunk):
+    b, t, h, n = r.shape
+    return costs.wkv6_fwd(b, t, h, n, costs.dtype_name(r.dtype), costs.dtype_name(w.dtype))
+
+
+def _bwd_cost(r, k, v, w, u, bounds, dout, dstate, chunk, three_tf32):
+    b, t, h, n = r.shape
+    return costs.wkv6_bwd(b, t, h, n, costs.dtype_name(r.dtype), costs.dtype_name(w.dtype), chunk)
+
+
+define_op("wkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor state0, Tensor(a!) state_out, "
+          "Tensor(b!)? bounds, int chunk) -> Tensor", _wkv6_fwd_launch, lambda r, *rest: _fwd_out(r), _fwd_cost)
+define_op("wkv6_bwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor bounds, Tensor dout, Tensor? dstate, "
+          "int chunk, bool three_tf32) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)", _wkv6_bwd_launch,
+          lambda r, k, v, w, u, bounds, dout, dstate, chunk, three_tf32: _bwd_outputs(r, k, v, w,
+                                                                                    -(-r.shape[1] // chunk))[0],
+          _bwd_cost)
 
 
 # -- rematerialisation: the recomputed forward replays the first one's outputs ----
@@ -227,7 +275,7 @@ class WKV6Fn(torch.autograd.Function):
         if stash is not None and stash[0] == "replay" and stash[1]:
             out, final, bounds = stash[1].pop(0)
             out, final = out.detach(), final.detach()
-        elif r.device.type == "cpu":
+        elif not on_card(r):
             out, final, bounds = wkv6_ref(r, k, v, w, u, state0, chunk=chunk)
         else:
             b, t, h, n = r.shape
@@ -249,7 +297,7 @@ class WKV6Fn(torch.autograd.Function):
         r, k, v, w, u, bounds = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
-        bwd = wkv6_bwd_ref if r.device.type == "cpu" else wkv6_bwd
+        bwd = wkv6_bwd if on_card(r) else wkv6_bwd_ref
         dr, dk, dv, dw, du, dstate0 = bwd(r, k, v, w, u, bounds, dout, dstate, ctx.chunk)
         return dr, dk, dv, dw, du.to(u.dtype), dstate0 if ctx.needs_input_grad[5] else None, None
 
@@ -278,9 +326,9 @@ def wkv6(
     if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
         if state_out is not None:
             raise ValueError("state_out (an in-place final state) has no gradient: pass it under no_grad")
-        _check_grad_chunk(chunk, on_card=r.device.type == "cuda")
+        _check_grad_chunk(chunk, card=on_card(r))
         return WKV6Fn.apply(r, k, v, w, u, state0, chunk)
-    if r.device.type == "cpu":
+    if not on_card(r):
         out, final = wkv6_ref(r, k, v, w, u, state0)
         if state_out is None:
             return out, final

@@ -9,6 +9,10 @@ the padding to a multiple of 256 lanes exists only in the int8 output.
 
 :func:`quantize` / :func:`dequantize` port ``repro.kernels.wan_quant.ops``:
 a leaf of any shape (0-d and 1-d included) as rows of its last dimension.
+
+Each launch is a custom op, ``torch.ops.repro_torch.wan_quant`` and
+``wan_dequant``, with a fake implementation (for the dry run) and its
+cost from :mod:`repro_torch.kernels.costs`.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from .. import LAUNCHES, _build
+from .. import LAUNCHES, _build, costs, define_op, on_card
 from .ref import BLOCK, wan_dequant_ref, wan_quant_ref
 
 QUANT = "wan_quant"
@@ -46,13 +50,22 @@ def wan_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_matrix(x, QUANT)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{QUANT} takes float32 or bfloat16, got {x.dtype}")
-    if x.device.type == "cpu":
+    if not on_card(x):
         return wan_quant_ref(x)
-    x = x.contiguous()
+    return torch.ops.repro_torch.wan_quant(x.contiguous())
+
+
+def _quant_outputs(x):
     rows, cols = x.shape
     nblocks = -(-cols // BLOCK)
     q = torch.empty((rows, nblocks * BLOCK), dtype=torch.int8, device=x.device)
-    s = torch.empty((rows, nblocks), dtype=torch.float32, device=x.device)
+    return q, torch.empty((rows, nblocks), dtype=torch.float32, device=x.device)
+
+
+def _wan_quant_launch(x):
+    """One launch on a checked, contiguous matrix -> (int8 values, scales)."""
+    q, s = _quant_outputs(x)
+    rows, cols = x.shape
     lib, fn = _fn("repro_wan_quant", [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ])
@@ -75,20 +88,31 @@ def wan_dequant(q: torch.Tensor, scales: torch.Tensor, cols: int) -> torch.Tenso
         raise ValueError(f"{DEQUANT}: values {tuple(q.shape)}, scales {tuple(scales.shape)}, cols {cols} disagree")
     if q.device != scales.device:
         raise ValueError(f"devices differ: {q.device}, {scales.device}")
-    if q.device.type == "cpu":
+    if not on_card(q):
         return wan_dequant_ref(q, scales, cols)
-    q, scales = q.contiguous(), scales.contiguous()
-    out = torch.empty((rows, cols), dtype=torch.float32, device=q.device)
+    return torch.ops.repro_torch.wan_dequant(q.contiguous(), scales.contiguous(), cols)
+
+
+def _wan_dequant_launch(q, scales, cols):
+    """One launch on checked, contiguous values and scales -> float32 [rows, cols]."""
+    out = torch.empty((q.shape[0], cols), dtype=torch.float32, device=q.device)
     lib, fn = _fn("repro_wan_dequant", [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ])
     err = fn(
-        q.device.index, q.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, cols,
+        q.device.index, q.data_ptr(), scales.data_ptr(), out.data_ptr(), q.shape[0], cols,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, DEQUANT)
     LAUNCHES[DEQUANT] += 1
     return out
+
+
+define_op("wan_quant(Tensor x) -> (Tensor, Tensor)", _wan_quant_launch, _quant_outputs,
+          lambda x: costs.wan_quant(*x.shape))
+define_op("wan_dequant(Tensor q, Tensor scales, int cols) -> Tensor", _wan_dequant_launch,
+          lambda q, scales, cols: torch.empty((q.shape[0], cols), dtype=torch.float32, device=q.device),
+          lambda q, scales, cols: costs.wan_quant(q.shape[0], cols))
 
 
 def _rows(shape) -> Tuple[int, int]:

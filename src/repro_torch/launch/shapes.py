@@ -53,7 +53,7 @@ def _spec(shape, dtype: torch.dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
 
 
-def _token_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, torch.Tensor]:
+def token_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, torch.Tensor]:
     """Train/prefill inputs as meta tensors."""
     i32, act = torch.int32, cfg.compute_dtype
     if cfg.frontend == "frame":
@@ -83,7 +83,7 @@ def input_specs(cfg: ModelConfig, shape: str) -> Dict[str, object]:
     if not ok:
         raise ValueError(f"shape {shape} unsupported: {why}")
     if spec.kind in ("train", "prefill"):
-        return {"batch": _token_specs(cfg, spec.global_batch, spec.seq_len)}
+        return {"batch": token_specs(cfg, spec.global_batch, spec.seq_len)}
     # decode: one new token against a seq_len-deep cache
     if cfg.frontend == "frame":
         tok = _spec((spec.global_batch, 1, cfg.frontend_dim), cfg.compute_dtype)

@@ -15,6 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..device import has_values
 from ..kernels.flash_attention import flash_attention
 from .config import ModelConfig, torch_dtype
 from .layers import apply_rope, dense_init, softcap
@@ -156,7 +157,7 @@ def attention_forward(
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    elif not torch.equal(positions, torch.arange(S, device=positions.device)):
+    elif has_values(positions) and not torch.equal(positions, torch.arange(S, device=positions.device)):
         raise ValueError("attention_forward's flash path needs positions == arange(S)")
     from ..distributed.act_sharding import on_local_shards
 
@@ -214,9 +215,12 @@ def make_cache_from_prefill(
     Sized for ``max_len`` total positions and laid out so that absolute
     position ``p`` occupies slot ``p % size``: the invariant
     :func:`attention_decode` relies on when it writes new tokens.
+    ``positions`` are the prefill's, ``arange(n)``.
     """
     n = k.shape[1]
     size = max_len if window is None else min(window, max_len)
+    # prefill's positions are arange(n): the first one kept is n - size
+    first = max(n - size, 0)
     positions = positions.to(torch.int32)
     if n > size:  # keep only the windowed tail
         k, v, positions = k[:, -size:], v[:, -size:], positions[-size:]
@@ -227,7 +231,6 @@ def make_cache_from_prefill(
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         positions = torch.nn.functional.pad(positions, (0, pad), value=-1)
     # roll so that the entry holding absolute position p sits at slot p % size
-    first = int(positions[0])
     shift = first % size if first > 0 else 0
     return {
         "k": torch.roll(k, shift, dims=1),

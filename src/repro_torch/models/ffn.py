@@ -129,7 +129,12 @@ def _route(x_flat, router, moe: MoEConfig):
 
 
 def _counts(expert_idx, moe: MoEConfig):
-    return torch.bincount(expert_idx.reshape(-1), minlength=moe.num_experts).float()
+    """The choices each expert got, float32 [E]: ``bincount`` of the ids,
+    which are below E, added into E slots so that the shape does not
+    depend on the values (a fake tensor of the dry run has none)."""
+    idx = expert_idx.reshape(-1)
+    ones = torch.ones(idx.shape, dtype=torch.int64, device=idx.device)
+    return torch.zeros(moe.num_experts, dtype=torch.int64, device=idx.device).index_add_(0, idx, ones).float()
 
 
 def _aux_loss(probs, expert_idx, moe: MoEConfig, counts=None):

@@ -43,7 +43,8 @@ from repro_torch.runtime import (
 from repro_torch.tree import tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
-CORE = ("fabric", "evpn", "bfd", "ports", "flows", "metrics", "tenancy", "congestion", "wan", "schedule", "geo")
+CORE = ("fabric", "evpn", "bfd", "ports", "flows", "metrics", "tenancy", "congestion", "wan", "schedule", "geo",
+        "collision")
 STRATEGIES = ("allreduce", "ps", "hier", "hier_int8", "local_sgd")
 TOL = 2e-5  # float32, test_torch_train.py::TOL
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=100)

@@ -44,8 +44,9 @@ Phases, each printing one JSON line on stdout:
    also on train_mixtral's stacked 2-pod expert gradient (98,304 x 16,384);
    and the shards a mesh_models rank hands them: ``rglru_scan`` at 2 x
    4096 x 2048 and 2 x 4096 x 1024 (its backward at the latter), the flash
-   forward at hd 256 with 8 and 4 query heads over 1 and at hd 128 with 24
-   over 4 and 12 over 2 (2 x 4096), the backward at the training two.
+   forward at hd 256 with 8 and 4 query heads over 1 (2 x 4096) and at hd
+   128 with 24 over 4 (2 x 4096 serving on (data 2, model 2), 1 x 4096
+   training there), the backward at the training two.
 4. ``serve``: the serving path, distilgpt2-82m at full width (random
    weights from a seed): prefill of 8 x 1024 tokens, then 32 greedy decode
    steps, with the kernel launch counts of that run; then the card against
@@ -83,7 +84,9 @@ Phases, each printing one JSON line on stdout:
    GeoTrainer at full width on the 16 x 1024 global batch over a
    ``(pod 2, data 2)`` mesh (``hier_int8`` 6 steps, ``allreduce`` 3: FSDP
    over data, the WAN strategy over pod on each rank's pieces) and a
-   ``(data 2, model 2)`` mesh (FSDP and tensor parallelism, 3 steps).
+   ``(data 2, model 2)`` mesh (FSDP, tensor and sequence parallelism, 3
+   steps; the last step reduce-scatters onto the rank's ``[8, 512, 768]``
+   and all-reduces no ``[8, 1024, 768]`` activation).
    Losses fall and agree with the one-process runs of the same rows and
    weights (first step rtol 1e-3, later 5e-3), the WAN bytes summed over a
    pod's ranks equal the analytic ones, every flash launch is on
@@ -198,9 +201,15 @@ Phases, each printing one JSON line on stdout:
    ``mesh_recurrentgemma`` and ``mesh_mixtral`` (one 4-rank spawn on the
    card, gloo): recurrentgemma-9b's one group and mixtral-8x22b's 2 layers
    served on ``(data 2, model 2)`` (4 x 4096, 4 decode steps fed the
-   one-process run's greedy tokens), its one group and mixtral's one layer
-   trained 3 ``allreduce`` steps on ``(data 1, model 4)`` (2 x 4096),
-   bf16 compute, seed-0 weights; each run held to a one-process run of the
+   one-process run's greedy tokens), its one group trained 3 ``allreduce``
+   steps on ``(data 1, model 4)`` and mixtral's one layer on ``(data 2,
+   model 2)`` (2 x 4096), the step donating (parameters and moments
+   updated in their own storage: every local tensor's ``data_ptr`` the
+   same after each step) and sequence parallel (the residual's sequence
+   over model between blocks: each step reduce-scatters onto the rank's
+   ``[B / data, S / model, D]`` and all-reduces no ``[B / data, S, D]``
+   activation but the RG-LRU's gate products), bf16 compute, seed-0
+   weights; each run held to a one-process run of the
    same weights and rows made first on the card (logits at SERVE_TOL,
    recurrentgemma-9b's in relative norm as ``serve_recurrentgemma`` holds
    them, greedy tokens equal but on near-ties; losses at MESH_LOSS_RTOL;
@@ -210,8 +219,10 @@ Phases, each printing one JSON line on stdout:
    RG-LRU scan and flash forward call is handed the rank's shard (rows over
    data, Dr and query heads over model), every flash launch is on
    ``wgmma``, and no LAN collective is handed the dispatched MoE
-   activations.  Per rank: prefill, decode and step ms, peak GB, LAN bytes
-   and calls, launches and routes.
+   activations.  Per rank: prefill, decode and step ms, peak GB, the card's
+   least free memory over a training run, LAN bytes and calls (in
+   training by kind: reduce-scatters, all-gathers, all-reduces), launches
+   and routes.
 8. ``quickstart``: ``repro_torch.examples.quickstart`` on the CPU, then on
    the card, each in a fresh checkpoint directory: the fabric, port and
    cost lines (numpy) equal, the card's 20 losses falling, 2 flash
@@ -302,11 +313,12 @@ FLASH_CASES = [
     ("mixtral_gqa6_w4096", 4, 4096, 48, 8, 128, "bfloat16", 4096, None, "wgmma"),
     ("arctic_gqa7", 4, 4096, 56, 8, 128, "bfloat16", None, None, "wgmma"),
     # one rank's shard in mesh_models: its 2 rows of the 4 x 4096 prefill
-    # on (data 2, model 2), its 2 x 4096 training rows on (data 1, model 4)
+    # on (data 2, model 2); its training rows, recurrentgemma-9b's 2 x 4096
+    # on (data 1, model 4), mixtral-8x22b's 1 x 4096 on (data 2, model 2)
     ("rg9b_mesh_serve_hd256_h8_kvh1_w2048", 2, 4096, 8, 1, 256, "bfloat16", 2048, None, "wgmma"),
     ("rg9b_mesh_train_hd256_h4_kvh1_w2048", 2, 4096, 4, 1, 256, "bfloat16", 2048, None, "wgmma"),
     ("mixtral_mesh_serve_h24_kvh4_w4096", 2, 4096, 24, 4, 128, "bfloat16", 4096, None, "wgmma"),
-    ("mixtral_mesh_train_h12_kvh2_w4096", 2, 4096, 12, 2, 128, "bfloat16", 4096, None, "wgmma"),
+    ("mixtral_mesh_train_h24_kvh4_w4096", 1, 4096, 24, 4, 128, "bfloat16", 4096, None, "wgmma"),
 ]
 # windowed cases where sdpa is also timed unwindowed (is_causal=True) on the
 # same inputs: more pairs than the window keeps, but no S x S mask to read
@@ -332,9 +344,10 @@ FLASH_BWD_CASES = [
     # mixtral-8x22b's attention at the train_mixtral pod's shape (one
     # 4096-token row, 48 heads over 8, window 4096)
     ("mixtral_train_gqa6_w4096", 1, 4096, 48, 8, 128, "bfloat16", 4096, None, "wgmma"),
-    # one rank's shard of mesh_models' training on (data 1, model 4)
+    # one rank's shard of mesh_models' training: recurrentgemma-9b's on
+    # (data 1, model 4), mixtral-8x22b's on (data 2, model 2)
     ("rg9b_mesh_train_hd256_h4_kvh1_w2048", 2, 4096, 4, 1, 256, "bfloat16", 2048, None, "wgmma"),
-    ("mixtral_mesh_train_h12_kvh2_w4096", 2, 4096, 12, 2, 128, "bfloat16", 4096, None, "wgmma"),
+    ("mixtral_mesh_train_h24_kvh4_w4096", 1, 4096, 24, 4, 128, "bfloat16", 4096, None, "wgmma"),
 ]
 # head dims the wrappers zero-pad to 16 (each such launch also moves PADDED_LAUNCHES)
 PADDED_HDS = (8, 12)
@@ -2167,6 +2180,30 @@ def param_distances(torch, cfg, params, reference):
     return math.sqrt(change), math.sqrt(diff)
 
 
+def sequence_parallel_calls(cfg, lan_shapes, data, model, batch, seq):
+    """One training step's LAN calls on a ``(data, model)`` mesh against
+    sequence parallelism -> (reduce-scatters onto the rank's residual
+    ``[batch / data, seq / model, D]``, all-reduces of a whole-sequence
+    ``[batch / data, seq, D]`` activation, the most of those allowed).  The
+    residual's partial sums over ``model`` go to the sequence shards in
+    reduce-scatters; only the RG-LRU's two gate products a recurrent layer
+    a forward may be all-reduced inside the block, counted where d_rnn is
+    d_model (``tests/test_torch_mesh_models.py`` holds the same)."""
+    b, d = batch // data, cfg.d_model
+    kinds = list(cfg.pattern) * cfg.num_groups + list(cfg.remainder)
+    forwards = 2 if cfg.remat in ("full", "dots") else 1
+    allowed = 2 * kinds.count("recurrent") * forwards if cfg.d_rnn == d else 0
+    return (lan_shapes.get(("reduce_scatter_tensor", (model * b, seq // model, d)), 0),
+            lan_shapes.get(("all_reduce", (b, seq, d)), 0), allowed)
+
+
+def local_ptrs(tree):
+    """The storage address of every leaf's local tensor (a DTensor's shard)."""
+    from repro_torch.tree import tree_items
+
+    return [(t.to_local() if hasattr(t, "to_local") else t).data_ptr() for _, t in tree_items(tree)]
+
+
 def train_mesh_rank(rank, plan):
     """One rank of train_mesh: GeoTrainer on each mesh of ``plan``, the
     counts zeroed just before each run and read just after; then its
@@ -2213,8 +2250,9 @@ def train_mesh_rank(rank, plan):
             "devices": sorted({t.device.type for t in local}),
             "local_param_bytes": sum(t.numel() * t.element_size() for t in local),
             "coordinate": list(mesh.get_coordinate()),
-            "lan_calls": dict(trainer.step_fn.lan.calls), "wan_calls": dict(trainer.step_fn.group.calls)
-            if trainer.step_fn.group is not None else {},
+            "lan_calls": dict(trainer.step_fn.lan.calls), "lan_bytes_by_kind": dict(trainer.step_fn.lan.handed),
+            "lan_shapes": dict(trainer.step_fn.lan.shapes),
+            "wan_calls": dict(trainer.step_fn.group.calls) if trainer.step_fn.group is not None else {},
         })
         del trainer
         torch.cuda.empty_cache()
@@ -2239,7 +2277,7 @@ def phase_train_mesh(torch):
     over gloo, distilgpt2-82m at full width, global batch 16 x 1024, on a
     (pod 2, data 2) mesh (the paper's 2 DCs x 2 workers: FSDP over data,
     the WAN strategy over pod on each rank's pieces) and a (data 2, model
-    2) mesh (FSDP and tensor parallelism, no WAN).  Losses fall and agree
+    2) mesh (FSDP, tensor and sequence parallelism, no WAN).  Losses fall and agree
     with one-process runs of the same rows, weights and steps made here,
     and so do the parameters after the last step; the WAN bytes summed
     over a pod's ranks equal the analytic value, every flash launch runs on
@@ -2314,6 +2352,16 @@ def phase_train_mesh(torch):
                     or got["bwd_routes"] != {"wgmma": expected["flash_attention_bwd"]}:
                 raise AssertionError(f"{label}: launches {got['launches']}, routes {got['routes']} / "
                                      f"{got['bwd_routes']}; expected {expected}, all on wgmma")
+            seq_parallel = None
+            if sizes.get("model", 1) > 1:  # the last step's calls
+                scatters, whole, allowed = sequence_parallel_calls(cfg, got["lan_shapes"], sizes["data"],
+                                                                   sizes["model"], B_TRAIN, SEQ_TRAIN)
+                if not scatters or whole > allowed:
+                    raise AssertionError(f"{label}: {scatters} reduce-scatters onto the sequence shards and "
+                                         f"{whole} whole-sequence all-reduces (at most {allowed}); LAN calls "
+                                         f"{got['lan_shapes']}")
+                seq_parallel = {"reduce_scatters_onto_sequence_shards": scatters,
+                                "whole_sequence_all_reduces": whole}
             timed = rows[WARMUP:] if steps > WARMUP + 1 else rows[1:]
             per_rank.append({
                 "coordinate": coord, "losses": losses, "loss_rel_err_max": max(abs(a - b) / abs(b) for a, b in zip(losses, want)),
@@ -2326,7 +2374,8 @@ def phase_train_mesh(torch):
                 "lan_bytes": [row["lan_bytes"] for row in rows],
                 "launches": got["launches"], "fwd_routes": got["routes"], "bwd_routes": got["bwd_routes"],
                 "peak_gb": got["peak_memory_bytes"] / 1e9, "local_param_bytes": got["local_param_bytes"],
-                "lan_calls": got["lan_calls"], "wan_calls": got["wan_calls"],
+                "lan_calls": got["lan_calls"], "lan_bytes_by_kind": got["lan_bytes_by_kind"],
+                "sequence_parallel_last_step": seq_parallel, "wan_calls": got["wan_calls"],
             })
         runs.append({"mesh": sizes, "strategy": strategy, "steps": steps, "one_process_losses": want,
                      "one_process_param_change_norm": want_change,
@@ -3330,7 +3379,7 @@ MESH_MODEL_RUNS = [
     ("recurrentgemma-9b", "serve", RG_TRAIN_LAYERS, (2, 2), 4, 4096, 4),
     ("recurrentgemma-9b", "train", RG_TRAIN_LAYERS, (1, 4), 2, 4096, 3),
     ("mixtral-8x22b", "serve", 2, (2, 2), 4, 4096, 4),
-    ("mixtral-8x22b", "train", 1, (1, 4), 2, 4096, 3),
+    ("mixtral-8x22b", "train", 1, (2, 2), 2, 4096, 3),
 ]
 MESH_MODEL_TIMEOUT_S = 900
 # the aux loss after the first step: AdamW's first update, lr * g / (|g| +
@@ -3522,8 +3571,9 @@ def mesh_models_rank(rank, plan):
         else:
             opt = mesh_model_opt(steps)
             state = init_train_state(params, opt, strategy="allreduce", mesh=mesh)
-            step = make_train_step(cfg, mesh=mesh, strategy="allreduce", opt_cfg=opt, device="cuda")
+            step = make_train_step(cfg, mesh=mesh, strategy="allreduce", opt_cfg=opt, device="cuda", donate=True)
             rows = []
+            storage = local_ptrs((params, state.adam.m, state.adam.v))
             d = mesh.get_local_rank("data")
             take = [idx for idx, _ in rank_routing(given["routing"], kind, layers, seq,
                                                    range(d * batch // shape[0], (d + 1) * batch // shape[0]))]
@@ -3535,7 +3585,10 @@ def mesh_models_rank(rank, plan):
                     rows.append({"loss": float(metrics["loss"]), "ce": float(metrics["ce"]),
                                  "aux": float(metrics["aux"]), "step_ms": (time.perf_counter() - t0) * 1e3,
                                  "lan_bytes": step.lan.lan_bytes, "lan_s": step.lan.lan_seconds,
-                                 "lan_calls": dict(step.lan.calls), "lan_shapes": dict(step.lan.shapes)})
+                                 "lan_calls": dict(step.lan.calls), "lan_bytes_by_kind": dict(step.lan.handed),
+                                 "lan_shapes": dict(step.lan.shapes),
+                                 "storage_kept": local_ptrs((params, state.adam.m, state.adam.v)) == storage,
+                                 "card_free_bytes": torch.cuda.mem_get_info()[0]})
             del state
             # the distance to the one-process parameters on this rank's shards,
             # each leaf's share divided by the ranks that hold the same shard
@@ -3626,7 +3679,8 @@ def phase_mesh_models(torch):
     card (MESH_MODEL_RUNS), each run held to a one-process run of the same
     weights and rows made here first: serve on (data 2, model 2) -> logits at
     SERVE_TOL, greedy tokens equal but on near-ties; train (allreduce, one
-    pod) on (data 1, model 4) -> losses at MESH_LOSS_RTOL, parameters after
+    pod, donating, sequence parallel) on (data 1, model 4) or (data 2,
+    model 2) -> losses at MESH_LOSS_RTOL, parameters after
     the last step within MESH_PARAM_RTOL of the one-process change; mixtral's
     expert choices through routing_agreement at MOE_NEAR_TIE_BF16 and its aux
     at MESH_LOSS_RTOL.  Every RG-LRU scan and flash forward call on a rank
@@ -3728,11 +3782,24 @@ def phase_mesh_models(torch):
                         failures.append(f"{label}: {name} {have} vs one-process {want}, rtol {bars}")
                 if got["devices"] != ["cuda"]:
                     failures.append(f"{label}: parameters on {got['devices']}")
+                if not all(x["storage_kept"] for x in rows):
+                    failures.append(f"{label}: the donating step left a leaf's storage: "
+                                    f"{[x['storage_kept'] for x in rows]}")
+                calls = [sequence_parallel_calls(cfg, x["lan_shapes"], *shape, batch, seq) for x in rows]
+                if not all(scatters and whole <= allowed for scatters, whole, allowed in calls):
+                    failures.append(f"{label}: (reduce-scatters onto the sequence shards, whole-sequence "
+                                    f"all-reduces, most allowed) a step {calls}; LAN calls {rows[-1]['lan_shapes']}")
+                entry.update(storage_kept=[x["storage_kept"] for x in rows],
+                             reduce_scatters_onto_sequence_shards=[c[0] for c in calls],
+                             whole_sequence_all_reduces=[c[1] for c in calls],
+                             whole_sequence_all_reduces_allowed=calls[0][2])
                 entry.update(losses=[x["loss"] for x in rows], aux=[x["aux"] for x in rows],
                              step_ms=[x["step_ms"] for x in rows],
                              step_ms_median_after_first=statistics.median(x["step_ms"] for x in rows[1:]),
                              lan_bytes=[x["lan_bytes"] for x in rows], lan_s=[x["lan_s"] for x in rows],
-                             lan_calls_last=rows[-1]["lan_calls"])
+                             lan_calls_last=rows[-1]["lan_calls"],
+                             lan_bytes_by_kind_last=rows[-1]["lan_bytes_by_kind"],
+                             card_free_gb_min=min(x["card_free_bytes"] for x in rows) / 1e9)
             per_rank.append(entry)
         result = {"kind": kind, "mesh": sizes, "reduced": {"num_layers": [full_layers(arch), layers]},
                   "batch": batch, "seq": seq, "steps": steps, "launches_per_rank": launches_want,
@@ -3748,7 +3815,12 @@ def phase_mesh_models(torch):
                                 f"one-process run's, {share} of its change {ref['change']}; at most "
                                 f"{MESH_PARAM_RTOL}")
             result.update(param_diff_norm=diff, param_diff_share_of_change=share, strategy="allreduce", pods=1,
-                          adamw={"lr": MESH_MODEL_LR, "warmup_steps": 1, "total_steps": steps})
+                          adamw={"lr": MESH_MODEL_LR, "warmup_steps": 1, "total_steps": steps},
+                          storage_kept_every_step=all(all(x["storage_kept"] for x in rank["runs"][i]["rows"])
+                                                      for rank in ranks),
+                          residual_local_checked=[batch // shape[0], seq // shape[1], cfg.d_model],
+                          card_free_gb_min=min(rank["runs"][i]["rows"][j]["card_free_bytes"]
+                                               for rank in ranks for j in range(steps)) / 1e9)
         if cfg.moe is not None:
             result.update(experts_per_rank=cfg.moe.num_experts // shape[1],
                           groups_per_rank=batch // shape[0] * seq // MOE_GROUP_SIZE,

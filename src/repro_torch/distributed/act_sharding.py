@@ -1,31 +1,50 @@
-"""Activation-sharding hook: the activations' batch dim over mesh axes, as DTensor redistributes.
+"""Activation-sharding hook: the activations' batch dim, and between blocks their sequence dim, over mesh axes.
 
 Port of ``repro.distributed.act_sharding``.  A step that runs the model on
 DTensors enters :func:`activation_sharding` with the mesh axes of the
-activation batch dim; the model calls :func:`shard_activations` on the
-embedding output and at every block boundary.  It is a ``redistribute`` of
-a DTensor onto rows over those axes, replicated over the others (a
-tensor-parallel block's partial sums reduced there), while a context is
-active, and returns its input as it is outside one or for a plain tensor,
-so one-process runs are unaffected.
+activation batch dim and, for sequence parallelism, of the sequence dim;
+the model calls :func:`shard_activations` on the embedding output, on
+every block's output before the residual add and at every group boundary.
+It is a ``redistribute`` of a DTensor ``[B, S, ...]`` onto rows over the
+batch axes and, where ``S > 1`` and the sequence axes divide ``S``, onto
+``Shard(1)`` over them; replicated over the other axes.  A
+tensor-parallel block's output, a partial sum over ``model``, so goes to
+the rank's slice of the sequence in one reduce-scatter instead of an
+all-reduce, and the residual between blocks (the input of each group's
+checkpoint under remat) takes ``1/model`` of the memory.  A ragged ``S``
+(which GSPMD pads) and decode's ``S == 1`` keep the sequence whole.
+Outside a context, or for a plain tensor, the hook returns its input, so
+one-process runs are unaffected.
 
-The JAX step also shards the residual's sequence dim over ``model``
-between blocks (sequence parallelism).  Its ``replicate_seq`` gathers k
-and v across the sequence before attention, and its ``shard_heads`` lays
-the WKV operands' heads on ``model``; both act only on that
-sequence-sharded residual.  DTensor on the card's torch (2.11) refuses to
-flatten a sequence-sharded ``[B, S, D]`` for the next matmul, so the port
-keeps the sequence whole and has neither hook.  The kernels take their
-operands through :func:`on_local_shards`, which lays rows over ``data``
-and heads (or the RG-LRU's channels, the experts, a vocab slice) over
-``model``: a column-parallel projection's output is already so placed, so
-nothing moves there.  Placement changes no value.
+Every block takes the whole sequence: it calls :func:`replicate_seq` (the
+all-gather of the sequence over the sequence axes) on its normed input
+before the projections, the RG-LRU conv and scan, RWKV's token shift and
+WKV, or the MoE router and dispatch, and the final norm's output is
+gathered so before the unembedding and the vocab-parallel loss.  A dense
+FFN whose weights are whole on every ``model`` rank (a stacked ``[L, D,
+F]`` leaf whose rule puts L on ``model``, gathered for the forward) runs
+on the rank's own positions instead (:func:`whole_over_sequence`), as
+GSPMD runs it: the JAX step computes it sequence-sharded too.  Norms
+and residual adds run on the sequence shards.  No DTensor view, reshape
+or flatten ever takes a tensor sharded on its sequence (the card's torch,
+2.11, refuses to flatten a ``Shard(1)`` ``[B, S, D]``).  The JAX step
+gathers only k and v and keeps the queries on their shards; the port's
+kernels mask causally from position 0 of the sequence they are handed,
+so it gathers the block's input, which holds the same bytes as the
+queries' for a model whose heads cover ``d_model``.
+
+The port has no ``shard_heads``: the JAX hook lays the WKV operands'
+heads on ``model`` after their gathered sequence, and
+:func:`on_local_shards` already hands the kernel the rank's heads (a
+column-parallel projection's output is placed so), so nothing moves there.
+Placement changes no value.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Optional, Tuple, Union
 
 Axes = Optional[Union[str, Tuple[str, ...]]]
@@ -34,13 +53,23 @@ _SPEC: contextvars.ContextVar = contextvars.ContextVar("repro_torch_act_axes", d
 
 
 @contextlib.contextmanager
-def activation_sharding(batch_axes: Axes):
-    """Declare mesh axes for the activation batch dim."""
-    token = _SPEC.set(batch_axes)
+def activation_sharding(batch_axes: Axes, seq_axes: Axes = None):
+    """Declare mesh axes for the activation batch dim and (optionally) the
+    sequence dim of ``[B, S, D]`` activations."""
+    token = _SPEC.set((batch_axes, seq_axes))
     try:
         yield
     finally:
         _SPEC.reset(token)
+
+
+def recompute_context():
+    """A context manager that re-enters the activation context active now
+    (none if none is): for a checkpoint's recomputation, which autograd runs
+    on the card's device thread, where a context variable the step set on
+    its own thread is unset."""
+    spec = _SPEC.get()
+    return contextlib.nullcontext() if spec is None else activation_sharding(*spec)
 
 
 def _names(axes: Axes) -> Tuple[str, ...]:
@@ -49,22 +78,86 @@ def _names(axes: Axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+def gathered_where_shards_move(x, placements):
+    """DTensor ``x`` with every mesh axis on which it is sharded on another
+    dim than ``placements`` says gathered (``Replicate()``), the others as
+    they are: from there ``x.redistribute(mesh, placements)`` moves no shard
+    from one dim to another.  DTensor does that with an all-to-all, which
+    the intra-pod collectives (:mod:`.lan`) do not have."""
+    from torch.distributed.tensor import Replicate
+
+    hop = tuple(Replicate() if p.is_shard() and w.is_shard() and p != w else p
+                for p, w in zip(x.placements, placements))
+    return x if hop == tuple(x.placements) else x.redistribute(x.device_mesh, hop)
+
+
+def redistribute(x, placements):
+    """``x.redistribute`` onto ``placements``, through
+    :func:`gathered_where_shards_move`."""
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return gathered_where_shards_move(x, placements).redistribute(x.device_mesh, placements)
+
+
 def shard_activations(x):
-    """Activations [B, ...] onto the context's batch axes, every other mesh
-    axis replicated; ``x`` as it is outside a context or for a plain tensor."""
+    """Activations [B, S, ...] onto the context's batch axes and, where they
+    divide ``S > 1``, its sequence axes; every other mesh axis replicated;
+    ``x`` as it is outside a context or for a plain tensor."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    batch_axes = _SPEC.get()
-    if batch_axes is None or not isinstance(x, DTensor):
+    spec = _SPEC.get()
+    if spec is None or not isinstance(x, DTensor):
         return x
-    mesh, rows = x.device_mesh, _names(batch_axes)
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    rows, seq = _names(spec[0]), _names(spec[1])
+    pieces = math.prod(mesh.size(i) for i, a in enumerate(names) if a in seq)
+    by_seq = x.ndim >= 3 and x.shape[1] > 1 and x.shape[1] % pieces == 0
     placements = tuple(  # an axis of size 1 holds the whole tensor: replicated
-        Shard(0) if a in rows and mesh.size(i) > 1 else Replicate()
-        for i, a in enumerate(mesh.mesh_dim_names)
+        Replicate() if mesh.size(i) == 1
+        else Shard(0) if a in rows
+        else Shard(1) if a in seq and by_seq
+        else Replicate()
+        for i, a in enumerate(names)
     )
-    if tuple(x.placements) == placements:
+    return redistribute(x, placements)
+
+
+def whole_over_sequence(x, weights) -> bool:
+    """Whether ``x`` is a DTensor sharded on its sequence over the context's
+    sequence axes while every matrix of ``weights`` is whole on them
+    (neither sharded nor partial there): then a position-wise function of
+    ``x`` and ``weights`` runs on the rank's own positions
+    (:func:`on_local_shards` with ``x``'s sequence as its model dim), and
+    only the vectors (biases) that are not whole move."""
+    from torch.distributed.tensor import DTensor
+
+    spec = _SPEC.get()
+    if spec is None or not isinstance(x, DTensor) or x.ndim < 3:
+        return False
+    seq = [i for i, a in enumerate(x.device_mesh.mesh_dim_names) if a in _names(spec[1])]
+    if not any(x.placements[i].is_shard(1) for i in seq):
+        return False
+    return all(not isinstance(w, DTensor) or w.ndim < 2 or all(w.placements[i].is_replicate() for i in seq)
+               for w in weights)
+
+
+def replicate_seq(x):
+    """A DTensor ``[B, S, ...]`` with its sequence gathered over the
+    context's sequence axes (the explicit all-gather before a block), its
+    other placements kept; ``x`` as it is outside a context, for a plain
+    tensor, or with the sequence already whole."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    spec = _SPEC.get()
+    if spec is None or not isinstance(x, DTensor) or x.ndim < 2:
         return x
-    return x.redistribute(mesh, placements)
+    seq = _names(spec[1])
+    placements = tuple(Replicate() if a in seq and p.is_shard(1) else p
+                       for a, p in zip(x.device_mesh.mesh_dim_names, x.placements))
+    if placements == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
 
 
 def mesh_coordinate(x, axis: str) -> int:

@@ -38,7 +38,9 @@ On a group mesh whose ``data`` or ``model`` axis is larger than 1
 ranks: parameters, optimizer state and batch are DTensors placed by
 :mod:`.sharding`'s rules, the forward and backward run on those
 placements (FSDP over ``data``: a parameter all-gathered for use, its
-gradient reduce-scattered; tensor parallelism over ``model``), and the WAN
+gradient reduce-scattered; tensor parallelism over ``model``, and the
+residual's sequence over ``model`` between blocks: sequence parallelism,
+:mod:`.act_sharding`), and the WAN
 strategies run over ``pod`` on each rank's pieces of the gradients
 (:mod:`.placement`), the intra-pod collectives counted apart as LAN
 traffic (:mod:`.lan`).  Summing a gradient over ``data`` adds in another
@@ -70,7 +72,7 @@ from ..models.config import ModelConfig
 from ..optim.adamw import AdamWConfig, AdamWState, adamw_update, init_adamw
 from ..optim.diloco import DilocoConfig, DilocoState, init_diloco, outer_step, outer_step_group
 from ..tree import tree_items, tree_leaves, tree_map, tree_unflatten
-from .act_sharding import activation_sharding
+from .act_sharding import activation_sharding, gathered_where_shards_move, redistribute
 from .lan import LanCollectives
 from .placement import drop_pod, from_piece, full, is_dtensor, place_tree, to_piece
 from .pod_group import PodGroup
@@ -327,21 +329,19 @@ def make_train_step(
     ``donate`` (the JAX step's ``donate_argnums``): the step may update
     ``params`` and ``state`` in their own storage, so the caller must not
     use them afterwards; it needs no second copy of the parameters, the
-    moments and the error feedback, and ``hier_int8`` frees each pod
-    gradient once folded into the error feedback (recurrentgemma-9b's
-    one-group cut and mixtral-8x22b's one layer do not fit on one card
-    without it).  The values are the same.  One process, strategies other
-    than ``local_sgd``.
+    moments, the error feedback and the DiLoCo anchor and momentum, and the
+    one-process ``hier_int8`` frees each pod gradient once folded into the
+    error feedback (recurrentgemma-9b's one-group cut and mixtral-8x22b's
+    one layer do not fit on one card without it).  Any mesh, any strategy;
+    the values are the functional step's, bit for bit.
     """
     _check_strategy(strategy)
     npods = _pods(mesh, npods)
     device = resolve_device(device)
     opt_cfg = opt_cfg or AdamWConfig()
     diloco_cfg = diloco_cfg or DilocoConfig()
-    if donate and (is_group_mesh(mesh) or _per_pod(strategy, npods)):
-        raise ValueError("donate is implemented for the one-process step of a strategy other than local_sgd")
     if is_group_mesh(mesh):
-        return _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, device)
+        return _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, device, donate)
 
     def step(params, state: TrainState, batch):
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -361,16 +361,19 @@ def make_train_step(
     def local_step(params, state: TrainState, batch):
         loss, metrics, grads = pod_grads(params, batch, cfg, npods, replicas=True)
         outs = []
-        for p in range(npods):
+        for p in range(npods):  # donated: each pod's slice of the stacked leaves updated in place
             pod = lambda tree: tree_map(lambda t: t[p], tree)  # noqa: E731
             adam = AdamWState(state.adam.step, pod(state.adam.m), pod(state.adam.v))
-            outs.append(adamw_update(opt_cfg, pod(grads), adam, pod(params)))
-        stack = lambda trees: tree_map(lambda *xs: torch.stack(xs), *trees)  # noqa: E731
-        new_params = stack([o[0] for o in outs])
-        new_adam = AdamWState(outs[0][1].step, stack([o[1].m for o in outs]), stack([o[1].v for o in outs]))
+            outs.append(adamw_update(opt_cfg, pod(grads), adam, pod(params), in_place=donate))
+        if donate:
+            new_params, new_adam = params, AdamWState(outs[0][1].step, state.adam.m, state.adam.v)
+        else:
+            stack = lambda trees: tree_map(lambda *xs: torch.stack(xs), *trees)  # noqa: E731
+            new_params = stack([o[0] for o in outs])
+            new_adam = AdamWState(outs[0][1].step, stack([o[1].m for o in outs]), stack([o[1].v for o in outs]))
         new_diloco, wan = state.diloco, 0
         if int(new_adam.step) % diloco_cfg.sync_every == 0:
-            new_params, new_diloco = outer_step(diloco_cfg, new_params, state.diloco)
+            new_params, new_diloco = outer_step(diloco_cfg, new_params, state.diloco, in_place=donate)
             wan = full_precision_bytes(new_params)
         metrics = dict(metrics, loss=loss, wan_bytes=wan, **outs[0][2])
         return new_params, TrainState(new_adam, state.ef, new_diloco), metrics
@@ -397,7 +400,11 @@ def _fsdp_gather(p, expert_dim: Optional[int] = None):
     expert stack's E (expert parallelism), and gathered on a layer-stack
     dim, which the forward indexes layer by layer (the stacked dense FFN's
     ``[L, D, F]`` puts L on ``model``: the JAX rule's MoE quirk).  The
-    dtype stays (bf16 expert stacks are gathered in bf16)."""
+    dtype stays (bf16 expert stacks are gathered in bf16).  A gradient that
+    comes back sharded on another dim than its parameter (a stacked FFN's
+    F, where the parameter's shard is L) is gathered on that axis before it
+    is cut to the parameter's shard: DTensor would move it with an
+    all-to-all."""
     from torch.distributed.tensor import Replicate, Shard
 
     def use(axis, pl):  # a strided shard (the few-expert width) is gathered too
@@ -405,7 +412,13 @@ def _fsdp_gather(p, expert_dim: Optional[int] = None):
         return pl if keep else Replicate()
 
     want = tuple(use(a, pl) for a, pl in zip(p.device_mesh.mesh_dim_names, p.placements))
-    return p if want == tuple(p.placements) else p.redistribute(p.device_mesh, want)
+    if want == tuple(p.placements):
+        return p
+    used = p.redistribute(p.device_mesh, want)
+    if used.requires_grad:
+        placed = tuple(p.placements)
+        used.register_hook(lambda g: gathered_where_shards_move(g, placed))
+    return used
 
 
 def _fsdp_gather_tree(params):
@@ -414,23 +427,30 @@ def _fsdp_gather_tree(params):
     return map_params(lambda names, p: _fsdp_gather(p, expert_dim(names, p.ndim)), params)
 
 
-# The activation context of the mesh steps: rows over ``data``.  The JAX
-# step also shards the residual's sequence dim over ``model`` between
-# blocks; the port keeps it whole (:mod:`.act_sharding`).
+# The activation batch axis of the mesh steps: rows over ``data``.
 ACT_AXES = "data"
+
+
+def _seq_axes(mesh) -> Optional[str]:
+    """The train step's sequence axis on a pod mesh (:mod:`.act_sharding`):
+    ``model`` where the mesh has it, as the JAX step shards the residual's
+    sequence between blocks; serving keeps the sequence whole, as the JAX
+    prefill and decode steps do."""
+    return "model" if "model" in (mesh.mesh_dim_names or ()) else None
 
 
 def _mesh_grads(params, batch, cfg: ModelConfig):
     """The pod's loss, metrics and gradients on its rows, the model run on
     DTensors: every parameter FSDP-gathered, activations placed by the
-    active context, gradients placed as their parameters and in their
-    dtypes, as :func:`_one_pod` gives them (bf16 expert stacks' gradients
-    in bf16: their reduce over ``data`` already ran in bf16, and a float32
-    copy would be twice the memory)."""
+    active context (rows over ``data``, the residual's sequence over
+    ``model`` between blocks), gradients placed as their parameters and in
+    their dtypes, as :func:`_one_pod` gives them (bf16 expert stacks'
+    gradients in bf16: their reduce over ``data`` already ran in bf16, and
+    a float32 copy would be twice the memory)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-    with implicit_replication(), activation_sharding(ACT_AXES):
+    with implicit_replication(), activation_sharding(ACT_AXES, _seq_axes(leaves[0].device_mesh)):
         used = _fsdp_gather_tree(tree_unflatten(params, leaves))
         loss, m = loss_fn(used, batch, cfg)
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -439,7 +459,7 @@ def _mesh_grads(params, batch, cfg: ModelConfig):
         if g is None:
             g = torch.zeros_like(x)
         elif tuple(g.placements) != tuple(x.placements):  # a partial sum over data reduce-scatters here
-            g = g.redistribute(x.device_mesh, x.placements)
+            g = redistribute(g, x.placements)
         grads.append(g)
     return _scalar(loss), {k: _scalar(v) for k, v in m.items()}, tree_unflatten(params, grads)
 
@@ -465,7 +485,19 @@ def _unpieces(pieces, like, dtype=None):
     return tree_unflatten(like, leaves)
 
 
-def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, device):
+def _write_into(dst, src):
+    """``src``'s values in ``dst``'s own storage (a DTensor's local shard,
+    ``src`` placed alike or moved there first); returns ``dst``."""
+    if is_dtensor(dst):
+        if tuple(src.placements) != tuple(dst.placements):
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+    return dst
+
+
+def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, device, donate=False):
     """The step of one rank of a group mesh.
 
     The rank's pod computes the loss, metrics and gradients on its rows of
@@ -486,6 +518,11 @@ def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, dev
     is what the rank's pod sends, summed over the pod's ranks, and
     ``collective_s`` the rank's host seconds in WAN collectives; on a pod of
     several ranks ``wan_bytes_rank`` is the rank's share of ``wan_bytes``.
+
+    ``hier_int8``'s error feedback, ``ps``'s pull and ``local_sgd``'s
+    outer step (parameters, anchor, momentum) run a leaf at a time.
+    ``donate``: AdamW updates the rank's leaves (local shards) in place, and
+    each of those leaf results is written into the leaf's own storage.
     """
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -503,14 +540,31 @@ def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, dev
         def grads_of(params, batch):
             return _mesh_grads(params, place_batch(batch, mesh), cfg)
 
+    def keep(dst, src):
+        """A leaf's new value: written into ``dst``'s own storage where the
+        step donates, else ``src`` itself."""
+        return _write_into(dst, src) if donate else src
+
+    def leafwise(fn, *trees):
+        """``fn`` on one leaf of each tree at a time (each a one-leaf tree),
+        its outputs' leaves -> trees shaped as ``trees[0]``: what a donating
+        step holds at once is one leaf's pieces, not a tree's.  The
+        strategies' group functions work leaf by leaf, so the collectives
+        are the same, in the same order."""
+        outs = [fn(*({"t": t} for t in leaves)) for leaves in zip(*map(tree_leaves, trees))]
+        return tuple(tree_unflatten(trees[0], [o[i]["t"] for o in outs]) for i in range(len(outs[0])))
+
+    def int8_leaf(grads, ef):
+        synced, new_ef = sync_hier_int8_group(pieces(grads), pieces(ef), group)
+        return unpieces(synced, grads, torch.float32), {"t": keep(ef["t"], unpieces(new_ef, ef)["t"])}
+
     def wan_sync(grads, ef):
         """The strategy over the pod group -> (synced grads, new error
         feedback); ``local_sgd`` sends no gradients."""
         if strategy == "local_sgd":
             return grads, ef
         if strategy == "hier_int8":
-            synced, new_ef = sync_hier_int8_group(pieces(grads), pieces(ef), group)
-            return unpieces(synced, grads, torch.float32), unpieces(new_ef, ef)
+            return leafwise(int8_leaf, grads, ef)
         if strategy == "allreduce":
             synced = sync_allreduce_group(pieces(grads), group)
         elif strategy == "hier":
@@ -518,6 +572,18 @@ def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, dev
         else:  # ps: the push
             synced = sync_ps_group(pieces(grads), group)
         return unpieces(synced, grads, torch.float32), ef
+
+    def pull_leaf(params):
+        pulled = unpieces(pull_params_group(pieces(params), group), params)
+        return ({"t": keep(params["t"], pulled["t"])},)
+
+    def outer_leaf(params, anchor, momentum):
+        """The outer step of one leaf on its pieces -> the leaf's
+        parameters, anchor and momentum."""
+        p, dil = outer_step_group(diloco_cfg, pieces(params),
+                                  DilocoState(anchor=pieces(anchor), momentum=pieces(momentum)), group)
+        return tuple({"t": keep(like["t"], unpieces(got, like)["t"])}
+                     for got, like in ((p, params), (dil.anchor, anchor), (dil.momentum, momentum)))
 
     shapes = init_params(cfg, device="meta")
     placements = {
@@ -542,20 +608,17 @@ def _make_group_step(cfg, mesh, strategy, num_channels, opt_cfg, diloco_cfg, dev
                 metrics = {k: group.mean_in_rank_order(v) for k, v in metrics.items()}
                 grads, new_ef = wan_sync(grads, state.ef)
             with implicit_replication():
-                new_params, new_adam, opt_metrics = adamw_update(opt_cfg, grads, state.adam, params)
+                new_params, new_adam, opt_metrics = adamw_update(opt_cfg, grads, state.adam, params,
+                                                                 in_place=donate)
+            del grads
             if group is not None and strategy == "ps":
-                new_params = unpieces(pull_params_group(pieces(new_params), group), new_params)
+                new_params = leafwise(pull_leaf, new_params)[0]
             if group is not None and strategy == "local_sgd":
                 opt_metrics = {k: group.broadcast(v.clone(), wan=False) for k, v in opt_metrics.items()}
                 if int(new_adam.step) % diloco_cfg.sync_every == 0:
                     d = state.diloco
-                    p, dil = outer_step_group(
-                        diloco_cfg, pieces(new_params),
-                        DilocoState(anchor=pieces(d.anchor), momentum=pieces(d.momentum)), group,
-                    )
-                    new_params = unpieces(p, new_params)
-                    new_diloco = DilocoState(anchor=unpieces(dil.anchor, d.anchor),
-                                             momentum=unpieces(dil.momentum, d.momentum))
+                    new_params, anchor, momentum = leafwise(outer_leaf, new_params, d.anchor, d.momentum)
+                    new_diloco = DilocoState(anchor=anchor, momentum=momentum)
         wan_rank = group_wan_bytes(strategy, group.handed, n) if group is not None else 0
         metrics = dict(metrics, loss=loss, wan_bytes=_pod_sum(wan_rank, mesh),
                        collective_s=group.wan_seconds if group is not None else 0.0, **opt_metrics)
@@ -611,26 +674,28 @@ def _mesh_serving(mesh, device):
     return intra, None if intra is None else LanCollectives(device)
 
 
-def _on_mesh(fn, lan):
+def _on_mesh(fn, lan, seq_axes=None):
     """``fn()`` with the model on DTensors: parameters FSDP-gathered by the
-    caller, activations placed by ``ACT_AXES``, the intra-pod collectives
-    through ``lan``."""
+    caller, activations placed by ``ACT_AXES`` (and ``seq_axes``), the
+    intra-pod collectives through ``lan``."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     lan.reset()
-    with lan, implicit_replication(), activation_sharding(ACT_AXES):
+    with lan, implicit_replication(), activation_sharding(ACT_AXES, seq_axes):
         return fn()
 
 
-def make_prefill_step(cfg: ModelConfig, mesh, *, device: DeviceLike = "cuda"):
+def make_prefill_step(cfg: ModelConfig, mesh, *, device: DeviceLike = "cuda", sequence_parallel: bool = False):
     """Inference prefill over ``mesh``: step(params, batch, max_len=None)
     -> (last-position logits, cache) on ``device``.  On a group mesh each
     rank prefills its pod's rows of the global batch and gets their logits
     whole; on a pod of several ranks the parameters (full tensors, which
     :func:`init_pod_params` places, or their shards) and the batch are
     DTensors placed by the rules, and the cache comes back as DTensors
-    placed by ``cache_pspecs``.  Returns (step, placements): ``{"params",
-    "batch", "cache"}``."""
+    placed by ``cache_pspecs``.  ``sequence_parallel``: the residual's
+    sequence over ``model`` between blocks, as the JAX dry run lowers its
+    prefill (serving keeps it whole, as the JAX ``make_prefill_step``
+    does).  Returns (step, placements): ``{"params", "batch", "cache"}``."""
     npods, device = _pods(mesh, None), resolve_device(device)
     group = is_group_mesh(mesh)
     rank = pod_index(mesh)
@@ -653,7 +718,7 @@ def make_prefill_step(cfg: ModelConfig, mesh, *, device: DeviceLike = "cuda"):
             cache = _redistribute_tree(cache, want)
             return full(logits), cache
 
-        return _on_mesh(run, lan)
+        return _on_mesh(run, lan, _seq_axes(intra) if sequence_parallel else None)
 
     step.lan = lan
     return step, placements

@@ -41,7 +41,7 @@ each rank slices); ``temp_bytes`` the rest of the peak, so that the peak is
 ``argument + temp + output - alias`` as in the JAX record; ``by_category``
 what was live at the peak.
 
-Three differences from the JAX dry run:
+Two differences from the JAX dry run:
 
 * **Constants.** The roofline takes an NVIDIA H100 SXM's data-sheet
   figures, not measurements: dense bf16 989e12 FLOP/s (float32 work at its
@@ -55,10 +55,11 @@ Three differences from the JAX dry run:
   main trace's (remat's recomputation included); the 1- and 2-group probes
   are kept for the same ``per_group`` / ``base`` / ``estimated_total``
   record.
-* **Prefill keeps the sequence on one rank.** The JAX prefill shards the
-  residual's sequence over ``model``; the port's mesh prefill does not yet
-  (that waits for DTensor sequence parallelism), so its activations are
-  ``model`` times the JAX ones' (``record["prefill_sequence"]``).
+
+The prefill is traced with the residual's sequence over ``model``
+between blocks, as the JAX dry run lowers it; the train step shards it so
+itself (sequence parallelism, :mod:`repro_torch.distributed.act_sharding`),
+and is traced without donation, as the JAX ``_lower_train``.
 
 A cell that raises is recorded as ``status: error`` with its message, as
 the JAX dry run records one; none is skipped quietly.
@@ -232,13 +233,14 @@ def trace_train_step(cfg, batch_specs, *, strategy: str, opt_cfg: AdamWConfig, m
 
 def trace_prefill(cfg, batch_specs, *, max_len: Optional[int] = None, mesh=None, device: str = "cuda") -> dict:
     """A prefill of a batch of ``batch_specs`` (meta tensors), traced: on a
-    group ``mesh`` one rank's ``make_prefill_step``; without one
-    ``prefill`` in one process (the serving path's first call)."""
+    group ``mesh`` one rank's ``make_prefill_step``, the residual's sequence
+    over ``model`` between blocks, as the JAX dry run lowers it; without
+    one ``prefill`` in one process (the serving path's first call)."""
     with fake_tensors(device):
         params = _params(cfg, mesh)
         batch = _fake(batch_specs)
         if is_group_mesh(mesh):
-            step, _ = make_prefill_step(cfg, mesh, device=TRACE_DEVICE)
+            step, _ = make_prefill_step(cfg, mesh, device=TRACE_DEVICE, sequence_parallel=True)
             run = lambda: step(params, batch, max_len)  # noqa: E731
         else:
             run = lambda: prefill(params, batch, cfg, max_len=max_len)  # noqa: E731
@@ -367,8 +369,6 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, *, probes: bool, out_di
     record["chips"] = chips
     record["model_flops_total"] = model_flops(cfg, shape_name)
     record["fits"] = record["main"]["memory"]["peak_estimate_bytes"] <= HBM_BYTES
-    if SHAPES[shape_name].kind == "prefill":
-        record["prefill_sequence"] = "whole on every rank (not sharded over model)"
     if mesh_name == "single":  # roofline terms (single-pod only, as the JAX record)
         record["roofline"] = roofline(record["main"], record["model_flops_total"], chips)
     return record

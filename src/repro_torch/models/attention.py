@@ -154,13 +154,14 @@ def attention_forward(
     The kernel masks by index from 0, so ``positions`` must be
     ``arange(S)``, which is what prefill passes; anything else raises.
     """
+    from ..distributed.act_sharding import on_local_shards, replicate_seq
+
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
     elif has_values(positions) and not torch.equal(positions, torch.arange(S, device=positions.device)):
         raise ValueError("attention_forward's flash path needs positions == arange(S)")
-    from ..distributed.act_sharding import on_local_shards
-
+    x = replicate_seq(x)  # under sequence parallelism: the whole sequence for the projections
     q, k, v = _project_qkv(params, x, cfg)
     q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)

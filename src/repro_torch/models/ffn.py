@@ -66,6 +66,21 @@ def init_dense_ffn(
 
 
 def dense_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The dense FFN of ``x`` [B, S, D].  Under sequence parallelism the
+    sequence is gathered first for tensor-parallel weights; weights whole
+    on every ``model`` rank take the rank's own positions, on its local
+    shards (position-wise: nothing moves, and no rank computes another's)."""
+    from ..distributed.act_sharding import on_local_shards, replicate_seq, whole_over_sequence
+
+    keys = sorted(params)
+    if whole_over_sequence(x, [params[k] for k in keys]):
+        positions = (0, 1)  # rows over data, the sequence over model
+        return on_local_shards(lambda x, *w: _dense_ffn(dict(zip(keys, w)), x, cfg), (x, *(params[k] for k in keys)),
+                               (positions, *((None, None),) * len(keys)), (positions,))
+    return _dense_ffn(params, replicate_seq(x), cfg)
+
+
+def _dense_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = cfg.compute_dtype
     if cfg.activation in ("swiglu", "geglu"):
         inner = F.silu if cfg.activation == "swiglu" else gelu
@@ -284,9 +299,10 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Te
     to its experts (expert parallelism): the ``(g, e, c, d)`` activations
     are made, run and combined on the rank and never move; the combine is
     a partial sum over ``model``, reduced once where the residual adds it.
-    The router input is replicated over ``model`` and bit-equal there (an
-    all-reduced residual, the same ops on the same bytes), so every
-    ``model`` rank takes the same choices.  Where a group spans ``data``
+    The router input is replicated over ``model`` and bit-equal there (the
+    sequence shards of the normed residual all-gathered, or under no
+    sequence parallelism an all-reduced residual: the same bytes on every
+    rank), so every ``model`` rank takes the same choices.  Where a group spans ``data``
     ranks the rank's queue positions depend on the other ranks' choices:
     the [T, k] choices are all-gathered over ``data`` (the one collective
     this adds, a few KiB) and the positions taken over the whole group.
@@ -295,12 +311,13 @@ def moe_ffn(params: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Te
     rank runs every expert.  The ``gather`` dispatch fills one slot table
     from every token, so it takes the rows whole (gathered over ``data``).
     """
-    from ..distributed.act_sharding import mesh_coordinate, on_local_shards
+    from ..distributed.act_sharding import mesh_coordinate, on_local_shards, replicate_seq
 
     assert cfg.moe is not None
     moe = cfg.moe
     if moe.impl not in ("einsum", "gather"):
         raise ValueError(f"unknown moe impl {moe.impl!r}")
+    x = replicate_seq(x)  # under sequence parallelism: the whole sequence for the router and dispatch
     b, s, d = x.shape
     t = b * s
     x_flat = x.reshape(t, d)

@@ -102,9 +102,10 @@ def rglru_block(params: Params, x, cfg: ModelConfig, *, state, in_place: bool = 
     """Griffin recurrent block -> (y [B, T, D], new state).  ``in_place``
     writes the new state into ``state``'s tensors (decode's cache) and
     returns ``state``; otherwise the state is fresh tensors."""
-    from ..distributed.act_sharding import on_local_shards
+    from ..distributed.act_sharding import on_local_shards, replicate_seq
 
     dt = cfg.compute_dtype
+    x = replicate_seq(x)  # under sequence parallelism: the whole sequence for the conv and the scan
     branch_x = x @ params["w_in_x"].to(dt)
     branch_g = gelu(x @ params["w_in_g"].to(dt))
     # on a mesh the conv and the scan run on the rank's rows and channels

@@ -128,8 +128,9 @@ def time_mix(
     ``wkv_out``, if given, receives the new WKV state (it may be
     ``wkv_state`` itself).
     """
-    from ..distributed.act_sharding import on_local_shards
+    from ..distributed.act_sharding import on_local_shards, replicate_seq
 
+    x = replicate_seq(x)  # under sequence parallelism: the whole sequence for the token shift and WKV
     b, t, d = x.shape
     n = cfg.rwkv_head_dim
     h = d // n
@@ -171,7 +172,10 @@ def channel_mix(params: Params, x: torch.Tensor, cfg: ModelConfig, *, shift_stat
     Like the JAX function, ``cm_mix`` mixes both the key and the receptance
     input.
     """
+    from ..distributed.act_sharding import replicate_seq
+
     dt = cfg.compute_dtype
+    x = replicate_seq(x)  # under sequence parallelism: the whole sequence for the token shift
     prev, new_shift = _token_shift(x, shift_state)
     mix = params["cm_mix"].to(x.dtype)
     xk = x + (prev - x) * mix

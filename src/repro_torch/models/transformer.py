@@ -45,6 +45,7 @@ leaves them to XLA); their routers' aux losses are summed over the layers
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -179,6 +180,16 @@ def _ffn(params: Params, h, kind: str, cfg: ModelConfig):
     return dense_ffn(params["ffn"], h, cfg), None
 
 
+def _residual(x, y):
+    """``x + y``, a block's output added to the residual: on a mesh ``y``
+    placed as the residual first (a row-parallel output's partial sums
+    reduce-scattered onto the sequence shards under sequence parallelism,
+    all-reduced otherwise)."""
+    from ..distributed.act_sharding import shard_activations
+
+    return x + shard_activations(y)
+
+
 def _rwkv_block(params: Params, x, cfg: ModelConfig, state: Params, *, in_place: bool):
     """One RWKV6 layer from ``state`` -> (x, new state).  ``in_place``
     writes the new state into ``state``'s tensors (decode's cache)."""
@@ -187,15 +198,15 @@ def _rwkv_block(params: Params, x, cfg: ModelConfig, state: Params, *, in_place:
         params["rwkv"], h, cfg, shift_state=state["shift_att"], wkv_state=state["wkv"],
         wkv_out=state["wkv"] if in_place else None,
     )
-    x = x + tm_out
+    x = _residual(x, tm_out)
     h = apply_norm(params["norm2"], x, cfg)
     cm_out, shift_ffn = channel_mix(params["rwkv"], h, cfg, shift_state=state["shift_ffn"])
     if in_place:
         state["shift_att"].copy_(shift_att)
         state["shift_ffn"].copy_(shift_ffn)
-        return x + cm_out, state
+        return _residual(x, cm_out), state
     # the shifts are views of [B, T, D] activations: copy them out
-    return x + cm_out, {"wkv": wkv, "shift_att": shift_att.clone(), "shift_ffn": shift_ffn.clone()}
+    return _residual(x, cm_out), {"wkv": wkv, "shift_att": shift_att.clone(), "shift_ffn": shift_ffn.clone()}
 
 
 def _recurrent_block(params: Params, x, cfg: ModelConfig, state: Params, *, in_place: bool):
@@ -204,9 +215,9 @@ def _recurrent_block(params: Params, x, cfg: ModelConfig, state: Params, *, in_p
     ``in_place`` writes the new state into ``state``'s tensors (decode)."""
     h = apply_norm(params["norm1"], x, cfg)
     rec_out, state = rglru_block(params["rec"], h, cfg, state=state, in_place=in_place)
-    x = x + rec_out
+    x = _residual(x, rec_out)
     h = apply_norm(params["norm2"], x, cfg)
-    return x + dense_ffn(params["ffn"], h, cfg), state
+    return _residual(x, dense_ffn(params["ffn"], h, cfg)), state
 
 
 def _block(params: Params, x, kind: str, cfg: ModelConfig, positions, cache_len):
@@ -228,10 +239,10 @@ def _block(params: Params, x, kind: str, cfg: ModelConfig, positions, cache_len)
         params["attn"], h, cfg, window=_layer_window(kind, cfg), positions=positions,
         return_cache=cache_len is not None, cache_len=cache_len,
     )
-    x = x + attn_out
+    x = _residual(x, attn_out)
     h = apply_norm(params["norm2"], x, cfg)
     y, aux = _ffn(params, h, kind, cfg)
-    return x + y, cache, aux
+    return _residual(x, y), cache, aux
 
 
 def _block_decode(params: Params, x_t, cache, kind: str, cfg: ModelConfig, position: int):
@@ -245,9 +256,9 @@ def _block_decode(params: Params, x_t, cache, kind: str, cfg: ModelConfig, posit
     attn_out, cache = attention_decode(
         params["attn"], h, cache, cfg, position, window=_layer_window(kind, cfg)
     )
-    x_t = x_t + attn_out
+    x_t = _residual(x_t, attn_out)
     h = apply_norm(params["norm2"], x_t, cfg)
-    return x_t + _ffn(params, h, kind, cfg)[0], cache  # decode drops the aux loss, as JAX does
+    return _residual(x_t, _ffn(params, h, kind, cfg)[0]), cache  # decode drops the aux loss, as JAX does
 
 
 def _index(tree, i: int):
@@ -272,7 +283,7 @@ def embed_inputs(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfi
         if cfg.frontend == "patch":
             patches = batch["patch_embeds"].to(dt) @ params["frontend_proj"].to(dt)
             x = torch.cat([patches, x], dim=1)
-    x = shard_activations(x)  # on a mesh: batch over data (and pod), per the active context
+    x = shard_activations(x)  # on a mesh: batch over data, the sequence over model, per the active context
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
 
@@ -299,13 +310,13 @@ def _lookup(table, tokens):
 
 
 def unembed(params: Params, x, cfg: ModelConfig):
-    from ..distributed.act_sharding import shard_activations
+    from ..distributed.act_sharding import replicate_seq, shard_activations
 
     dt = cfg.compute_dtype
-    # on a mesh: the residual whole over model (a layer without a group
-    # boundary after it may leave it a partial sum or sharded on D), so that
-    # the logits come out sharded on the vocab, not as partial sums over it
-    h = apply_norm(params["final_norm"], shard_activations(x), cfg)
+    # on a mesh: the residual placed by the context, normed on its sequence
+    # shards, then the sequence gathered, so that the logits come out whole
+    # over the sequence and sharded on the vocab, not as partial sums over it
+    h = replicate_seq(apply_norm(params["final_norm"], shard_activations(x), cfg))
     if cfg.tie_embeddings:
         logits = h @ params["embed"].to(dt).T
     else:
@@ -314,6 +325,25 @@ def unembed(params: Params, x, cfg: ModelConfig):
 
 
 # -- full-stack passes -----------------------------------------------------------
+
+
+def _remat_contexts():
+    """``context_fn`` of a group's checkpoint: the WKV replay
+    (:func:`~repro_torch.kernels.rwkv6_wkv.remat_contexts`), and around the
+    recomputation the forward's activation context as well (autograd runs
+    it on the card's device thread, which does not see the step's)."""
+    from ..distributed.act_sharding import recompute_context
+
+    keep, replay = remat_contexts()
+    return keep, _entered(replay, recompute_context())
+
+
+@contextlib.contextmanager
+def _entered(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
 
 
 def _run_stack(params: Params, x, cfg: ModelConfig, positions, cache_len):
@@ -328,8 +358,8 @@ def _run_stack(params: Params, x, cfg: ModelConfig, positions, cache_len):
             x, slots[f"slot{s}"], a = _block(group[f"slot{s}"], x, kind, cfg, positions, cache_len)
             if a is not None:
                 aux = aux + a
-        # sequence-parallel boundary: between blocks the residual lives
-        # sharded over (batch, seq) on a mesh
+        # sequence-parallel boundary: between groups the residual (what a
+        # checkpoint keeps under remat) lives sharded over (batch, seq) on a mesh
         return shard_activations(x), aux, slots
 
     remat = cfg.remat in ("full", "dots") and cache_len is None and torch.is_grad_enabled()
@@ -340,7 +370,7 @@ def _run_stack(params: Params, x, cfg: ModelConfig, positions, cache_len):
         if remat:  # the aux sum is carried through the checkpoint, as x is
             x, aux = torch.utils.checkpoint.checkpoint(
                 lambda x, aux, g: group_body(x, aux, g)[:2], x, aux, group,
-                use_reentrant=False, context_fn=remat_contexts,
+                use_reentrant=False, context_fn=_remat_contexts,
             )
         else:
             x, aux, slots = group_body(x, aux, group)
@@ -449,8 +479,11 @@ def prefill(params: Params, batch, cfg: ModelConfig, *, max_len: Optional[int] =
     ``max_len`` sizes the attention caches; RWKV6 and RG-LRU states have
     no length.
     """
+    from ..distributed.act_sharding import replicate_seq, shard_activations
+
     x, positions = embed_inputs(params, batch, cfg)
     x, cache, _ = _run_stack(params, x, cfg, positions, max_len or x.shape[1])  # prefill drops aux, as JAX does
+    x = replicate_seq(shard_activations(x))  # on a mesh the last position is sliced from the whole sequence
     logits = unembed(params, x[:, -1:, :], cfg)[:, 0, :]
     return logits, cache
 

@@ -47,7 +47,23 @@ def init_diloco(params) -> DilocoState:
     )
 
 
-def outer_step(cfg: DilocoConfig, params, state: DilocoState) -> Tuple[Any, DilocoState]:
+def _outer_update(cfg: DilocoConfig, anchor, p, mom, d_mean, in_place: bool):
+    """The Nesterov step of one leaf from the pods' mean delta -> (the new
+    parameters in ``p``'s dtype and shape, anchor, momentum).  ``in_place``
+    writes the three into ``p``, ``anchor`` and ``mom`` (a donating step's;
+    the same operations, so the same bits)."""
+    if not in_place:
+        new_mom = cfg.outer_momentum * mom + d_mean
+        step = cfg.outer_momentum * new_mom + d_mean  # Nesterov look-ahead
+        new_p = anchor - cfg.outer_lr * step
+        return new_p.to(p.dtype).expand(p.shape), new_p, new_mom
+    mom.mul_(cfg.outer_momentum).add_(d_mean)
+    step = torch.mul(mom, cfg.outer_momentum).add_(d_mean)
+    anchor.sub_(step.mul_(cfg.outer_lr))
+    return p.copy_(anchor.expand(p.shape)), anchor, mom
+
+
+def outer_step(cfg: DilocoConfig, params, state: DilocoState, *, in_place: bool = False) -> Tuple[Any, DilocoState]:
     """Cross-pod outer Nesterov step on parameter deltas.
 
     ``params``: leaves ``[npods, ...]``, each pod's parameters after its
@@ -59,15 +75,15 @@ def outer_step(cfg: DilocoConfig, params, state: DilocoState) -> Tuple[Any, Dilo
     mom     = beta * mom + d_mean
     params' = anchor - outer_lr * (beta * mom + d_mean)   (Nesterov)
     anchor' = params'
+
+    ``in_place``: the parameters, anchor and momentum are written in their
+    own storage (a donating step's).
     """
 
     def one(anchor, p, mom):
-        n = p.shape[0]
-        d_mean = (anchor - p.float()).sum(0) / n
-        new_mom = cfg.outer_momentum * mom + d_mean
-        step = cfg.outer_momentum * new_mom + d_mean  # Nesterov look-ahead
-        new_p = anchor - cfg.outer_lr * step
-        return new_p.to(p.dtype).expand(n, *new_p.shape).contiguous(), new_p, new_mom
+        d_mean = (anchor - p.float()).sum(0) / p.shape[0]
+        new_p, new_anchor, new_mom = _outer_update(cfg, anchor, p, mom, d_mean, in_place)
+        return new_p if in_place else new_p.contiguous(), new_anchor, new_mom
 
     out = tree_map(one, state.anchor, params, state.momentum)  # (p, anchor, mom) at each leaf
     return _field(out, 0), DilocoState(anchor=_field(out, 1), momentum=_field(out, 2))
@@ -80,10 +96,7 @@ def outer_step_group(cfg: DilocoConfig, params, state: DilocoState, group) -> Tu
 
     def one(anchor, p, mom):
         d_mean = group.all_reduce(anchor - p.float()) / group.size
-        new_mom = cfg.outer_momentum * mom + d_mean
-        step = cfg.outer_momentum * new_mom + d_mean  # Nesterov look-ahead
-        new_p = anchor - cfg.outer_lr * step
-        return new_p.to(p.dtype), new_p, new_mom
+        return _outer_update(cfg, anchor, p, mom, d_mean, in_place=False)
 
     out = tree_map(one, state.anchor, params, state.momentum)
     return _field(out, 0), DilocoState(anchor=_field(out, 1), momentum=_field(out, 2))

@@ -7,10 +7,15 @@
   model 2)`` mesh (JAX on 8 forced host devices, the port on a fake group
   of 8);
 * a rank's FLOPs are its own, not the global program's: four ranks' counts
-  add up to the one-process count, plus what the dense FFN's sharding rule
-  makes every ``model`` rank compute whole (its up-projection: the stacked
-  ``[L, D, F]`` leaf keeps L on ``model``, and the FSDP gather replicates
-  it);
+  add up to the one-process count, plus, with the sequence whole on every
+  rank, what the dense FFN's sharding rule makes every ``model`` rank
+  compute whole (its up-projection: the stacked ``[L, D, F]`` leaf keeps
+  L on ``model``, and the FSDP gather replicates it; under sequence
+  parallelism that FFN runs on the rank's own positions);
+* a prefill on a ``(data 2, model 2)`` group shards the residual's
+  sequence over ``model``, as the JAX dry run lowers it: every residual
+  the model places holds half the local bytes of the prefill without the
+  context, and a prefill record has no ``prefill_sequence`` key;
 * a multi-pod train cell's cross-pod bytes equal the WAN bytes the step's
   own pod group counts (``sync.group_wan_bytes`` of ``hier``), and its
   metrics' gathers;
@@ -138,17 +143,78 @@ def test_decode_argument_bytes_match_jax(jax_decode_arguments, fake_world, arch)
 # -- one device's counts --------------------------------------------------------------
 
 
+def _sequence_whole(monkeypatch):
+    """The prefill traced with the sequence whole on every rank, as the
+    serving path runs it."""
+    from repro_torch.distributed import steps
+
+    monkeypatch.setattr(steps, "_seq_axes", lambda mesh: None)
+
+
+@pytest.mark.parametrize("sequence_parallel", [True, False], ids=["sequence_parallel", "sequence_whole"])
 @pytest.mark.parametrize("shape", [(2, 2), (4, 1)], ids=["data2_model2", "data4_model1"])
-def test_rank_flops_are_the_ranks_share(fake_world, shape):
+def test_rank_flops_are_the_ranks_share(fake_world, monkeypatch, shape, sequence_parallel):
+    """With the sequence whole on every ``model`` rank, the dense FFN's up-
+    projection is computed whole there too; under sequence parallelism
+    (the dry run's prefill) that FFN runs on the rank's own positions."""
     cfg = get_smoke_config("distilgpt2-82m")
     b, s = 4, 64
     specs = token_specs(cfg, b, s)
     one = dryrun.trace_prefill(cfg, specs)["flops_per_device"]
     fake_world(4)
+    if not sequence_parallel:
+        _sequence_whole(monkeypatch)
     rank = dryrun.trace_prefill(cfg, specs, mesh=_mesh(shape, ("data", "model")))["flops_per_device"]
     model = shape[1]
     up = 2 * b * s * cfg.d_model * cfg.d_ff * cfg.num_layers  # computed whole on every model rank
-    assert rank * 4 == pytest.approx(one + (model - 1) * up, rel=1e-2)
+    assert rank * 4 == pytest.approx(one + (0 if sequence_parallel else (model - 1) * up), rel=1e-2)
+
+
+def test_prefill_shards_the_residual_sequence_over_model(fake_world, monkeypatch, tmp_path):
+    from repro_torch.distributed import act_sharding
+
+    cfg = get_smoke_config("distilgpt2-82m")
+    b, s = 4, 64
+    specs = token_specs(cfg, b, s)
+    fake_world(4)
+    mesh = _mesh((2, 2), ("data", "model"))
+    real = act_sharding.shard_activations
+
+    def residual_bytes():
+        """The local bytes of every [B, S, D] residual the model places."""
+        got = []
+
+        def placed(x):
+            out = real(x)
+            if out.ndim == 3 and tuple(out.shape) == (b, s, cfg.d_model):
+                local = out.to_local()
+                got.append(local.numel() * local.element_size())
+            return out
+
+        monkeypatch.setattr(act_sharding, "shard_activations", placed)
+        try:
+            main = dryrun.trace_prefill(cfg, specs, mesh=mesh)
+        finally:
+            monkeypatch.setattr(act_sharding, "shard_activations", real)
+        return got, main
+
+    sharded, main = residual_bytes()
+    _sequence_whole(monkeypatch)
+    whole, whole_main = residual_bytes()
+    assert len(sharded) == len(whole) >= 2 * cfg.num_layers + 1  # the embedding's, each block's output
+    assert [2 * n for n in sharded] == whole
+    assert main["flops_per_device"] < whole_main["flops_per_device"]  # the whole-weight FFN on the rank's positions
+    # the record: its peak falls, all of the fall in activations, by at
+    # least the half of the residual it carries there; the sequence a block
+    # gathers at its entry stays whole, so the activations do not halve
+    act = {k: rec["memory"]["by_category"]["activations"] for k, rec in (("sharded", main), ("whole", whole_main))}
+    saved = act["whole"] - act["sharded"]
+    assert saved == whole_main["memory"]["peak_estimate_bytes"] - main["memory"]["peak_estimate_bytes"]
+    assert saved >= whole[0] - sharded[0] > 0
+    monkeypatch.undo()  # the dry run's own prefill again
+    monkeypatch.setattr(dryrun, "get_config", get_smoke_config)
+    rec = dryrun.run_cell("distilgpt2-82m", "prefill_32k", "single", probes=False, out_dir=tmp_path)
+    assert rec["status"] == "ok" and "prefill_sequence" not in rec
 
 
 def test_multi_pod_train_cross_pod_bytes_are_the_steps_wan_bytes(fake_world):

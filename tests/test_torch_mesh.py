@@ -51,12 +51,30 @@ what the ranks return.  Tolerances, each stated with its reason:
     single`` fails with the world-size ``ValueError``;
 (g) ``chip_smoke.py``'s ``train_mesh`` bar on the parameters after the last
     step separates a rank that trains on half its rows (emulated in one
-    process): it moves them by over twice ``MESH_PARAM_RTOL`` of the change.
+    process): it moves them by over twice ``MESH_PARAM_RTOL`` of the change;
+(h) sequence parallelism on ``(data 1, model 2)`` over ranks 0 and 1, remat
+    "full", two steps against the JAX mesh step at (a)'s bars: each group
+    checkpoint's input is a DTensor placed ``Shard(1)`` over ``model``, and
+    the local bytes the checkpoints save for the backward of it
+    (``saved_tensors_hooks``) are groups x B x S/2 x D x 4 exactly; the
+    step's LAN calls hold reduce-scatters of ``[2 B, S/2, D]`` and no
+    all-reduce of a ``[B, S, D]`` activation; a ragged S (15) keeps the
+    sequence whole (groups x B x S x D saved, the all-reduces back) and
+    matches the JAX step at the same bars; a checkpoint's recomputation,
+    which autograd runs on the card's device thread, sees the forward's
+    activation context (emulated with the backward on a new thread);
+(i) ``make_train_step(donate=True)`` on ``(data 2, model 2)`` and ``(pod 2,
+    data 2)`` for ``allreduce``, ``hier_int8``, ``ps`` and ``local_sgd``:
+    two steps give bit-equal parameters, moments, error feedback, DiLoCo
+    state and metrics (but the host seconds) to the functional step's, in
+    the local tensors' own storage (their ``data_ptr``s unchanged).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
+import math
 import os
 import pickle
 import shutil
@@ -116,6 +134,12 @@ TRAIN_CASES = [(ARCH, (2, 2), 2)] + [(a, m, 1) for a in TP_ARCHS for m in TP_MES
 #: (arch, (data, model)) served against one process; (1, 2) over ranks 0, 1
 SERVE_CASES = ([(ARCH, (2, 2)), ("rwkv6-7b", (2, 2)), (ARCH, (1, 2)), ("rwkv6-7b", (1, 2))]
                + [(a, m) for a in TP_ARCHS for m in TP_MESHES])
+#: (case id, seq) of (h): ARCH under remat "full" on (data 1, model 2), over ranks 0 and 1
+SP_MESH = (1, 2)
+SP_CASES = [("sequence-parallel", S), ("ragged-sequence", S - 1)]
+SP_OVER = {"remat": "full"}
+#: the strategies (i) holds the donating step to the functional one under
+DONATED = ("allreduce", "hier_int8", "ps", "local_sgd")
 
 
 def _case_id(arch, shape):
@@ -130,27 +154,38 @@ def _scalars(m):
     return {k: (v.item() if torch.is_tensor(v) else v) for k, v in m.items()}
 
 
-def _batches(cfg, n, seed=3):
-    loader = loader_for_model(cfg, seq_len=S, global_batch=B, seed=seed)
+def _batches(cfg, n, seed=3, seq=S):
+    loader = loader_for_model(cfg, seq_len=seq, global_batch=B, seed=seed)
     return [loader.next_batch() for _ in range(n)]
 
 
 # -- what the ranks run ------------------------------------------------------------
 
 
-def _train(cfg, strategy, opt, batches, *, mesh=None, npods=None, params=None):
+def _local_ptrs(tree):
+    """The storage address of every leaf's local tensor."""
+    return [(t.to_local() if hasattr(t, "to_local") else t).data_ptr() for _, t in tree_items(tree)]
+
+
+def _train(cfg, strategy, opt, batches, *, mesh=None, npods=None, params=None, donate=False):
     """Steps over ``batches`` from ``params`` (default: the seed's): per
-    step the metrics, then the whole params and state after the last."""
+    step the metrics (on a mesh with the LAN calls by shape, and whether
+    every leaf of the parameters and state kept its storage), then the
+    whole params and state after the last."""
     if params is None:
         params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     state = init_train_state(params, opt, strategy=strategy, npods=npods, mesh=mesh)
     params = init_pod_params(params, strategy=strategy, npods=npods, mesh=mesh)
     step = make_train_step(cfg, mesh=mesh, npods=npods, strategy=strategy, opt_cfg=opt, diloco_cfg=DILOCO,
-                           device="cpu")
+                           device="cpu", donate=donate)
     rows, states = [], []
     for batch in batches:
+        before = _local_ptrs((params, state.adam.m, state.adam.v, state.ef, state.diloco))
         params, state, metrics = step(params, state, batch)
         rows.append(_scalars(metrics))
+        rows[-1]["storage_kept"] = before == _local_ptrs((params, state.adam.m, state.adam.v, state.ef, state.diloco))
+        if getattr(step, "lan", None) is not None:
+            rows[-1]["lan_shapes"] = dict(step.lan.shapes)
         if getattr(step, "lan", None) is not None:
             with step.lan:
                 states.append(_np((full_tree(params), full_tree(state)._asdict())))
@@ -170,18 +205,60 @@ def _serve(cfg, mesh, params, tokens, decode_tokens):
     return out, {"cache": str(placements["cache"]), "tokens": str(dplace["tokens"])}
 
 
-def _rank_data_model(rank, train_in, serve_in):
-    """(a) and (e) on ``(data 2, model 2)``, ``(data 1, model 4)`` and, over
-    ranks 0 and 1, ``(data 1, model 2)``."""
+class _GroupInputs:
+    """Within ``with``: for each group checkpoint of the model, its residual
+    input's placements and local shape, and the local bytes saved for the
+    backward there of tensors shaped as that input (``saved_tensors_hooks``
+    around the call; what the checkpoint's forward saves inside goes
+    through its own hooks)."""
+
+    def __enter__(self):
+        import torch.utils.checkpoint as ckpt
+
+        self.mod, self.real, self.seen = ckpt, ckpt.checkpoint, []
+
+        def wrapped(fn, x, *args, **kw):
+            saved = []
+
+            def pack(t):
+                if tuple(t.shape) == tuple(x.shape):
+                    local = t.to_local() if hasattr(t, "to_local") else t
+                    saved.append(local.numel() * local.element_size())
+                return t
+
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                out = self.real(fn, x, *args, **kw)
+            self.seen.append({"placements": str(tuple(x.placements)), "local": tuple(x.to_local().shape),
+                              "saved": sum(saved)})
+            return out
+
+        ckpt.checkpoint = wrapped
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.mod.checkpoint = self.real
+
+
+def _rank_data_model(rank, train_in, serve_in, sp_in):
+    """(a), (e), (h) and (i) on ``(data 2, model 2)``, ``(data 1, model 4)``
+    and, over ranks 0 and 1, ``(data 1, model 2)``."""
     torch.set_num_threads(1)
     meshes = {shape: tmesh.make_mesh(shape, ("data", "model"), device="cpu") for shape in TP_MESHES}
     meshes[(1, 2)] = tmesh.make_mesh((1, 2), ("data", "model"), device="cpu", ranks=[0, 1])
-    out = {"train": {}, "serve": {}}
+    out = {"train": {}, "serve": {}, "group_inputs": {}}
     for (arch, shape, _), (params_np, batches) in zip(TRAIN_CASES, train_in):
         params = params_from_numpy(params_np, device="cpu")
         out["train"][_case_id(arch, shape)] = _train(
             get_smoke_config(arch), "hier", AdamWConfig(warmup_steps=1), batches, mesh=meshes[shape], params=params)
+    for (key, _), (params_np, batches) in zip(SP_CASES, sp_in):
+        if meshes[SP_MESH] is not None:
+            with _GroupInputs() as seen:
+                out["train"][key] = _train(dataclasses.replace(get_smoke_config(ARCH), **SP_OVER), "hier",
+                                           AdamWConfig(warmup_steps=1), batches, mesh=meshes[SP_MESH],
+                                           params=params_from_numpy(params_np, device="cpu"))
+            out["group_inputs"][key] = seen
     mesh = meshes[(2, 2)]
+    out["donated"] = _donated(get_smoke_config(ARCH), mesh, _batches(get_smoke_config(ARCH), 2))
     out["one_layer"] = _train(_one_layer(), "hier", OPT, train_in[0][1][:1], mesh=mesh)
     out["strided"] = _strided(mesh)
     for (arch, shape), (p_np, tokens, dec) in zip(SERVE_CASES, serve_in):
@@ -189,6 +266,13 @@ def _rank_data_model(rank, train_in, serve_in):
             out["serve"][_case_id(arch, shape)] = _serve(
                 get_smoke_config(arch), meshes[shape], params_from_numpy(p_np, device="cpu"), tokens, dec)
     return out
+
+
+def _donated(cfg, mesh, batches, functional=None):
+    """(i): each of ``DONATED``'s functional (unless given) and donating
+    runs on ``mesh`` -> {strategy: (functional run, donating run)}."""
+    functional = functional or {s: _train(cfg, s, OPT, batches, mesh=mesh) for s in DONATED}
+    return {s: (functional[s], _train(cfg, s, OPT, batches, mesh=mesh, donate=True)) for s in DONATED}
 
 
 def _one_layer():
@@ -242,6 +326,7 @@ def _rank_pod_data(rank, pod_grads, pod_ef, ckpt_root):
     mesh = tmesh.make_mesh((2, 2, 1), tmesh.AXES, device="cpu")
     batches = _batches(cfg, 2)
     out = {"train": {s: _train(cfg, s, OPT, batches, mesh=mesh) for s in STRATEGIES}}
+    out["donated"] = _donated(cfg, mesh, batches, out["train"])
     out["int8"] = _int8_hop(mesh, pod_grads, pod_ef, tmesh.pod_process_group(mesh))
     whole = GeoTrainer(cfg, mesh, trainer_cfg=_tc("hier_int8", 4), checkpoint_dir=str(ckpt_root / "mesh"),
                        device="cpu").run()
@@ -293,7 +378,7 @@ def _tc(strategy, steps, **more):
 # -- the parent's side ---------------------------------------------------------------
 
 _JAX_SCRIPT = """
-import pickle, sys
+import dataclasses, pickle, sys
 import jax, jax.numpy as jnp, numpy as np
 from repro.configs import get_smoke_config
 from repro.distributed import init_train_state, make_train_step
@@ -304,8 +389,8 @@ from repro.optim import AdamWConfig
 cases = pickle.load(open(sys.argv[1], "rb"))
 opt = AdamWConfig(warmup_steps=1)
 out = {}
-for key, arch, shape, params_np, batches in cases:
-    cfg = get_smoke_config(arch)
+for key, arch, shape, over, params_np, batches in cases:
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
     params = jax.tree.map(jnp.asarray, params_np)
     mesh = make_mesh(shape, ("data", "model"))
     b_shapes = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), batches[0])
@@ -355,8 +440,10 @@ def dm_run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("data_model")
     train_in = [(_jax_params_np(arch), _batches(get_smoke_config(arch), steps, seed=11))
                 for arch, _, steps in TRAIN_CASES]
-    proc, dst = _start_jax(tmp, [(_case_id(arch, shape), arch, shape, *inputs)
-                                 for (arch, shape, _), inputs in zip(TRAIN_CASES, train_in)])
+    sp_in = [(_jax_params_np(ARCH), _batches(get_smoke_config(ARCH), 2, seq=seq, seed=12)) for _, seq in SP_CASES]
+    proc, dst = _start_jax(tmp, [(_case_id(arch, shape), arch, shape, {}, *inputs)
+                                 for (arch, shape, _), inputs in zip(TRAIN_CASES, train_in)]
+                           + [(key, ARCH, SP_MESH, SP_OVER, *inputs) for (key, _), inputs in zip(SP_CASES, sp_in)])
     rng = np.random.default_rng(6)
     serve_in = []
     for arch, _ in SERVE_CASES:
@@ -365,7 +452,7 @@ def dm_run(tmp_path_factory):
         dec = [torch.from_numpy(rng.integers(0, c.vocab_size, (4,))) for _ in range(GEN)]
         serve_in.append((_jax_params_np(arch), tokens, dec))
     try:
-        ranks = spawn(_rank_data_model, 4, train_in, serve_in, device="cpu", join_timeout_s=300)
+        ranks = spawn(_rank_data_model, 4, train_in, serve_in, sp_in, device="cpu", join_timeout_s=300)
         stdout, stderr = proc.communicate(timeout=300)
     finally:
         proc.kill()
@@ -493,6 +580,114 @@ def test_data_model_step_counts_lan_not_wan(dm_run):
         for row in rows:
             assert row["wan_bytes"] == 0 and row["wan_bytes_rank"] == 0
             assert row["lan_bytes"] > 0 and row["lan_s"] > 0
+
+
+# -- (h) sequence parallelism -------------------------------------------------------
+
+
+@pytest.mark.parametrize("key", [k for k, _ in SP_CASES])
+def test_sequence_parallel_step_matches_jax_mesh_step(dm_run, key):
+    want = dm_run["jax"][key]
+    assert all(key not in rank["train"] for rank in dm_run["ranks"][2:])
+    for r, rank in enumerate(dm_run["ranks"][:2]):
+        rows, states = rank["train"][key]
+        np.testing.assert_allclose([x["loss"] for x in rows], want["losses"], rtol=1e-5, err_msg=f"{key} rank {r}")
+        got, ref = _flat(states[-1][0]), _flat(want["params"])
+        assert set(got) == set(ref)
+        for k in ref:
+            np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=2e-5, err_msg=f"{key} rank {r} {k}")
+
+
+@pytest.mark.parametrize("key,seq", SP_CASES)
+def test_group_residuals_are_sequence_shards_over_model(dm_run, key, seq):
+    cfg = get_smoke_config(ARCH)
+    split = seq % SP_MESH[1] == 0
+    local = (B, seq // SP_MESH[1] if split else seq, cfg.d_model)
+    placed = "(Replicate(), Shard(dim=1))" if split else "(Replicate(), Replicate())"
+    for r, rank in enumerate(dm_run["ranks"][:2]):
+        seen = rank["group_inputs"][key]
+        assert len(seen) == 2 * cfg.num_groups, seen  # one checkpoint a group a step
+        assert [c["placements"] for c in seen] == [placed] * len(seen), f"rank {r}"
+        assert [c["local"] for c in seen] == [local] * len(seen), f"rank {r}"
+        for i in range(2):
+            step = seen[i * cfg.num_groups:(i + 1) * cfg.num_groups]
+            assert sum(c["saved"] for c in step) == cfg.num_groups * math.prod(local) * 4, f"rank {r} step {i}"
+
+
+@pytest.mark.parametrize("key,seq", SP_CASES)
+def test_sequence_parallel_reduce_scatters_row_parallel_outputs(dm_run, key, seq):
+    d = get_smoke_config(ARCH).d_model
+    whole = ("all_reduce", (B, seq, d))
+    for r, rank in enumerate(dm_run["ranks"][:2]):
+        for i, row in enumerate(rank["train"][key][0]):
+            shapes = row["lan_shapes"]
+            if seq % SP_MESH[1]:  # the ragged sequence stays whole: its partial sums are all-reduced
+                assert shapes.get(whole, 0) > 0, (r, i, shapes)
+                continue
+            assert shapes.get(("reduce_scatter_tensor", (SP_MESH[1] * B, seq // SP_MESH[1], d)), 0) > 0, (r, i)
+            assert whole not in shapes, (r, i, shapes)
+
+
+def test_remat_recomputation_sees_the_activation_context_on_another_thread(monkeypatch):
+    """On the card autograd runs a checkpoint's recomputation on its device
+    thread, where the step's context variable is unset; the stack's
+    checkpoint re-enters the forward's context there.  Emulated in one
+    process: the backward taken on a new thread, every block entry's
+    context recorded."""
+    import threading
+
+    from repro_torch.distributed import act_sharding
+    from repro_torch.models import loss_fn
+
+    seen, real = [], act_sharding.replicate_seq
+
+    def spy(x):
+        seen.append(act_sharding._SPEC.get())
+        return real(x)
+
+    monkeypatch.setattr(act_sharding, "replicate_seq", spy)
+    cfg = dataclasses.replace(get_smoke_config(ARCH), **SP_OVER)
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    leaves = [t.requires_grad_(True) for _, t in tree_items(params)]
+    batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1)[0].items()}
+    with act_sharding.activation_sharding("data", "model"):
+        loss, _ = loss_fn(params, batch, cfg)
+    forward = len(seen)
+    done = []
+    worker = threading.Thread(target=lambda: done.append(torch.autograd.grad(loss, leaves)))
+    worker.start()
+    worker.join()
+    assert done and forward > 0 and len(seen) > forward  # the recomputation gathered again
+    assert set(seen) == {("data", "model")}, seen
+
+
+# -- (i) the donating step -------------------------------------------------------------
+
+
+def _assert_donated_bits(pair, what):
+    (rows, states), (got_rows, got_states) = pair
+    timed = ("lan_s", "collective_s", "storage_kept")
+    for i, (want, got) in enumerate(zip(rows, got_rows, strict=True)):
+        assert got["storage_kept"], f"{what} step {i + 1}: a leaf left its storage"
+        assert {k: v for k, v in got.items() if k not in timed} == {k: v for k, v in want.items()
+                                                                        if k not in timed}, f"{what} step {i + 1}"
+    for i, (want, got) in enumerate(zip(states, got_states, strict=True)):
+        want, got = _flat(want), _flat(got)
+        assert set(got) == set(want), what
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{what} step {i + 1} {k}")
+
+
+@pytest.mark.parametrize("strategy", DONATED)
+def test_donating_data_model_step_gives_the_same_bits_in_the_same_storage(dm_run, strategy):
+    for r, rank in enumerate(dm_run["ranks"]):
+        _assert_donated_bits(rank["donated"][strategy], f"(data 2, model 2) {strategy} rank {r}")
+
+
+@pytest.mark.parametrize("strategy", DONATED)
+def test_donating_pod_data_step_gives_the_same_bits_in_the_same_storage(pd_run, strategy):
+    for r, rank in enumerate(pd_run["ranks"]):
+        _assert_donated_bits(rank["donated"][strategy], f"(pod 2, data 2) {strategy} rank {r}")
 
 
 # -- (b) the five strategies against the one-process step -----------------------------

@@ -12,7 +12,10 @@ Tolerances, each stated with its reason:
     ``(data 1, model 4)`` against the JAX mesh step from the same weights
     and batch: loss and aux within rtol 1e-5, every parameter leaf within
     atol 2e-5 but on lanes whose mean gradient is below 10 x AdamW's eps
-    (``test_torch_mesh.py`` (a)'s bars and its rule for such lanes);
+    (``test_torch_mesh.py`` (a)'s bars and its rule for such lanes); the
+    step runs sequence parallel: its LAN calls hold reduce-scatters onto
+    ``[B / data, S / model, D]`` and no all-reduce of a ``[B / data, S, D]``
+    activation, in (b)'s cases too;
 (b) MoE cases, each a ``dataclasses.replace`` of the mixtral smoke
     config, against the JAX mesh step at (a)'s bars: capacity factor 0.5
     (choices drop) at 8 x 16 (one 128-token group over both ``data``
@@ -133,7 +136,7 @@ def _train(cfg, strategy, opt, batches, mesh, params):
     rows, states = [], []
     for batch in batches:
         params, state, metrics = step(params, state, batch)
-        rows.append(_scalars(metrics))
+        rows.append(dict(_scalars(metrics), lan_shapes=dict(step.lan.shapes)))
         with step.lan:
             states.append(_np(full_tree(params)))
     return rows, states
@@ -321,6 +324,27 @@ def test_mesh_step_matches_jax_mesh_step(run, case):
         got = _flat(states[-1])
         assert set(got) == set(ref)
         _close_but_eps_lanes(got, ref, moment, len(rows), f"{key} rank {r}")
+
+
+@pytest.mark.parametrize("case", range(len(TRAIN_CASES)), ids=[c[0] for c in TRAIN_CASES])
+def test_mesh_step_reduce_scatters_onto_sequence_shards(run, case):
+    """Sequence parallelism in (a) and (b): the residual's partial sums
+    over ``model`` go to the rank's ``[B / data, S / model, D]`` in
+    reduce-scatters, and no ``[B / data, S, D]`` residual is all-reduced.
+    The RG-LRU's two gate products ``[B, S, d_rnn]`` may be all-reduced
+    inside the block; the smoke config's d_rnn is d_model, so they are
+    counted apart: at most two a recurrent layer a forward."""
+    key, arch, (data, model), over, seq = TRAIN_CASES[case]
+    cfg = _cfg(arch, over)
+    d, b = cfg.d_model, B // data
+    kinds = list(cfg.pattern) * cfg.num_groups + list(cfg.remainder)
+    recurrent = kinds.count("recurrent")
+    forwards = 2 if cfg.remat in ("full", "dots") else 1
+    gates = 2 * recurrent * forwards if cfg.d_rnn == d else 0
+    for r, rank in enumerate(run["ranks"]):
+        shapes = rank["train"][key][0][0]["lan_shapes"]
+        assert shapes.get(("reduce_scatter_tensor", (model * b, seq // model, d)), 0) > 0, (r, shapes)
+        assert shapes.get(("all_reduce", (b, seq, d)), 0) <= gates, (r, shapes)
 
 
 def test_moe_cases_cover_drops_spans_and_placements():

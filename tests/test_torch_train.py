@@ -424,12 +424,14 @@ def test_three_hier_int8_steps_match_jax():
         np.testing.assert_allclose(free["loss"].item(), float(jloss), rtol=tol, atol=tol, err_msg=f"free loss {i}")
 
 
-@pytest.mark.parametrize("strategy", ["hier_int8", "ps", "allreduce", "hier"])
+@pytest.mark.parametrize("strategy", ["hier_int8", "ps", "allreduce", "hier", "local_sgd"])
 def test_donating_step_gives_the_same_bits_in_the_same_storage(strategy):
     """``make_train_step(donate=True)`` (the JAX step's ``donate_argnums``):
     two steps from the same parameters and state give bit-equal
-    parameters, moments, error feedback and metrics to the functional
-    step's, in the donated parameters' and state's own storage."""
+    parameters, moments, error feedback, DiLoCo anchor and momentum and
+    metrics to the functional step's, in the donated parameters' and
+    state's own storage (``local_sgd``: each pod's parameters and moments,
+    the outer step on the second)."""
     _donating_step_against_functional(get_smoke_config("distilgpt2-82m"), strategy)
 
 
@@ -480,27 +482,23 @@ def _donating_step_against_functional(cfg, strategy, npods=2):
     opt = AdamWConfig(**OPT)
     runs = {}
     for donate in (False, True):
-        params = tree_map(torch.clone, base)
-        state = init_train_state(params, opt, strategy=strategy, npods=npods)
-        ptrs = [t.data_ptr() for t in tree_leaves((params, state.adam.m, state.adam.v, state.ef))]
-        step = make_train_step(cfg, npods=npods, strategy=strategy, opt_cfg=opt, device="cpu", donate=donate)
+        state = init_train_state(base, opt, strategy=strategy, npods=npods)
+        params = init_pod_params(tree_map(torch.clone, base), strategy=strategy, npods=npods)
+        held = lambda: tree_leaves((params, state.adam.m, state.adam.v, state.ef, state.diloco))  # noqa: E731
+        ptrs = [t.data_ptr() for t in held()]
+        step = make_train_step(cfg, npods=npods, strategy=strategy, opt_cfg=opt, device="cpu", donate=donate,
+                               diloco_cfg=DilocoConfig(sync_every=2))
         loader = loader_for_model(cfg, seq_len=32, global_batch=4, seed=6)
         metrics = []
         for _ in range(2):
             params, state, m = step(params, state, loader.next_batch())
             metrics.append({k: float(v) for k, v in m.items()})
-        after = [t.data_ptr() for t in tree_leaves((params, state.adam.m, state.adam.v, state.ef))]
+        after = [t.data_ptr() for t in held()]
         assert (after == ptrs) == donate
         runs[donate] = (tree_leaves((params, state)), metrics)
     assert runs[True][1] == runs[False][1]
     for a, b in zip(runs[True][0], runs[False][0]):
         assert torch.equal(a, b)
-
-
-def test_donating_step_refuses_local_sgd():
-    with pytest.raises(ValueError, match="donate"):
-        make_train_step(get_smoke_config("distilgpt2-82m"), npods=2, strategy="local_sgd", device="cpu",
-                        donate=True)
 
 
 def test_musicgen_hier_int8_step_matches_jax():

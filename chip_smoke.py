@@ -483,13 +483,18 @@ def emit(obj) -> None:
 
 
 GRAPH_CALLS = 20  # calls captured in one CUDA graph for a device time
-MS_IS = "device time: calls captured in one CUDA graph, the replay timed with one event pair, / calls"
+# device ms of its own replays a graph runs before it is timed: a reading
+# must not depend on what ran before it (a heavier call's clocks)
+WARM_MS = 200.0
+MS_IS = ("device time: calls captured in one CUDA graph, replayed for WARM_MS of its own device time, then "
+         "each replay timed with one event pair, / calls")
 
 
-def device_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5, stream=None) -> float:
+def device_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5, stream=None, warm_ms: float = WARM_MS) -> float:
     """Device time of one call: ``calls`` calls captured in one CUDA graph
-    (after warm-up calls on a side stream), the median replay of
-    ``replays``, each timed with one event pair, divided by ``calls``.
+    (after warm-up calls on a side stream), replayed until ``warm_ms`` of
+    its own device time has passed (at least once), then the median replay
+    of ``replays``, each timed with one event pair, divided by ``calls``.
     The host's time per call (checks, allocation, the launch) is left out.
     ``stream``, if given, is the side stream and the capture's: an autograd
     backward must be captured on the stream its forward ran on.
@@ -507,15 +512,19 @@ def device_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5, stream=None) -> fl
     with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
-    graph.replay()  # warm
-    times = []
-    for _ in range(replays):
+
+    def replay_ms():
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         graph.replay()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
+        return start.elapsed_time(end)
+
+    warm = replay_ms()
+    while warm < warm_ms:
+        warm += replay_ms()
+    times = [replay_ms() / calls for _ in range(replays)]
     del graph
     torch.cuda.empty_cache()
     return statistics.median(times)
@@ -739,6 +748,7 @@ def phase_kernels(torch):
         if not bool((diff <= tol + tol * plain.float().abs()).all()):
             raise AssertionError(f"flash_attention_fwd {label}: max_abs_err {err}, rtol=atol={tol}")
         library_ms = library_call_ms = library_err = library_is = None
+        more = {}
         if cap is None:  # the same function as one PyTorch call
             qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
             mask, library_is = None, "scaled_dot_product_attention(is_causal=True)"
@@ -746,10 +756,17 @@ def phase_kernels(torch):
                 pos = torch.arange(s, device="cuda")
                 back = pos[:, None] - pos[None, :]
                 mask = (back >= 0) & (back < window)
+            if window is not None and window < s:
                 library_is = "scaled_dot_product_attention(attn_mask=banded causal bool [S, S])"
+            elif window is not None:  # a window of S or more cuts no pair: is_causal is the same function
+                library_is += f" (window {window} >= S cuts no pair: the same function)"
+                banded = lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask,  # noqa: E731
+                                                                enable_gqa=h != kvh)
+                more |= {"library_banded_ms": device_ms(banded),
+                        "library_banded_is": "scaled_dot_product_attention(attn_mask=banded causal bool [S, S])"}
 
             def library():
-                if mask is None:
+                if mask is None or window >= s:
                     return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
                 return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask, enable_gqa=h != kvh)
 
@@ -760,13 +777,12 @@ def phase_kernels(torch):
                                      f"max_abs_err {library_err}, rtol=atol={tol}")
             del lib
             library_ms, library_call_ms = device_ms(library), time_ms(library)
-            if window is not None:
+            if window is not None and window < s:
                 library_is += (f": all S x S pairs, {s * s / attention_pairs(s, s, True, window):.2f}x "
                                "the pairs the window keeps")
-        more = {}
         if label in SDPA_UNWINDOWED_TOO:  # a second reading: sdpa's causal kernel, no window
             qc, kc, vc = (t.contiguous() for t in (qh, kh, vh))
-            more = {
+            more |= {
                 "library_unwindowed_ms": device_ms(
                     lambda: F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)),
                 "library_unwindowed_is": (
@@ -804,7 +820,7 @@ def phase_kernels_bwd(torch):
         flash_attention_bwd_ref,
         flash_attention_fwd,
     )
-    from repro_torch.kernels.flash_attention.ops import PADDED_LAUNCHES, dkdv_cluster
+    from repro_torch.kernels.flash_attention.ops import CLUSTER_LAUNCHES, PADDED_LAUNCHES
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     checks = []
@@ -816,10 +832,13 @@ def phase_kernels_bwd(torch):
         out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
         heads = [t.transpose(1, 2) for t in (q, k, v, out, do)]
         routes, padded = dict(BWD_ROUTE_LAUNCHES), PADDED_LAUNCHES["flash_attention_bwd"]
+        CLUSTER_LAUNCHES.clear()
         grads = flash_attention_bwd(q, k, v, out, lse, do, **kw)
         took = {r: n - routes.get(r, 0) for r, n in BWD_ROUTE_LAUNCHES.items() if n != routes.get(r, 0)}
         if took != {route: 1}:
             raise AssertionError(f"flash_attention_bwd {label}: launched on routes {took}, expected {route}")
+        kv_cluster = launched_cluster(CLUSTER_LAUNCHES, f"flash_attention_bwd {label}",
+                                      bwd_cluster(torch, b, s, h, kvh, hd, dtype))
         if PADDED_LAUNCHES["flash_attention_bwd"] - padded != (hd in PADDED_HDS):
             raise AssertionError(f"flash_attention_bwd {label}: padded count moved "
                                  f"{PADDED_LAUNCHES['flash_attention_bwd'] - padded}, hd {hd}")
@@ -842,11 +861,14 @@ def phase_kernels_bwd(torch):
                 pos = torch.arange(s, device="cuda")
                 back = pos[:, None] - pos[None, :]
                 mask = (back >= 0) & (back < window)
-                library_is += (f" with attn_mask=banded causal bool [S, S]: all S x S pairs, "
-                               f"{s * s / attention_pairs(s, s, True, window):.2f}x the pairs the window keeps")
+                if window < s:
+                    library_is += (f" with attn_mask=banded causal bool [S, S]: all S x S pairs, "
+                                   f"{s * s / attention_pairs(s, s, True, window):.2f}x the pairs the window keeps")
+                else:  # a window of S or more cuts no pair: is_causal is the same function
+                    library_is += f" with is_causal=True (window {window} >= S cuts no pair: the same function)"
 
             def sdpa(unwindowed=False):
-                if mask is None or unwindowed:
+                if mask is None or unwindowed or window >= s:
                     return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=h != kvh)
                 return F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask, enable_gqa=h != kvh)
 
@@ -863,8 +885,14 @@ def phase_kernels_bwd(torch):
             library_bwd_ms = device_ms(
                 lambda: torch.autograd.grad(o, (qc, kc, vc), doc, retain_graph=True), stream=side)
             del o
+            if mask is not None and window >= s:  # the banded mask beside it, as before
+                banded = lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask,  # noqa: E731
+                                                                enable_gqa=h != kvh)
+                more |= {"library_banded_ms": device_ms(lambda: torch.autograd.grad(banded(), (qc, kc, vc), doc)),
+                        "library_banded_is": "scaled_dot_product_attention forward + backward with "
+                                             "attn_mask=banded causal bool [S, S]"}
             if label in SDPA_UNWINDOWED_TOO:  # a second reading: sdpa's causal kernels, no window
-                more = {
+                more |= {
                     "library_unwindowed_ms": device_ms(lambda: torch.autograd.grad(sdpa(True), (qc, kc, vc), doc)),
                     "library_unwindowed_is": (
                         "scaled_dot_product_attention(is_causal=True) forward + backward, no window: a different "
@@ -877,8 +905,8 @@ def phase_kernels_bwd(torch):
         def kernel():
             return flash_attention_bwd(q, k, v, out, lse, do, **kw)
 
-        if hd == 256 and route == "wgmma":  # the dK/dV items' heads split over a cluster
-            more["kv_cluster"] = dkdv_cluster(b, kvh, s, h // kvh, torch.cuda.get_device_properties(0).multi_processor_count)
+        more["kv_cluster"] = kv_cluster
+        if hd in (128, 256) and route == "wgmma":  # the dK/dV items' heads split over a cluster
             again = kernel()
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(grads, again)):
@@ -905,25 +933,47 @@ def phase_kernels_bwd(torch):
     return checks
 
 
+def bwd_cluster(torch, b, s, h, kvh, hd, dtype):
+    """The cluster size the wrapper should give the dK/dV kernel of this
+    backward on this card (ops.bwd_cluster)."""
+    from repro_torch.kernels.flash_attention.ops import bwd_cluster as size
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return size(getattr(torch, dtype), b, h, kvh, s, hd, sms)
+
+
+def launched_cluster(counts, what, expected):
+    """The dK/dV kernel's cluster size of the one backward launched since
+    ``counts`` (ops.CLUSTER_LAUNCHES) was cleared, as the op counted it;
+    raises unless that is one launch at ``expected``."""
+    if dict(counts) != {expected: 1}:
+        raise AssertionError(f"{what}: launches by cluster size {dict(counts)}, expected one at {expected}")
+    (size,) = counts
+    return size
+
+
 def phase_flash_bwd_parts(torch):
-    """The hd-256 bf16 flash backward cases' D, dK/dV and dQ launches timed
-    apart, and the dK/dV kernel's cluster size; run last, since the
-    profiler moves the device times that follow it."""
+    """The hd-256 and the hd-128 GQA bf16 flash backward cases' D, dK/dV
+    and dQ launches timed apart, and the dK/dV kernel's cluster size; run
+    last, since the profiler moves the device times that follow it."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_fwd
-    from repro_torch.kernels.flash_attention.ops import dkdv_cluster
+    from repro_torch.kernels.flash_attention.ops import CLUSTER_LAUNCHES
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = []
     for label, b, s, h, kvh, hd, dtype, window, cap, route in FLASH_BWD_CASES:
-        if hd != 256 or route != "wgmma":
+        if route != "wgmma" or not (hd == 256 or (hd == 128 and s >= 4096)):
             continue
         q, do = (torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16() for _ in range(2))
         k, v = (torch.randn((b, s, kvh, hd), generator=gen, device="cuda").bfloat16() for _ in range(2))
         kw = dict(causal=True, window=window, logit_softcap=cap)
         out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+        CLUSTER_LAUNCHES.clear()
+        flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        kv_cluster = launched_cluster(CLUSTER_LAUNCHES, f"flash_bwd_parts {label}",
+                                      bwd_cluster(torch, b, s, h, kvh, hd, dtype))
         cases.append({
-            "label": label, "kv_cluster": dkdv_cluster(b, kvh, s, h // kvh, sms),
+            "label": label, "kv_cluster": kv_cluster,
             "parts_ms": parts_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw), FLASH_BWD_PARTS),
         })
         del q, k, v, do, out, lse
@@ -3289,6 +3339,7 @@ def phase_train_mixtral(torch):
     from repro_torch.distributed import wan_bytes_per_step
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
+    from repro_torch.kernels.flash_attention.ops import CLUSTER_LAUNCHES
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import TrainerConfig
     from repro_torch.tree import tree_leaves
@@ -3317,8 +3368,10 @@ def phase_train_mixtral(torch):
     LAUNCHES.clear()
     ROUTE_LAUNCHES.clear()
     BWD_ROUTE_LAUNCHES.clear()
+    CLUSTER_LAUNCHES.clear()
     result = trainer.run()
     launches, routes, bwd_routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES), dict(BWD_ROUTE_LAUNCHES)
+    bwd_clusters = dict(CLUSTER_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     rows = result["metrics"]
     leaves = tree_leaves(trainer.params)
@@ -3364,7 +3417,7 @@ def phase_train_mixtral(torch):
         "grad_norm_last": rows[-1]["grad_norm"], "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9,
         "wan_bytes_per_pod_step": wan[-1], "wan_bytes_per_step_analytic": analytic,
         "launches_main_path": launches, "launches_per_step": per_step,
-        "flash_fwd_routes": routes, "flash_bwd_routes": bwd_routes,
+        "flash_fwd_routes": routes, "flash_bwd_routes": bwd_routes, "flash_bwd_launches_by_kv_cluster": bwd_clusters,
         "card_vs_cpu": card_vs_cpu_step(torch, cfg, "hier_int8", donate=True, opt=opt),
     })
     return launches
@@ -3524,6 +3577,7 @@ def mesh_models_rank(rank, plan):
     from repro_torch.distributed.placement import place
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES, ROUTE_LAUNCHES
+    from repro_torch.kernels.flash_attention.ops import CLUSTER_LAUNCHES
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_params
     from repro_torch.tree import tree_items
@@ -3544,6 +3598,7 @@ def mesh_models_rank(rank, plan):
         LAUNCHES.clear()
         ROUTE_LAUNCHES.clear()
         BWD_ROUTE_LAUNCHES.clear()
+        CLUSTER_LAUNCHES.clear()
         if kind == "serve":
             prefill_step, placements = make_prefill_step(cfg, mesh, device="cuda")
             decode, _ = make_decode_step(cfg, mesh, device="cuda")
@@ -3603,6 +3658,7 @@ def mesh_models_rank(rank, plan):
             res.update(rows=rows, param_diff2=diff2, devices=sorted({t.to_local().device.type
                                                                       for _, t in tree_items(params)}))
         res.update(launches=dict(LAUNCHES), routes=dict(ROUTE_LAUNCHES), bwd_routes=dict(BWD_ROUTE_LAUNCHES),
+                   bwd_launches_by_kv_cluster=dict(CLUSTER_LAUNCHES),
                    peak_memory_bytes=torch.cuda.max_memory_allocated(), kernel_inputs=shapes,
                    routing=[(idx.cpu(), gap.cpu()) for idx, gap in calls])
         out.append(res)
@@ -3753,6 +3809,7 @@ def phase_mesh_models(torch):
                            "near_tie_bar": bars}
             entry = {"coordinate": dict(zip(("data", "model"), got["coordinate"])), "launches": got["launches"],
                      "fwd_routes": got["routes"], "bwd_routes": got["bwd_routes"],
+                     "bwd_launches_by_kv_cluster": got["bwd_launches_by_kv_cluster"],
                      "peak_gb": got["peak_memory_bytes"] / 1e9, "routing_vs_one_process": routing}
             if kind == "serve":
                 diffs = [_logit_diff(g, w) for g, w in zip(got["logits"], ref["logits"])]
@@ -4117,7 +4174,7 @@ def main() -> int:
         entry("flash_attention_bwd", "src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
               "none: the JAX package trains through autodiff of dense attention (no Pallas backward)",
               bwd[0], library_is=bwd[0]["library_is"], library_bwd_ms=bwd[0]["library_bwd_ms"],
-              bwd_route=bwd[0]["bwd_route"], shapes=bwd, hd256_parts=parts),
+              bwd_route=bwd[0]["bwd_route"], shapes=bwd, wgmma_parts=parts),
         entry("wan_quant", "src/repro_torch/kernels/wan_quant/csrc/wan_quant.cu",
               "src/repro/kernels/wan_quant/kernel.py:44",
               dict(wan_err, ms=wan_step["quant_ms"], call_ms=wan_step["quant_call_ms"],

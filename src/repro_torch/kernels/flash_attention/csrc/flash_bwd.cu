@@ -107,6 +107,22 @@
 //     no global scratch.  In flash_bwd_dq_wgmma the item's Q and dO take
 //     128 KB, so there is one query buffer and K and V stream as 32-key
 //     tiles (ring of three).
+//   * Head_dim 128 under GQA (mixtral's groups of 6): an item's G query
+//     heads may be split over a pair of CTAs (the kernel's kCluster
+//     instance; ops.py::dkdv_cluster_128 picks 2 where the items are fewer
+//     than the SMs), K and V multicast as at 256.  Each CTA then holds
+//     float32 partials of both consumers' dK and dV (64 keys x 128 each);
+//     after the item every consumer of the pair says it is done with its
+//     ring (bar_ready), CTA r owns the 8-column blocks [8 r, 8 r + 8) of
+//     each, the other's blocks go into its Q and dO ring (cluster_sum_128,
+//     one arrival a sender warp), it adds the two partials and stores its
+//     blocks as bf16 straight to global memory (store_owned_128).  The ring
+//     is free for that because there is one K/V buffer (kBufs == 1): the
+//     producer's next Q/dO loads wait behind the next item's K/V, which
+//     waits for bar_kv_empty, released only after the sum.  Splitting the
+//     heads halves the mesh training shard's heaviest items (128 items on
+//     132 SMs); with items enough to fill the card a pair's wait and sum at
+//     each item's end cost more than they even out.
 // Masked pairs get P = 0 directly: exp(-1e30 - lse) is 0 in float32 for
 // every lse a row that sees a key can have (the wrappers refuse rows that
 // see none).  The tensor maps are encoded on the host (hopper.cuh, no
@@ -740,7 +756,10 @@ struct Params {
   int causal, window;
   float softcap, softcap_inv, sm_scale;
   int n_ktiles, n_qtiles;  // key items (dK/dV: KvShape::kKeys), 128-row items (dQ)
-  int cluster;             // dK/dV at head_dim 256: CTAs a cluster, each a share of an item's query heads
+  int cluster;             // dK/dV at head_dim 128 and 256: CTAs a cluster, each a share of an item's query heads
+  bf16* dk;                // dK/dV at head_dim 128 in a cluster: each CTA's summed columns, stored directly
+  bf16* dv;
+  long long sdk[3], sdv[3];  // their element strides (batch, seq, head)
 };
 
 // dK/dV kernel: an item is kKeys keys of one (kv head, batch); 64-row
@@ -767,9 +786,9 @@ struct KvShape {
   static constexpr int kD = kL + kStages * 64 * 4;   // float [stage][64]: D, 0 past Sq
   static constexpr int kBar = kD + kStages * 64 * 4;
   // barriers: full, empty [kStages]; K/V full, K/V empty [kBufs]; at head_dim
-  // 256 also the cluster's consumers done with the item, and each
+  // 128 and 256 also the cluster's consumers done with the item, and each
   // consumer's partials received
-  static constexpr int kBars = 2 * kStages + 2 * kBufs + (HD == 256 ? 3 : 0);
+  static constexpr int kBars = 2 * kStages + 2 * kBufs + (HD >= 128 ? 3 : 0);
   static constexpr int kAlloc = kBar + 8 * kBars + 1024;  // + room to align
   static_assert(kAlloc <= 232448, "more shared memory than a block can have");
 };
@@ -1026,6 +1045,67 @@ __device__ __forceinline__ void store_acc_cols(uint32_t dst, int atom, const flo
   }
 }
 
+// The pair's sum of one consumer's dK and dV partials (64 keys x 128 each)
+// after an item at head_dim 128: CTA r owns the 8-column blocks [8 r, 8 r +
+// 8) of each; the other CTA's blocks go into its receive area `recv` (its Q
+// and dO ring: float4 [consumer][dK, dV][8 blocks][128 threads], 64 KB),
+// then it arrives on that CTA's bar_recv; once the other's have arrived,
+// each owned block is the two partials added (two addends: the same bits
+// in either order, every call), in place in dk and dv.
+__device__ __forceinline__ void cluster_sum_128(float (&dk)[64], float (&dv)[64], uint32_t recv,
+                                                const unsigned char* grecv, uint32_t bar_recv, int c, int item,
+                                                int tid) {
+  const int rank = static_cast<int>(hopper::cluster_ctarank());
+  const uint32_t other = rank ^ 1;
+  // float4 index of (block j % 8 of its owner, tensor x)
+  auto at = [&](int j, int x) { return ((c * 2 + x) * 8 + j % 8) * 128 + tid; };
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j / 8 == rank) continue;
+    hopper::st_cluster(hopper::mapa(recv + 16 * at(j, 0), other), dk[4 * j], dk[4 * j + 1], dk[4 * j + 2],
+                       dk[4 * j + 3]);
+    hopper::st_cluster(hopper::mapa(recv + 16 * at(j, 1), other), dv[4 * j], dv[4 * j + 1], dv[4 * j + 2],
+                       dv[4 * j + 3]);
+  }
+  // one arrival a warp on the other CTA (a barrier of 128 remote arrivals
+  // a sender would take them one at a time): the warp's stores, then lane 0
+  // releases them at cluster scope
+  hopper::fence_acq_rel_cluster();
+  __syncwarp();
+  if (tid % 32 == 0) hopper::mbar_arrive_cluster(hopper::mapa(bar_recv, other));
+  hopper::mbar_wait_cluster(bar_recv, item % 2);
+  const float4* slots = reinterpret_cast<const float4*>(grecv);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j / 8 != rank) continue;
+    const float4 xk = slots[at(j, 0)], xv = slots[at(j, 1)];
+    dk[4 * j] += xk.x, dk[4 * j + 1] += xk.y, dk[4 * j + 2] += xk.z, dk[4 * j + 3] += xk.w;
+    dv[4 * j] += xv.x, dv[4 * j + 1] += xv.y, dv[4 * j + 2] += xv.z, dv[4 * j + 3] += xv.w;
+  }
+}
+
+// This CTA's blocks of one consumer's summed dK (times the scale) and dV
+// as bf16, from registers to global memory (its keys key0 and key0 + 8;
+// keys past Sk are not written).
+__device__ __forceinline__ void store_owned_128(const Params& p, const float (&dk)[64], const float (&dv)[64],
+                                                const KvItem& it, int key0, int t) {
+  const int rank = static_cast<int>(hopper::cluster_ctarank());
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j / 8 != rank) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = key0 + 8 * e;
+      if (key >= p.Sk) continue;
+      const int col = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(p.dk + it.b * p.sdk[0] + key * p.sdk[1] + it.kvh * p.sdk[2] + col) =
+          hopper::pack_bf16x2(dk[4 * j + 2 * e] * p.sm_scale, dk[4 * j + 2 * e + 1] * p.sm_scale);
+      *reinterpret_cast<uint32_t*>(p.dv + it.b * p.sdv[0] + key * p.sdv[1] + it.kvh * p.sdv[2] + col) =
+          hopper::pack_bf16x2(dv[4 * j + 2 * e], dv[4 * j + 2 * e + 1]);
+    }
+  }
+}
+
 // The producer warp of flash_bwd_dkdv_wgmma at head_dim 256, in the 40
 // registers setmaxnreg leaves it (kProducerRegs256; what it needs is
 // recomputed from the parameters rather than kept).  Per item: once every
@@ -1276,7 +1356,10 @@ __device__ __forceinline__ void dkdv_consumers_hd256(const Params& p, uint32_t b
 // (24 bytes); the consumers fit 232 with no spill (ptxas, on the card).
 constexpr int kProducerRegs256 = 40, kConsumerRegs256 = 232;
 
-template <int HD, bool kSoftcap>
+// kCluster: the instance whose items' query heads a pair of CTAs splits at
+// head_dim 128 (at 256 every instance takes p.cluster; at 128 the lone
+// instance keeps cs = 1 at compile time, and its registers).
+template <int HD, bool kSoftcap, bool kCluster = false>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkdv_wgmma(const __grid_constant__ Params p) {
   static_assert(HD == 64 || HD == 128 || HD == 256, "head_dim 64, 128 or 256");
@@ -1298,13 +1381,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bar_empty = bar_full + 8 * kStages;
   const uint32_t bar_kv = bar_empty + 8 * kStages;  // + 8 * buffer
   const uint32_t bar_kv_empty = bar_kv + 8 * kBufs;
-  const uint32_t bar_ready = bar_kv_empty + 8 * kBufs;  // head_dim 256
+  const uint32_t bar_ready = bar_kv_empty + 8 * kBufs;  // head_dim 128 and 256
   const uint32_t bar_recv = bar_ready + 8;              // + 8 * consumer
   const int n_items = p.n_ktiles * p.B * p.KVH;
   const int groups = p.H / p.KVH;
   const int lane = threadIdx.x % 32;
-  // CTAs a cluster: at head_dim 256 each takes a share of an item's query heads
-  const int cs = HD == 256 ? p.cluster : 1;
+  // CTAs a cluster: at head_dim 256 (p.cluster) and 128 (kCluster: a pair)
+  // each takes a share of an item's query heads
+  static_assert(!kCluster || HD == 128, "the kCluster instance is head_dim 128's");
+  static_assert(!kCluster || L::kBufs == 1,
+                "the pair's sum reuses the Q/dO ring: the next item's loads must wait for bar_kv_empty");
+  static_assert(!kCluster || 2 * 2 * 8 * 128 * 16 <= L::kP - L::kQ, "the receive area fits the Q/dO ring");
+  const int cs = HD == 256 ? p.cluster : kCluster ? 2 : 1;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -1315,13 +1403,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       hopper::mbar_init(bar_kv + 8 * b, 1);
       hopper::mbar_init(bar_kv_empty + 8 * b, 2 * cs);  // one thread of each consumer (of the cluster), after its store
     }
-    if constexpr (HD == 256) {
+    if constexpr (HD >= 128) {
       hopper::mbar_init(bar_ready, 2 * cs);  // one thread of each consumer of the cluster
-      for (int c = 0; c < 2; ++c) hopper::mbar_init(bar_recv + 8 * c, cs > 1 ? 128 * (cs - 1) : 1);  // the senders' threads
+      // the senders' threads (head_dim 256) or the other CTA's warps (128)
+      for (int c = 0; c < 2; ++c) hopper::mbar_init(bar_recv + 8 * c, cs > 1 ? (HD == 256 ? 128 : 4) * (cs - 1) : 1);
     }
     hopper::mbar_init_fence();
   }
-  if constexpr (HD == 256) {
+  if (HD == 256 || cs > 1) {
     hopper::cluster_sync();  // the cluster's barriers are initialised before any CTA uses another's
   } else {
     __syncthreads();
@@ -1333,21 +1422,41 @@ __global__ void __launch_bounds__(kThreads, 1)
     if constexpr (HD == 256) {
       if (threadIdx.x < 32) dkdv_producer_hd256(p, base, n_items);
     } else if (threadIdx.x < 32) {
+      // Rank r of a cluster (head_dim 128) takes the r-th share of an
+      // item's query heads, and loads its share of K's and V's atoms into
+      // every CTA of it once every consumer of the cluster is done with the
+      // last item; a lone CTA (cs = 1) takes them all.
+      const int nh = groups / cs;  // this CTA's query heads of an item
       int tiles = 0;
-      for (int i = 0; item_index(i) < n_items; ++i) {
-        const KvItem it = kv_item<L::kKeys>(p, item_index(i));
+      for (int i = 0; item_index(i, cs) < n_items; ++i) {
+        const KvItem it = kv_item<L::kKeys>(p, item_index(i, cs));
         const int kb = i % kBufs;
-        hopper::mbar_wait(bar_kv_empty + 8 * kb, ((i / kBufs) % 2) ^ 1);
+        const int rank = cs > 1 ? static_cast<int>(hopper::cluster_ctarank()) : 0;
+        if (cs > 1) {
+          hopper::mbar_wait_cluster(bar_kv_empty + 8 * kb, ((i / kBufs) % 2) ^ 1);
+        } else {
+          hopper::mbar_wait(bar_kv_empty + 8 * kb, ((i / kBufs) % 2) ^ 1);
+        }
         if (lane == 0) {
           hopper::mbar_arrive_expect_tx(bar_kv + 8 * kb, 2 * L::kKVTile);
           for (int a = 0; a < L::kAtoms; ++a) {
             const uint32_t off = kb * L::kKVTile + a * L::kKVAtom;
-            hopper::tma_load_4d(base + L::kK + off, &p.tk_kv, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
-            hopper::tma_load_4d(base + L::kV + off, &p.tv_kv, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
+            if (cs > 1) {
+              const uint16_t all = static_cast<uint16_t>((1u << cs) - 1);
+              if ((2 * a) % cs == rank)
+                hopper::tma_load_4d_multicast(base + L::kK + off, &p.tk_kv, bar_kv + 8 * kb, a * 64, it.kvh, it.k0,
+                                              it.b, all);
+              if ((2 * a + 1) % cs == rank)
+                hopper::tma_load_4d_multicast(base + L::kV + off, &p.tv_kv, bar_kv + 8 * kb, a * 64, it.kvh, it.k0,
+                                              it.b, all);
+            } else {
+              hopper::tma_load_4d(base + L::kK + off, &p.tk_kv, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
+              hopper::tma_load_4d(base + L::kV + off, &p.tv_kv, bar_kv + 8 * kb, a * 64, it.kvh, it.k0, it.b);
+            }
           }
         }
-        for (int hh = 0; hh < groups; ++hh) {
-          const int h = it.kvh * groups + hh;
+        for (int hh = 0; hh < nh; ++hh) {
+          const int h = it.kvh * groups + rank * nh + hh;
           const long long row = (static_cast<long long>(it.b) * p.H + h) * p.Sq;
           for (int qt = it.qt_beg; qt < it.qt_end; ++qt, ++tiles) {
             const int stage = tiles % kStages;
@@ -1388,8 +1497,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     auto release = [&](int stage) {
       if (lane == 0) hopper::mbar_arrive(bar_empty + 8 * stage);
     };
-    for (int i = 0; item_index(i) < n_items; ++i) {
-      const KvItem it = kv_item<L::kKeys>(p, item_index(i));
+    const int nh = groups / cs;  // this CTA's query heads of an item
+    for (int i = 0; item_index(i, cs) < n_items; ++i) {
+      const KvItem it = kv_item<L::kKeys>(p, item_index(i, cs));
       const int kb = i % kBufs;
       const int kc0 = it.k0 + 64 * c;      // this consumer's first key
       const int key0 = kc0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
@@ -1400,7 +1510,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < NO; ++j) dk[j] = dv[j] = 0.f;
       hopper::mbar_wait(bar_kv + 8 * kb, (i / kBufs) % 2);
       int pending = -1;  // the stage the products in flight read
-      for (int hh = 0; hh < groups; ++hh) {
+      for (int hh = 0; hh < nh; ++hh) {
         for (int qt = it.qt_beg; qt < it.qt_end; ++qt, ++tiles) {
           const int stage = tiles % kStages;
           const int q0 = qt * 64;
@@ -1477,6 +1587,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       hopper::fence_regs(da);
       if (pending >= 0) release(pending);
 
+      if constexpr (kCluster) {
+        // Every consumer of the pair is done with its ring and its K and
+        // V; the partials are summed into the columns each CTA owns, which
+        // it stores; then both CTAs' K/V buffers may take the next item's
+        // multicast (and only then their rings the next item's Q and dO).
+        const int tid = threadIdx.x % 128;
+        hopper::named_barrier_sync(1 + c, 128);
+        if (tid == 0)
+          for (int q = 0; q < cs; ++q) hopper::mbar_arrive_cluster(hopper::mapa(bar_ready, q));
+        hopper::mbar_wait_cluster(bar_ready, i % 2);
+        cluster_sum_128(dk, dv, base + L::kQ, gbase + L::kQ, bar_recv + 8 * c, c, i, tid);
+        store_owned_128(p, dk, dv, it, key0, t);
+        hopper::named_barrier_sync(1 + c, 128);  // this consumer's receive area is read
+        if (tid == 0)
+          for (int q = 0; q < cs; ++q) hopper::mbar_arrive_cluster(hopper::mapa(bar_kv_empty + 8 * kb, q));
+        continue;
+      }
+
       // Epilogue: dK * scale and dV as bf16 over this consumer's own K and V
       // rows, then TMA stores (rows past Sk dropped); then the buffer is free.
       store_acc<HD>(sK, L::kKVAtom, dk, p.sm_scale, warp, g, t);
@@ -1496,7 +1624,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   // no CTA of a cluster leaves while another may still arrive on its barriers
-  if constexpr (HD == 256) hopper::cluster_sync();
+  if (HD == 256 || cs > 1) hopper::cluster_sync();
 }
 
 template <int HD, bool kSoftcap>
@@ -1676,32 +1804,6 @@ cudaError_t launch_persistent(Kernel kernel, const Params& p, long long n_items,
   return cudaGetLastError();
 }
 
-// The same in clusters of p.cluster CTAs, one cluster an item at a time:
-// as many clusters as fit the card at once (and no more than the items).
-template <typename Kernel>
-cudaError_t launch_clusters(Kernel kernel, const Params& p, long long n_items, int smem, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.gridDim = dim3(p.cluster);
-  int clusters = 0;
-  if ((e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess) return e;
-  if (clusters < 1) return cudaErrorInvalidConfiguration;  // a cluster of this size does not fit
-  cfg.gridDim = dim3(p.cluster * static_cast<unsigned>(n_items < clusters ? n_items : clusters));
-  if ((e = cudaLaunchKernelEx(&cfg, kernel, p)) != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
 // dK/dV, then dQ (D must be written already).
 template <int HD>
 int launch(const Args& a, int kv_cluster, cudaStream_t stream) {
@@ -1744,16 +1846,30 @@ int launch(const Args& a, int kv_cluster, cudaStream_t stream) {
   p.n_ktiles = (a.Sk + kKeys - 1) / kKeys;
   p.n_qtiles = (a.Sq + 127) / 128;
   p.cluster = kv_cluster;
-  if ((kv_cluster != 1 && kv_cluster != 2 && kv_cluster != 4) || (a.H / a.KVH) % kv_cluster ||
-      (HD != 256 && kv_cluster != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.dk = static_cast<bf16*>(a.dk);
+  p.dv = static_cast<bf16*>(a.dv);
+  for (int i = 0; i < 3; ++i) {
+    p.sdk[i] = a.sdk[i];
+    p.sdv[i] = a.sdv[i];
+  }
+  // cluster sizes (ops.py::KV_CLUSTER_SIZES): 1, 2, 4 at head_dim 256; 1, 2
+  // at 128; 1 at 64
+  const bool size_ok = HD == 256   ? kv_cluster == 1 || kv_cluster == 2 || kv_cluster == 4
+                       : HD == 128 ? kv_cluster == 1 || kv_cluster == 2
+                                   : kv_cluster == 1;
+  if (!size_ok || (a.H / a.KVH) % kv_cluster) return static_cast<int>(cudaErrorInvalidValue);
   const long long kv_items = static_cast<long long>(p.n_ktiles) * a.B * a.KVH;
   const long long q_items = static_cast<long long>(p.n_qtiles) * a.B * a.H;
   if (kv_items > 0x7fffffffLL || q_items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const bool cap = a.softcap > 0.f;
   auto dkdv = cap ? &flash_bwd_dkdv_wgmma<HD, true> : &flash_bwd_dkdv_wgmma<HD, false>;
-  e = HD == 256 ? launch_clusters(dkdv, p, kv_items, KvShape<HD>::kAlloc, stream)
-                : launch_persistent(dkdv, p, kv_items, KvShape<HD>::kAlloc, stream);
+  if constexpr (HD == 128) {
+    if (kv_cluster > 1)
+      dkdv = cap ? &flash_bwd_dkdv_wgmma<128, true, true> : &flash_bwd_dkdv_wgmma<128, false, true>;
+  }
+  e = HD == 256 || kv_cluster > 1
+          ? hopper::launch_clusters(dkdv, p, kv_cluster, kThreads, kv_items, KvShape<HD>::kAlloc, stream)
+          : launch_persistent(dkdv, p, kv_items, KvShape<HD>::kAlloc, stream);
   if (e == cudaSuccess)
     e = launch_persistent(cap ? &flash_bwd_dq_wgmma<HD, true> : &flash_bwd_dq_wgmma<HD, false>, p,
                           q_items, DqShape<HD>::kAlloc, stream);
@@ -1794,7 +1910,7 @@ int dispatch(int route, const Args& a, int kv_cluster, cudaStream_t stream) {
            : a.hd == 128 ? wg::launch<128>(a, kv_cluster, stream)
                          : wg::launch<256>(a, kv_cluster, stream);
   }
-  if (kv_cluster != 1) return static_cast<int>(cudaErrorInvalidValue);  // only the wgmma route at 256 splits
+  if (kv_cluster != 1) return static_cast<int>(cudaErrorInvalidValue);  // only the wgmma route splits
   if (route == kRouteMmaSync && (a.hd == 16 || a.hd == 96)) {
     e = launch(delta_kernel<bf16>, a, grid_delta, 256, 0, stream);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -1848,8 +1964,8 @@ extern "C" {
 // route: 0 "f32" (float32, head_dim 16/64/96/128/256), 1 "mma_sync" (bf16,
 // 16/96), 2 "wgmma" (bf16, 64/128/256); any other pairing is refused.
 // kv_cluster: CTAs that split a dK/dV item's query heads on the wgmma route
-// at head_dim 256 (1, 2 or 4, dividing H / KVH; ops.py::dkdv_cluster); 1
-// everywhere else.
+// at head_dim 256 (1, 2 or 4) and 128 (1 or 2), dividing H / KVH
+// (ops.py::bwd_cluster); 1 everywhere else.
 // dims = {B, H, KVH, Sq, Sk}; strides = element strides {batch, seq, head}
 // of q, k, v, o, dO, dQ, dK, dV in that order.  lse (the forward's) and
 // delta (scratch the wrapper allocates) are contiguous float32 [B, H, Sq].

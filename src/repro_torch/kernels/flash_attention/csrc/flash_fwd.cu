@@ -99,11 +99,16 @@
 // reached through cudaGetDriverEntryPoint, so the library links against the
 // runtime alone (no -lcuda).  A failed encode, attribute or launch returns an
 // error code, and the wrapper raises on it.  Tried on the card and dropped
-// (PERF.md, Findings): ping-pong turns between the consumers, deeper rings, a
-// 192-row CTA of three consumers at hd 64, the next tile's Q K^T issued
-// ahead into a second S accumulator, and the next item's first Q K^T
-// issued under this item's epilogue (the last two make ptxas serialise the
-// wgmma pipeline).
+// (PERF.md, Findings): ping-pong turns between the consumers (at hd 64 and
+// 128), deeper rings (at 128 with one query buffer), 64-key tiles at 128, O
+// rescaled under the next tile's Q K^T, a 192-row CTA of three consumers at
+// hd 64, the next tile's Q K^T issued ahead into a second S accumulator, the
+// next item's first Q K^T issued under this item's epilogue (the last two
+// make ptxas serialise the wgmma pipeline), and at hd 128 under GQA a
+// cluster of 2-8 CTAs taking one (batch, kv head)'s query heads at one query
+// tile with each K/V tile multicast to all (slower at every size: a slot is
+// refilled only once every CTA of the cluster is done with it, while a
+// group's CTAs already share its tiles through L2).
 
 #include <cuda.h>
 #include <cuda_bf16.h>

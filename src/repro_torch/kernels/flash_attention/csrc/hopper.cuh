@@ -174,6 +174,10 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
   } while (!done);
 }
 
+// Orders this thread's earlier memory operations before its later ones at
+// cluster scope.
+__device__ __forceinline__ void fence_acq_rel_cluster() { asm volatile("fence.acq_rel.cluster;\n" ::: "memory"); }
+
 // 16 bytes into the shared memory of a CTA of the cluster (a mapa address).
 __device__ __forceinline__ void st_cluster(uint32_t addr, float a, float b, float c, float d) {
   asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d)
@@ -506,6 +510,37 @@ inline int encode_3d(EncodeTiled fn, CUtensorMap* map, bool bf16, const void* pt
                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+// ---- launches (host) ----------------------------------------------------
+
+// A persistent launch in clusters of `cluster` CTAs of `threads` threads,
+// each cluster walking `n_items` items one at a time: as many clusters as
+// fit the card at once (cudaOccupancyMaxActiveClusters), and no more than
+// the items.  A cluster of this size that does not fit at all is refused.
+template <typename Kernel, typename Params>
+cudaError_t launch_clusters(Kernel kernel, const Params& p, int cluster, int threads, long long n_items, int smem,
+                            cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.gridDim = dim3(cluster);
+  int clusters = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;  // a cluster of this size does not fit
+  cfg.gridDim = dim3(cluster * static_cast<unsigned>(n_items < clusters ? n_items : clusters));
+  if ((e = cudaLaunchKernelEx(&cfg, kernel, p)) != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 // The message for a code a launcher returned: a cudaError_t, or

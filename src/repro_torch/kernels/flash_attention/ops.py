@@ -111,25 +111,58 @@ def _route(dtype: torch.dtype, head_dim: int, which: str) -> str:
     raise ValueError(f"no {which} kernel for dtype {dtype} with head_dim {head_dim}")
 
 
-#: CTAs a cluster may split a dK/dV item's query heads over (hd 256, ``wgmma``)
+#: CTAs a cluster may split a dK/dV item's query heads over (``wgmma``), by
+#: head_dim: at 128 a pair, each CTA's float32 partials going through the
+#: other's Q and dO ring (``csrc/flash_bwd.cu::cluster_sum_128``)
+KV_CLUSTER_SIZES = {256: (1, 2, 4), 128: (1, 2)}
 KV_CLUSTERS = (1, 2, 4)
-#: dK/dV keys an item takes at head_dim 256 (``csrc/flash_bwd.cu``, ``KvShape<256>::kKeys``)
+#: dK/dV keys an item takes at head_dim 256 and 128 (``csrc/flash_bwd.cu``, ``KvShape<HD>::kKeys``)
 KV_ITEM_KEYS_256 = 64
+KV_ITEM_KEYS_128 = 128
+#: backward launches by the dK/dV kernel's cluster size, counted beside ``LAUNCHES``
+CLUSTER_LAUNCHES: Counter = Counter()
 
 
 def dkdv_cluster(batch: int, kv_heads: int, seq_k: int, groups: int, sms: int) -> int:
     """CTAs a cluster of the hd-256 dK/dV kernel splits each item's
-    ``groups`` query heads over: the size in :data:`KV_CLUSTERS` dividing
-    ``groups`` whose clusters finish soonest, counting per CTA the rounds
-    of items (``sms // size`` clusters at once) times its share of the heads;
-    on a tie the smaller (less to sum).  An item is 64 keys of one (kv
-    head, batch row)."""
+    ``groups`` query heads over: the size in ``KV_CLUSTER_SIZES[256]``
+    dividing ``groups`` whose clusters finish soonest, counting per CTA the
+    rounds of items (``sms // size`` clusters at once) times its share of
+    the heads; on a tie the smaller (less to sum).  An item is 64 keys of
+    one (kv head, batch row)."""
     items = batch * kv_heads * -(-seq_k // KV_ITEM_KEYS_256)
 
     def cost(size):
         return -(-items // max(sms // size, 1)) * (groups // size)
 
-    return min((s for s in KV_CLUSTERS if groups % s == 0), key=lambda s: (cost(s), s))
+    return min((s for s in KV_CLUSTER_SIZES[256] if groups % s == 0), key=lambda s: (cost(s), s))
+
+
+def dkdv_cluster_128(batch: int, kv_heads: int, seq_k: int, groups: int, sms: int) -> int:
+    """The same for the hd-128 dK/dV kernel, whose item is 128 keys of one
+    (kv head, batch row): 2 where the items are fewer than the SMs and
+    ``groups`` is even, else 1.  With fewer items than SMs one round leaves
+    SMs idle and the heaviest item (under the causal mask the first key
+    tile, seen by every query of every head) sets the time; a pair of CTAs
+    halves each item, and the second round, dealt in reverse, evens out a
+    pair's heavy and light items.  With items enough to fill the card, a
+    pair's wait and sum at each item's end cost more than they even out.
+    On the H100 (``tools/flash_fwd_gqa.py``, 1 x 4096): the mesh training
+    shard, 24 heads over 4 (128 items), dK/dV 0.70 ms at 1 and 0.39 at 2;
+    mixtral's 48 over 8 (256 items) 0.72 at 1 and 0.76 at 2."""
+    items = batch * kv_heads * -(-seq_k // KV_ITEM_KEYS_128)
+    return 2 if items < sms and groups % 2 == 0 else 1
+
+
+def bwd_cluster(dtype: torch.dtype, batch: int, heads: int, kv_heads: int, seq_k: int, head_dim: int,
+                sms: int) -> int:
+    """The dK/dV kernel's cluster size for a backward of these shapes, as
+    the wrapper picks it: :func:`dkdv_cluster` at head_dim 256,
+    :func:`dkdv_cluster_128` at 128 (``wgmma`` route), else 1."""
+    if bwd_route(dtype, head_dim) != "wgmma" or head_dim not in KV_CLUSTER_SIZES:
+        return 1
+    size = dkdv_cluster if head_dim == 256 else dkdv_cluster_128
+    return size(batch, kv_heads, seq_k, heads // kv_heads, sms)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window, logit_softcap) -> None:
@@ -237,6 +270,7 @@ def _launch_bwd(q, k, v, o, lse, do, delta, dq, dk, dv, *, scale, causal, window
     _build.check(lib, err, BWD_KERNEL)
     LAUNCHES[BWD_KERNEL] += 1
     BWD_ROUTE_LAUNCHES[route] += 1
+    CLUSTER_LAUNCHES[kv_cluster] += 1
 
 
 # -- the launches as custom ops: the ctypes launch on the card, shapes under a fake tensor --
@@ -315,8 +349,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, logit_softcap=None
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, logit_softcap=None, kv_cluster=None):
     """dq, dk, dv [B, S, H, hd] from the forward's inputs, output and lse.
 
-    ``kv_cluster`` (tests and timing only) forces the hd-256 ``wgmma``
-    dK/dV kernel's cluster size, else :func:`dkdv_cluster` picks it."""
+    ``kv_cluster`` (tests and timing only) forces the hd-128 or hd-256
+    ``wgmma`` dK/dV kernel's cluster size, else :func:`bwd_cluster` picks it."""
     _check(q, k, v, window, logit_softcap)
     kw = dict(causal=causal, window=window, logit_softcap=logit_softcap)
     if not on_card(q):
@@ -334,14 +368,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None, logit_
     if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 [B, H, Sq], got {tuple(lse.shape)} {lse.dtype}")
     hd = q.shape[3]
-    groups = q.shape[2] // k.shape[2]
-    split = hd == 256 and bwd_route(q.dtype, hd) == "wgmma"
     if kv_cluster is None:  # a fake tensor (the dry run) is on no card: take the H100's SM count
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count if has_values(q) else costs.SMS
-        kv_cluster = dkdv_cluster(q.shape[0], k.shape[2], k.shape[1], groups, sms) if split else 1
-    elif kv_cluster not in KV_CLUSTERS or groups % kv_cluster or (kv_cluster > 1 and not split):
-        raise ValueError(f"kv_cluster {kv_cluster}: the hd-256 wgmma backward takes {KV_CLUSTERS} dividing "
-                         f"{groups} query heads a kv head; every other backward 1")
+        kv_cluster = bwd_cluster(q.dtype, q.shape[0], q.shape[2], k.shape[2], k.shape[1], hd, sms)
+    groups = q.shape[2] // k.shape[2]
+    sizes = KV_CLUSTER_SIZES.get(hd, (1,)) if bwd_route(q.dtype, hd) == "wgmma" else (1,)
+    if kv_cluster not in sizes or groups % kv_cluster:
+        raise ValueError(f"kv_cluster {kv_cluster}: this backward's dK/dV kernel takes {sizes} dividing the "
+                         f"{groups} query heads a kv head (head_dim {hd}, {q.dtype})")
     q, k, v, o, do = pad_head_dim(q, k, v, o, do)
     dq, dk, dv = torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, do, hd ** -0.5, causal, window or 0,
                                                  logit_softcap or 0.0, kv_cluster)

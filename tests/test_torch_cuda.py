@@ -25,7 +25,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
     fwd_route,
 )
-from repro_torch.kernels.flash_attention.ops import BWD_ROUTE_LAUNCHES, KV_CLUSTERS, PADDED_LAUNCHES, ROUTE_LAUNCHES
+from repro_torch.kernels.flash_attention.ops import (BWD_ROUTE_LAUNCHES, CLUSTER_LAUNCHES, KV_CLUSTER_SIZES,
+                                                     PADDED_LAUNCHES, ROUTE_LAUNCHES, bwd_cluster)
 from repro_torch.kernels.rwkv6_wkv import (GRAD_CHUNK, WKV_BWD_ROUTE_LAUNCHES, wkv6, wkv6_bwd,
                                            wkv6_bwd_chunked_ref, wkv6_bwd_ref, wkv6_fwd, wkv6_ref)
 from repro_torch.kernels.rwkv6_wkv.ops import bwd_route as wkv_bwd_route
@@ -206,7 +207,7 @@ def test_head_dim_256_wgmma_backward_matches_plain_and_is_deterministic(cuda, ca
 # 1024, 2 kv heads) that clusters of 2 take in two rounds
 KV_CLUSTER_CASES = [(case, size) for case in HD256_CASES + [(2, 1024, 1024, 4, 1, True, None, None),
                                                            (4, 1024, 1024, 4, 2, True, 256, None)]
-                    for size in KV_CLUSTERS if (case[3] // case[4]) % size == 0]
+                    for size in KV_CLUSTER_SIZES[256] if (case[3] // case[4]) % size == 0]
 
 
 @pytest.mark.parametrize("case,size", KV_CLUSTER_CASES, ids=str)
@@ -231,14 +232,105 @@ def test_head_dim_256_backward_at_every_cluster_size(cuda, case, size):
 
 
 def test_kv_cluster_is_refused_where_it_does_not_divide_or_apply(cuda):
+    """A dK/dV cluster size must be one the route takes at that head_dim
+    (``KV_CLUSTER_SIZES``: 1, 2, 4 at 256 and 1, 2 at 128; 1 elsewhere)
+    and divide the query heads a kv head."""
     q, k, v = _qkv(4, 1, 64, 64, 6, 1, 256, "bfloat16", cuda)
     out, lse = flash_attention_fwd(q, k, v, with_lse=True)
-    with pytest.raises(ValueError, match="kv_cluster 4"):
+    with pytest.raises(ValueError, match="kv_cluster 4"):  # does not divide 6
         flash_attention_bwd(q, k, v, out, lse, out, kv_cluster=4)
-    q, k, v = _qkv(4, 1, 64, 64, 4, 1, 128, "bfloat16", cuda)
+    with pytest.raises(ValueError, match="kv_cluster 3"):  # divides 6, but not a size at 256
+        flash_attention_bwd(q, k, v, out, lse, out, kv_cluster=3)
+    q, k, v = _qkv(4, 1, 64, 64, 6, 1, 128, "bfloat16", cuda)
     out, lse = flash_attention_fwd(q, k, v, with_lse=True)
-    with pytest.raises(ValueError, match="kv_cluster 2"):
+    with pytest.raises(ValueError, match="kv_cluster 3"):  # divides 6, but not a size at 128
+        flash_attention_bwd(q, k, v, out, lse, out, kv_cluster=3)
+    q, k, v = _qkv(4, 1, 64, 64, 7, 1, 128, "bfloat16", cuda)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="kv_cluster 2"):  # a size at 128, but does not divide 7
         flash_attention_bwd(q, k, v, out, lse, out, kv_cluster=2)
+    q, k, v = _qkv(4, 1, 64, 64, 4, 2, 64, "bfloat16", cuda)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True)
+    with pytest.raises(ValueError, match="kv_cluster 2"):  # head_dim 64 splits nothing
+        flash_attention_bwd(q, k, v, out, lse, out, kv_cluster=2)
+
+
+# (b, sq, sk, h, kvh, window, strided): the hd-128 GQA groups of mixtral (6,
+# window = S) and arctic (7), ragged against the 128-row items and 128-key
+# tiles, a cross length, and q, k, v as views of one fused projection
+HD128_GQA_CASES = [
+    (1, 300, 300, 12, 2, 300, False),
+    (2, 333, 333, 14, 2, None, False),
+    (1, 700, 700, 6, 1, 700, True),
+    (2, 1000, 1000, 7, 1, None, True),
+    (1, 200, 457, 12, 2, None, False),
+]
+
+
+def _fused_qkv(seed, b, s, h, kvh, hd, device):
+    """q, k, v as strided views of one [B, S, H + 2 KVH, hd] projection."""
+    rng = np.random.default_rng(seed)
+    fused = torch.tensor(rng.standard_normal((b, s, h + 2 * kvh, hd), np.float32)).to(device, torch.bfloat16)
+    return fused[:, :, :h], fused[:, :, h:h + kvh], fused[:, :, h + kvh:]
+
+
+@pytest.mark.parametrize("case", HD128_GQA_CASES, ids=str)
+def test_head_dim_128_gqa_forward_matches_plain(cuda, case):
+    """The hd-128 wgmma forward at mixtral's and arctic's groups (one CTA an
+    item): out and lse within 2e-2 of the plain version."""
+    b, sq, sk, h, kvh, window, strided = case
+    if strided:
+        assert sq == sk
+        q, k, v = _fused_qkv(8, b, sq, h, kvh, 128, cuda)
+        assert not q.is_contiguous()
+    else:
+        q, k, v = _qkv(8, b, sq, sk, h, kvh, 128, "bfloat16", cuda)
+    kw = dict(causal=sq <= sk, window=window)
+    before = ROUTE_LAUNCHES["wgmma"]
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES["wgmma"] == before + 1
+    plain, plain_lse = flash_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)), **kw)
+    torch.testing.assert_close(out.float(), plain.transpose(1, 2).float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, plain_lse, rtol=2e-2, atol=2e-2)
+
+
+# (b, sq, sk, h, kvh, window): mixtral's G 6 at head_dim 128 (window = S),
+# ragged; 128 items (a mesh shard's count at 1 x 4096) at 16 x 1024 with 6
+# over 1 (window 300); not causal Sq < Sk
+HD128_KV_CLUSTER_CASES = [
+    (1, 300, 300, 12, 2, 300, True),
+    (2, 1000, 1000, 6, 1, None, True),
+    (16, 1024, 1024, 6, 1, 300, True),
+    (1, 100, 333, 6, 1, None, False),
+]
+
+
+@pytest.mark.parametrize("case,size", [(c, z) for c in HD128_KV_CLUSTER_CASES for z in (None, *KV_CLUSTER_SIZES[128])],
+                         ids=str)
+def test_head_dim_128_backward_at_every_cluster_size(cuda, case, size):
+    """The hd-128 dK/dV kernel with its items' 6 query heads on one CTA or
+    split over a pair (forced, or None: the wrapper's bwd_cluster), K and V
+    multicast, the float32 partials summed: the launch counted at its size,
+    dQ, dK, dV within 2e-2 of the plain backward, and two calls give equal
+    bits."""
+    b, sq, sk, h, kvh, window, causal = case
+    q, k, v = _qkv(9, b, sq, sk, h, kvh, 128, "bfloat16", cuda)
+    do = _qkv(10, b, sq, sq, h, h, 128, "bfloat16", cuda)[0]
+    kw = dict(causal=causal, window=window)
+    out, lse = flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    CLUSTER_LAUNCHES.clear()
+    grads = flash_attention_bwd(q, k, v, out, lse, do, kv_cluster=size, **kw)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = size or bwd_cluster(torch.bfloat16, b, h, kvh, sk, 128, sms)
+    assert dict(CLUSTER_LAUNCHES) == {want: 1}
+    again = flash_attention_bwd(q, k, v, out, lse, do, kv_cluster=size, **kw)
+    torch.cuda.synchronize()
+    plain = flash_attention_bwd_ref(*(t.transpose(1, 2) for t in (q, k, v, out)), lse, do.transpose(1, 2), **kw)
+    for name, got, want, same in zip("qkv", grads, plain, again):
+        assert torch.equal(got, same), f"d{name} differs between two calls"
+        torch.testing.assert_close(got.float(), want.transpose(1, 2).float(), rtol=2e-2, atol=2e-2,
+                                   msg=lambda m, name=name: f"d{name}: {m}")
 
 
 @pytest.mark.parametrize("case", [(1, 300, 300, 4, 1, True, 100, None), (1, 100, 100, 2, 2, True, None, 30.0),

@@ -29,7 +29,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_ref,
     fwd_route,
 )
-from repro_torch.kernels.flash_attention.ops import KV_CLUSTERS, dkdv_cluster, kernel_head_dim, pad_head_dim
+from repro_torch.kernels.flash_attention.ops import (KV_CLUSTER_SIZES, KV_CLUSTERS, bwd_cluster, dkdv_cluster,
+                                                     dkdv_cluster_128, kernel_head_dim, pad_head_dim)
 
 # The JAX suite's own tolerances (tests/test_kernels.py::TOL).
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -47,6 +48,8 @@ SWEEP = [
     (1, 128, 128, 2, 1, 64, True, None, 30.0, 128),
     (1, 128, 384, 2, 2, 64, False, None, None, 128),  # cross lengths
     (1, 256, 256, 4, 1, 256, True, 64, None, 128),  # recurrentgemma-9b's hd 256, MQA, window
+    (1, 256, 256, 12, 2, 128, True, 256, None, 128),  # mixtral's hd 128, G 6, a window of Sq
+    (1, 256, 256, 14, 2, 128, True, None, None, 128),  # arctic's hd 128, G 7
 ]
 
 RAGGED = [
@@ -121,6 +124,8 @@ BWD = [
     (1, 37, 100, 2, 2, 16, False, None, 30.0),  # cross lengths, no mask
     (1, 100, 37, 2, 1, 16, True, None, None),  # more queries than keys
     (1, 100, 100, 4, 1, 256, True, 48, None),  # recurrentgemma-9b's hd 256: GQA 4 over 1, window, ragged
+    (1, 100, 100, 12, 2, 128, True, 100, None),  # mixtral's hd 128: G 6, a window of Sq, ragged
+    (1, 100, 100, 14, 2, 128, True, None, None),  # arctic's hd 128: G 7, ragged
 ]
 
 
@@ -273,6 +278,80 @@ def test_dkdv_cluster_divides_the_heads_and_fills_the_card(case):
     got = dkdv_cluster(b, kvh, sk, groups, sms)
     assert got == want
     assert got in KV_CLUSTERS and groups % got == 0 and got <= 4
+
+
+# (b, kvh, sk, groups, sms, want): the hd-128 dK/dV kernel's cluster, a pair
+# where the 128-key items are fewer than the SMs and G is even: mixtral's 1 x
+# 4096 (48 over 8: 256 items, 1: a pair measured slower), its mesh training
+# shard (24 over 4: 128 items on 132 SMs, 2: measured faster), serve_mixtral's
+# 4 x 4096 and its mesh shard 2 x 4096 (1), 48 heads over 1 (32 items, 2),
+# arctic's G 7 (odd: 1, even with few items), short and ragged ones (2), 8 x
+# 1024 with 8 heads over 2 (G 4: 2), and 128 items on 128 SMs (1: they fill it)
+DKDV_CLUSTER_128_CASES = [
+    (1, 8, 4096, 6, 132, 1),
+    (1, 4, 4096, 6, 132, 2),
+    (4, 8, 4096, 6, 132, 1),
+    (2, 4, 4096, 6, 132, 1),
+    (1, 1, 4096, 48, 132, 2),
+    (1, 8, 4096, 7, 132, 1),
+    (1, 2, 2048, 7, 132, 1),
+    (16, 1, 1024, 6, 132, 2),
+    (1, 2, 300, 6, 132, 2),
+    (2, 1, 1000, 6, 132, 2),
+    (8, 2, 1024, 4, 132, 2),
+    (1, 4, 4096, 6, 128, 1),
+]
+
+
+@pytest.mark.parametrize("case", DKDV_CLUSTER_128_CASES, ids=str)
+def test_dkdv_cluster_128_divides_the_heads_and_picks_the_measured_size(case):
+    b, kvh, sk, groups, sms, want = case
+    got = dkdv_cluster_128(b, kvh, sk, groups, sms)
+    assert got == want
+    assert got in KV_CLUSTER_SIZES[128] and groups % got == 0
+
+
+# (dtype, head_dim, (B, H, KVH, Sk), want): the wrapper's one choice by route:
+# bf16 hd 128 and 256 (wgmma) by their size functions, float32, hd 64 and
+# hd 96 (mma_sync) never split
+BWD_CLUSTER_CASES = [
+    ("bfloat16", 128, (1, 24, 4, 4096), 2),
+    ("bfloat16", 128, (1, 48, 8, 4096), 1),
+    ("bfloat16", 256, (1, 16, 1, 4096), dkdv_cluster(1, 1, 4096, 16, 132)),
+    ("float32", 128, (1, 24, 4, 4096), 1),
+    ("bfloat16", 64, (1, 24, 4, 4096), 1),
+    ("bfloat16", 96, (1, 24, 4, 4096), 1),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CLUSTER_CASES, ids=str)
+def test_bwd_cluster_by_route(case):
+    dtype, hd, (b, h, kvh, sk), want = case
+    assert bwd_cluster(getattr(torch, dtype), b, h, kvh, sk, hd, 132) == want
+
+
+def test_kv_cluster_sizes_by_head_dim():
+    """The sizes the wgmma dK/dV kernel takes: 1, 2, 4 at 256 and a pair at
+    128 (each CTA owns 8 of 16 column blocks; the other's go through its Q
+    and dO ring); 1 elsewhere."""
+    assert KV_CLUSTER_SIZES == {256: (1, 2, 4), 128: (1, 2)}
+    assert KV_CLUSTERS == (1, 2, 4)
+
+
+def test_window_of_sq_or_more_gives_the_same_outputs_and_gradients():
+    """A window of Sq or more cuts no pair (k > q - window holds for every
+    q < Sq <= window): the plain forward and backward give the same bits
+    with it as without, so the wrappers need not drop it."""
+    q, k, v = (_torch(a, "float32").requires_grad_(True) for a in _qkv(11, 1, 50, 50, 6, 1, 128, "float32"))
+    do = _torch(_qkv(12, 1, 50, 50, 6, 6, 128, "float32")[0], "float32")
+    got = []
+    for window in (None, 50, 64):
+        out = flash_attention(q, k, v, window=window)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        got.append((out, *grads))
+    for other in got[1:]:
+        for x, y in zip(got[0], other):
+            assert torch.equal(x, y)
 
 
 def test_head_dim_256_is_refused_naming_its_item():
